@@ -1,0 +1,14 @@
+"""kyverno-tpu on PyTorch and CUDA: the policy engine's device path on an
+NVIDIA H100, beside the JAX package it was ported from.
+
+Layer map:
+  - ``kyverno_tpu_torch.api``     policy CRD types + loaders
+  - ``kyverno_tpu_torch.engine``  anchors, leaf and condition operators
+  - ``kyverno_tpu_torch.models``  policy IR, compiler, flattener, engine
+  - ``kyverno_tpu_torch.ops``     CUDA kernels (glob NFA, check evaluation,
+                                  verdict reduction, scan counts), each
+                                  beside its plain PyTorch version
+  - ``kyverno_tpu_torch.convert`` carry compiled state from numpy
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,630 @@
+"""Resource batch -> leaf tensors.
+
+For every path in the compiled dictionary, enumerate the resource's slots
+(the wildcard expansion of the path), recording per slot:
+
+- ``mask``      prefix-presence bits (bit k = first k segments present on
+                this chain). ``leaf present`` is bit len(segments).
+- a *phantom slot* marks a broken chain (some map key absent): this is what
+  distinguishes "missing key -> pattern FAIL" from "empty array -> vacuous
+  PASS" (validate.go DefaultHandler vs validateArrayOfMaps over []).
+- value features: type tag, interned string id (values stringify the Go way
+  for wildcard comparison, pattern.go:309), i64 micro-units for anything
+  quantity-parseable, plain-float/int flags and duration micro-seconds for
+  the condition operators (variables/operator/*.go), bool value, and the
+  top-level element index for gate alignment.
+
+Paths rooted at ir.REQ_MARK resolve against the per-resource *request
+envelope* (operation, namespace, userInfo — admission context) instead of
+the resource body; ir.NSEFF_MARK resolves to the effective namespace
+(resource name for Namespace kinds, utils.go checkNamespace).
+
+Strings are interned into a per-batch dictionary; the NFA kernel matches
+patterns against the *dictionary* once and verdicts gather by id — the
+dedup that makes the string path cheap on device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..utils.duration import DurationError, parse_duration
+from ..utils.gofmt import value_to_string_for_equality
+from ..utils.quantity import QuantityError, parse_quantity
+from .compiler import STR_LEN, PolicyTensors
+from .ir import NSEFF_MARK, NUM_MAX, NUM_SCALE, REQ_MARK, SEP
+
+# type tags
+T_ABSENT, T_NULL, T_BOOL, T_NUM, T_STR, T_OBJ, T_LIST = range(7)
+
+# Canonical lane order. BATCH_ARRAYS are [B, ...]; DICT_ARRAYS are
+# per-batch string-dictionary tables. Bucket padding and the unpacked lane
+# tuple both derive from these two tuples — one source of truth.
+BATCH_ARRAYS = (
+    "mask", "slot_valid", "null_break", "type_tag", "str_id",
+    "num_hi", "num_lo", "num_ok", "num_plain", "num_int",
+    "dur_hi", "dur_lo", "dur_ok", "dur_any", "bool_val",
+    "elem0", "kind_id", "host_flag", "live",
+)
+DICT_ARRAYS = ("str_bytes", "str_len", "str_has_glob")
+
+# Packed transfer format. The 16 per-cell lanes compress into two uint32
+# words per cell, because every *value* lane (num/dur/bool) is a pure
+# function of the interned string: those move to a [V, 5] dictionary table
+# gathered back by str_id on device. The per-cell words:
+#   word0: str_id + 1                     (0 = no interned string)
+#   word1: mask(16) | type_tag(3)<<16 | slot_valid<<19 | null_break<<20
+#          | num_int<<21 | (elem0 + 1)<<22   (8 bits; > ELEM0_CAP -> host)
+# and one uint32 per resource:
+#   bmeta: (kind_id + 1)(16) | host_flag<<16 | live<<17
+# The dictionary value table [V, 5] uint32:
+#   d0: num_lo(31) | num_ok<<31        d1: num_hi (two's complement)
+#   d2: dur_lo(31) | dur_ok<<31        d3: dur_hi (two's complement)
+#   d4: str_len(7) | has_glob<<7 | bool_val<<8 | dur_any<<9 | num_plain<<10
+# About 8 bytes a cell over 4 arrays instead of ~35 over 19: the packed
+# blob is what crosses to the card, and the check kernel decodes it in
+# place (ops/eval.py).
+ELEM0_CAP = 254  # largest representable first-element index
+
+# Pad fill-value table for batch padding. Lanes that encode ids as row
+# indices pad with -1 ("no entry"); everything else pads with the natural
+# zero (dead slot / not live).
+PAD_FILL = {"kind_id": -1, "str_id": -1, "elem0": -1}
+
+
+def pad_fill(name: str) -> int:
+    """Fill value for padding lane ``name`` (BATCH_ARRAYS / DICT_ARRAYS /
+    num_val); unlisted lanes zero-fill."""
+    return PAD_FILL.get(name, 0)
+
+
+def _assemble_blob(cells, bmeta, str_bytes, dictv):
+    """Concatenate the packed arrays into one uint32 transfer buffer.
+    ops.eval._split_blob is the device-side inverse."""
+    B, P, E = cells.shape[:3]
+    V = int(dictv.shape[0])
+    sw = np.ascontiguousarray(str_bytes).view(np.uint32)
+    blob = np.concatenate([
+        cells.reshape(-1), bmeta.reshape(-1),
+        dictv.reshape(-1), sw.reshape(-1),
+    ])
+    return blob, (B, P, E, V)
+
+
+@dataclass
+class FlatBatch:
+    n: int                    # batch size
+    e: int                    # slots per path
+    mask: np.ndarray          # [B, P, E] uint16 prefix bits
+    slot_valid: np.ndarray    # [B, P, E] bool
+    null_break: np.ndarray    # [B, P, E] bool — chain broke at a non-dict
+                              # node (null/scalar/list parent): JMESPath
+                              # field access yields null, NOT a missing-key
+                              # error (engine/jmespath/interpreter._field)
+    type_tag: np.ndarray      # [B, P, E] int8
+    str_id: np.ndarray        # [B, P, E] int32 (-1 none)
+    num_val: np.ndarray       # [B, P, E] int64 (host-side reference)
+    num_hi: np.ndarray        # [B, P, E] int32 high limb (value >> 31)
+    num_lo: np.ndarray        # [B, P, E] int32 low limb (value & 0x7FFFFFFF)
+    num_ok: np.ndarray        # [B, P, E] bool (k8s-quantity-parseable)
+    num_plain: np.ndarray     # [B, P, E] bool (plain strconv float)
+    num_int: np.ndarray       # [B, P, E] bool (python/Go int value)
+    dur_hi: np.ndarray        # [B, P, E] int32 duration micro-seconds limbs
+    dur_lo: np.ndarray        # [B, P, E] int32
+    dur_ok: np.ndarray        # [B, P, E] bool (duration-parseable, not "0")
+    dur_any: np.ndarray       # [B, P, E] bool (duration-parseable incl "0")
+    bool_val: np.ndarray      # [B, P, E] bool
+    elem0: np.ndarray         # [B, P, E] int32 top-level element index (-1)
+    kind_id: np.ndarray       # [B] int32 (-1 unknown kind)
+    host_flag: np.ndarray     # [B] bool — needs the CPU oracle
+    live: np.ndarray          # [B] bool — real resource (False = pad row;
+                              # a real resource may legitimately have zero
+                              # valid slots when every path crosses an
+                              # empty array, so liveness is explicit)
+    # string dictionary
+    str_bytes: np.ndarray     # [V, STR_LEN] uint8
+    str_len: np.ndarray       # [V] int32
+    str_has_glob: np.ndarray  # [V] bool ('*' or '?' byte present)
+    strings: list[str]
+
+    def packed_args(self) -> tuple:
+        """(cells, bmeta, str_bytes, dictv) — the transfer-thin form (see
+        the packed transfer format above). Cached: repeated evaluations of
+        one FlatBatch pack once."""
+        packed = getattr(self, "_packed", None)
+        if packed is None:
+            packed = pack_batch(self)
+            object.__setattr__(self, "_packed", packed)
+        return packed
+
+    def packed_blob(self) -> tuple[np.ndarray, tuple[int, int, int, int]]:
+        """One contiguous uint32 buffer + (B, P, E, V) shape: the single
+        host->device copy the device evaluation reads (ops/eval.py)."""
+        blob = getattr(self, "_blob", None)
+        if blob is None:
+            blob = _assemble_blob(*self.packed_args())
+            object.__setattr__(self, "_blob", blob)
+        return blob
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+def pad_to_buckets(batch: FlatBatch) -> tuple["FlatBatch", int]:
+    """Pad the data-dependent axes (batch B, slots-per-path E, dictionary V)
+    up to powers of two, so batches of nearby sizes share one shape
+    *bucket*. Padded batch rows carry
+    ``live=False``; padded slots carry ``slot_valid=False`` (the natural
+    encoding for unused slots); padded dictionary rows are never gathered
+    because no slot references their ids. Returns (padded, original_n)."""
+    from dataclasses import replace
+
+    b, e = batch.n, batch.e
+    v = int(batch.str_len.shape[0])
+    b2, e2, v2 = _next_pow2(b), _next_pow2(e), _next_pow2(v)
+    if (b2, e2, v2) == (b, e, v):
+        return batch, b
+
+    updates: dict = {"n": b2, "e": e2}
+    for name in BATCH_ARRAYS + ("num_val",):
+        x = getattr(batch, name)
+        width = [(0, b2 - b)] + [(0, 0)] * (x.ndim - 1)
+        if x.ndim == 3:
+            width[2] = (0, e2 - e)
+        updates[name] = np.pad(x, width, constant_values=pad_fill(name))
+    for name in DICT_ARRAYS:
+        x = getattr(batch, name)
+        width = [(0, v2 - v)] + [(0, 0)] * (x.ndim - 1)
+        updates[name] = np.pad(x, width, constant_values=0)
+    return replace(batch, **updates), b
+
+
+def pack_batch(batch: FlatBatch) -> tuple:
+    """Compress a FlatBatch into the packed transfer form
+    (cells uint32 [B,P,E,2], bmeta uint32 [B], str_bytes, dictv uint32 [V,5]).
+
+    The dictionary value rows are scattered from the cell lanes rather than
+    re-analyzed from the strings: within one batch every cell referencing a
+    dictionary row agrees on that row's value lanes for its type class
+    (num lanes are shared by T_NUM/T_STR referents — a JSON number and the
+    equal string intern the same text and micro value; dur lanes are set
+    only by T_STR cells; bool only by T_BOOL), so last-write-wins is exact.
+    Rows referenced by no cell of a class leave that class's bits zero, and
+    the device unpack gates each class by type_tag, so the bits are never
+    read. Resources whose elem0 exceeds ELEM0_CAP take the host lane (the
+    oracle re-walks the original document, so capping is correct)."""
+    u32 = np.uint32
+    sid_w = (batch.str_id.astype(np.int64) + 1).astype(u32)
+    e0 = batch.elem0.astype(np.int64)
+    e0_over = e0 > ELEM0_CAP - 1
+    e0_w = np.minimum(e0 + 1, 255).astype(u32)
+    meta = (
+        batch.mask.astype(u32)
+        | (batch.type_tag.astype(u32) << 16)
+        | (batch.slot_valid.astype(u32) << 19)
+        | (batch.null_break.astype(u32) << 20)
+        | (batch.num_int.astype(u32) << 21)
+        | (e0_w << 22)
+    )
+    cells = np.stack([sid_w, meta], axis=-1)
+
+    # a numeric/duration value on a string too long to intern has no
+    # dictionary row to carry it — route the resource to the CPU oracle
+    # (mirrors ktpu_flatten_packed's long-text handling)
+    lost = ((batch.num_ok | batch.dur_any) & (batch.str_id < 0)).any(axis=(1, 2))
+    host = batch.host_flag | e0_over.any(axis=(1, 2)) | lost
+    bmeta = (
+        (batch.kind_id.astype(np.int64) + 1).astype(u32)
+        | (host.astype(u32) << 16)
+        | (batch.live.astype(u32) << 17)
+    )
+
+    V = int(batch.str_len.shape[0])
+    d = np.zeros((V, 5), dtype=u32)
+    sid = batch.str_id.ravel()
+    tag = batch.type_tag.ravel()
+    ref = sid >= 0
+
+    numsel = ref & ((tag == T_NUM) | (tag == T_STR))
+    i = sid[numsel]
+    d[i, 0] = (batch.num_lo.ravel()[numsel].astype(np.int64) & 0x7FFFFFFF).astype(u32) \
+        | (batch.num_ok.ravel()[numsel].astype(u32) << 31)
+    d[i, 1] = batch.num_hi.ravel()[numsel].astype(u32)
+    plain = np.zeros(V, dtype=u32)
+    plain[i] = batch.num_plain.ravel()[numsel].astype(u32)
+
+    dursel = ref & (tag == T_STR)
+    i = sid[dursel]
+    d[i, 2] = (batch.dur_lo.ravel()[dursel].astype(np.int64) & 0x7FFFFFFF).astype(u32) \
+        | (batch.dur_ok.ravel()[dursel].astype(u32) << 31)
+    d[i, 3] = batch.dur_hi.ravel()[dursel].astype(u32)
+    durany = np.zeros(V, dtype=u32)
+    durany[i] = batch.dur_any.ravel()[dursel].astype(u32)
+
+    boolv = np.zeros(V, dtype=u32)
+    boolsel = ref & (tag == T_BOOL)
+    i = sid[boolsel]
+    boolv[i] = batch.bool_val.ravel()[boolsel].astype(u32)
+
+    d[:, 4] = (
+        batch.str_len.astype(u32)
+        | (batch.str_has_glob.astype(u32) << 7)
+        | (boolv << 8)
+        | (durany << 9)
+        | (plain << 10)
+    )
+    return cells, bmeta, batch.str_bytes, d
+
+
+def unpack_batch(cells, bmeta, str_bytes, dictv, xp=np):
+    """Inverse of pack_batch: reconstruct the 22 evaluation lanes on the
+    host (numpy). On the card the same decode is fused into the check
+    kernel's loads (ops/eval.py)."""
+    w0 = cells[..., 0]
+    meta = cells[..., 1]
+    str_id = w0.astype(xp.int32) - 1
+    mask = (meta & 0xFFFF).astype(xp.uint16)
+    type_tag = ((meta >> 16) & 7).astype(xp.int8)
+    slot_valid = ((meta >> 19) & 1).astype(bool)
+    null_break = ((meta >> 20) & 1).astype(bool)
+    num_int = ((meta >> 21) & 1).astype(bool)
+    elem0 = ((meta >> 22) & 0xFF).astype(xp.int32) - 1
+
+    sid_safe = xp.maximum(str_id, 0)
+    present = str_id >= 0
+    tag_i = type_tag.astype(xp.int32)
+    is_numlike = (tag_i == T_NUM) | (tag_i == T_STR)
+    is_str = tag_i == T_STR
+    is_bool = tag_i == T_BOOL
+
+    def gather(col):
+        return xp.take(dictv[:, col], sid_safe)
+
+    d0, d1, d2, d3, d4 = (gather(c) for c in range(5))
+    num_ok = ((d0 >> 31) & 1).astype(bool) & present & is_numlike
+    num_lo = xp.where(num_ok, (d0 & 0x7FFFFFFF).astype(xp.int32), 0)
+    num_hi = xp.where(num_ok, d1.astype(xp.int32), 0)
+    num_plain = ((d4 >> 10) & 1).astype(bool) & present & is_numlike
+    dur_any = ((d4 >> 9) & 1).astype(bool) & present & is_str
+    dur_ok = ((d2 >> 31) & 1).astype(bool) & present & is_str
+    dur_lo = xp.where(dur_any, (d2 & 0x7FFFFFFF).astype(xp.int32), 0)
+    dur_hi = xp.where(dur_any, d3.astype(xp.int32), 0)
+    bool_val = ((d4 >> 8) & 1).astype(bool) & present & is_bool
+    num_int = num_int & is_numlike
+
+    kind_id = (bmeta & 0xFFFF).astype(xp.int32) - 1
+    host_flag = ((bmeta >> 16) & 1).astype(bool)
+    live = ((bmeta >> 17) & 1).astype(bool)
+    str_len = (dictv[:, 4] & 0x7F).astype(xp.int32)
+    str_has_glob = ((dictv[:, 4] >> 7) & 1).astype(bool)
+    return (mask, slot_valid, null_break, type_tag, str_id, num_hi, num_lo,
+            num_ok, num_plain, num_int, dur_hi, dur_lo, dur_ok, dur_any,
+            bool_val, elem0, kind_id, host_flag, live,
+            str_bytes, str_len, str_has_glob)
+
+
+@dataclass
+class PackedBatch:
+    """A flattened batch already in the packed transfer form
+    (cells [B,P,E,2] uint32, bmeta [B] uint32, str_bytes [V,STR_LEN]
+    uint8, dictv [V,5] uint32) — what ``convert.batch_from_numpy`` and
+    other packed producers hand to the engine."""
+
+    n: int
+    e: int
+    cells: np.ndarray
+    bmeta: np.ndarray
+    str_bytes: np.ndarray
+    dictv: np.ndarray
+
+    def packed_args(self) -> tuple:
+        return (self.cells, self.bmeta, self.str_bytes, self.dictv)
+
+    def packed_blob(self) -> tuple[np.ndarray, tuple[int, int, int, int]]:
+        blob = getattr(self, "_blob", None)
+        if blob is None:
+            blob = _assemble_blob(*self.packed_args())
+            object.__setattr__(self, "_blob", blob)
+        return blob
+
+
+class _Interner:
+    def __init__(self):
+        self.index: dict[str, int] = {}
+        self.strings: list[str] = []
+
+    def intern(self, s: str) -> int:
+        i = self.index.get(s)
+        if i is None:
+            i = len(self.strings)
+            self.index[s] = i
+            self.strings.append(s)
+        return i
+
+
+def _value_to_micro(value) -> int | None:
+    try:
+        if isinstance(value, bool):
+            return None
+        if isinstance(value, float):
+            # decode the shortest decimal repr (the JSON token) rather than
+            # the exact binary double: "0.1" means 100000 micro, and repr
+            # artifacts like 0.30000000000000004 take the host lane — the
+            # same decision the native flattener makes from the token text
+            micro = parse_quantity(repr(value)) * NUM_SCALE
+        elif isinstance(value, int):
+            from fractions import Fraction
+
+            micro = Fraction(value) * NUM_SCALE
+        elif isinstance(value, str):
+            micro = parse_quantity(value) * NUM_SCALE
+        else:
+            return None
+    except (QuantityError, ValueError, OverflowError):
+        return None
+    if micro.denominator != 1 or abs(micro.numerator) > NUM_MAX:
+        return None
+    return int(micro)
+
+
+def _digit_capped(s: str) -> bool:
+    """True when the leading number part has more than 36 digits — beyond
+    the native flattener's exact __int128 range. Mirrors the counting loop
+    in ktpu_flatten.cpp quantity_to_micro: ASCII-trim, optional sign, then
+    digits with a single embedded dot."""
+    s = s.strip(" \t\n\r\f\v")
+    i = 0
+    if i < len(s) and s[i] in "+-":
+        i += 1
+    n = 0
+    seen_dot = False
+    for ch in s[i:]:
+        if "0" <= ch <= "9":
+            n += 1
+            if n > 36:
+                return True
+        elif ch == "." and not seen_dot:
+            seen_dot = True
+        else:
+            break
+    return False
+
+
+def _needs_host_parse(s: str) -> bool:
+    """True when the string could parse differently under unicode-aware
+    rules (str.strip(), regex \\d, float()) than under the ASCII grammar
+    the device lanes and the native flattener implement: any unicode
+    whitespace/decimal digit, or the \\x1c-\\x1f controls str.isspace()
+    accepts. Such leaves route the resource to the CPU oracle."""
+    import unicodedata
+
+    for ch in s:
+        o = ord(ch)
+        if 0x1C <= o <= 0x1F:
+            return True
+        if o > 0x7F and (ch.isspace() or unicodedata.category(ch) == "Nd"):
+            return True
+    return False
+
+
+def _duration_micro(value: str) -> int | None:
+    """Go-duration parse -> micro-seconds. ``dur_ok`` (strict) additionally
+    excludes the literal "0" (operator.go:82 parseDuration); ``dur_any``
+    keeps it (duration.go's deprecated Duration* handlers accept it)."""
+    try:
+        secs = parse_duration(value)
+    except DurationError:
+        return None
+    micro = round(secs * 1_000_000)
+    if abs(micro) > NUM_MAX:
+        return None
+    return micro
+
+
+def _effective_namespace(resource: dict) -> str:
+    meta = resource.get("metadata") or {}
+    if resource.get("kind") == "Namespace":
+        return meta.get("name") or ""
+    return meta.get("namespace") or ""
+
+
+def _enumerate_slots(resource, segments: list[str], request: dict,
+                     ns_eff: str):
+    """Yield (mask, elem0, leaf_value_or_None, leaf_present, null_break)
+    for every chain of ``segments`` through the resource (or the request
+    envelope / the effective-namespace synthetic). A phantom slot (leaf None
+    + short mask) marks a broken chain; ``null_break`` records that the
+    break happened at a node that exists but is not a map — the JMESPath
+    fork resolves such a path to null instead of raising NotFound
+    (interpreter._field), which conditions treat as a null key, not an
+    unresolved variable. Empty arrays yield nothing."""
+    if segments and segments[0] == NSEFF_MARK:
+        return [(0b11, -1, ns_eff, True, False)]
+    if segments and segments[0] == REQ_MARK:
+        root = request
+        segments = segments[1:]
+        base_mask = 0b11 if request else 0b1
+        if not segments:
+            return [(base_mask, -1, None, False, False)]
+        offset = 1
+    else:
+        root = resource
+        base_mask = 0b1
+        offset = 0
+
+    out = []
+
+    def walk(node, i: int, mask: int, elem0: int):
+        if i == len(segments):
+            out.append((mask, elem0, node, True, False))
+            return
+        seg = segments[i]
+        bit = 1 << (i + 1 + offset)
+        if seg == "*":
+            if not isinstance(node, list):
+                # a list pattern over an existing non-list node is a
+                # structural mismatch (validateResourceElement array case)
+                out.append((mask, elem0, None, False, True))
+                return
+            for idx, el in enumerate(node):
+                walk(el, i + 1, mask | bit, idx if elem0 < 0 else elem0)
+        else:
+            if not isinstance(node, dict):
+                out.append((mask, elem0, None, False, True))
+                return
+            if seg not in node:
+                out.append((mask, elem0, None, False, False))
+                return
+            walk(node[seg], i + 1, mask | bit, elem0)
+
+    if root is None or (offset == 1 and not request):
+        return [(base_mask, -1, None, False, False)]
+    walk(root, 0, base_mask, -1)  # bit 0: the root itself
+    return out
+
+
+def flatten_batch(resources: list[dict], tensors: PolicyTensors,
+                  max_slots: int = 16,
+                  requests: list[dict] | None = None) -> FlatBatch:
+    """``requests`` optionally supplies per-resource admission envelopes
+    (operation/namespace/userInfo) backing REQ_MARK paths; a background
+    scan passes none and request.* condition keys resolve as absent, the
+    same way the oracle's scan context leaves them unresolved."""
+    B, P = len(resources), tensors.n_paths
+    path_segments = [p.split(SEP) for p in tensors.paths]
+    envelopes = requests if requests is not None else [{}] * B
+
+    # first pass: find E
+    all_slots: list[list] = []
+    e_needed = 1
+    host_flag = np.zeros(B, dtype=bool)
+    for b, resource in enumerate(resources):
+        row = []
+        ns_eff = _effective_namespace(resource) if isinstance(resource, dict) else ""
+        env = envelopes[b] or {}
+        for segs in path_segments:
+            slots = _enumerate_slots(resource, segs, env, ns_eff)
+            if len(slots) > max_slots:
+                host_flag[b] = True
+                slots = slots[:max_slots]
+            e_needed = max(e_needed, len(slots))
+            row.append(slots)
+        all_slots.append(row)
+    E = e_needed
+
+    interner = _Interner()
+    mask = np.zeros((B, P, E), dtype=np.uint16)
+    slot_valid = np.zeros((B, P, E), dtype=bool)
+    null_break = np.zeros((B, P, E), dtype=bool)
+    type_tag = np.full((B, P, E), T_ABSENT, dtype=np.int8)
+    str_id = np.full((B, P, E), -1, dtype=np.int32)
+    num_val = np.zeros((B, P, E), dtype=np.int64)
+    num_ok = np.zeros((B, P, E), dtype=bool)
+    num_plain = np.zeros((B, P, E), dtype=bool)
+    num_int = np.zeros((B, P, E), dtype=bool)
+    dur_val = np.zeros((B, P, E), dtype=np.int64)
+    dur_ok = np.zeros((B, P, E), dtype=bool)
+    dur_any = np.zeros((B, P, E), dtype=bool)
+    bool_val = np.zeros((B, P, E), dtype=bool)
+    elem0 = np.full((B, P, E), -1, dtype=np.int32)
+    kind_id = np.full(B, -1, dtype=np.int32)
+
+    for b, resource in enumerate(resources):
+        kind = (resource.get("kind") or "") if isinstance(resource, dict) else ""
+        kind_id[b] = tensors.kind_index.get(kind, -1)
+        for p in range(P):
+            for e, (m, e0, value, leaf, nbrk) in enumerate(all_slots[b][p]):
+                mask[b, p, e] = m
+                slot_valid[b, p, e] = True
+                null_break[b, p, e] = nbrk
+                elem0[b, p, e] = e0
+                if not leaf:
+                    continue
+                if value is None:
+                    type_tag[b, p, e] = T_NULL
+                elif isinstance(value, bool):
+                    type_tag[b, p, e] = T_BOOL
+                    bool_val[b, p, e] = value
+                    str_id[b, p, e] = interner.intern("true" if value else "false")
+                elif isinstance(value, (int, float)):
+                    type_tag[b, p, e] = T_NUM
+                    num_int[b, p, e] = isinstance(value, int)
+                    s = value_to_string_for_equality(value)
+                    if len(s) <= STR_LEN:
+                        str_id[b, p, e] = interner.intern(s)
+                    n = _value_to_micro(value)
+                    if n is not None:
+                        num_val[b, p, e] = n
+                        num_ok[b, p, e] = True
+                        num_plain[b, p, e] = True
+                    else:
+                        host_flag[b] = True
+                elif isinstance(value, str):
+                    type_tag[b, p, e] = T_STR
+                    if len(value.encode("utf-8")) <= STR_LEN:
+                        str_id[b, p, e] = interner.intern(value)
+                    else:
+                        host_flag[b] = True
+                    if _needs_host_parse(value):
+                        # unicode-sensitive parse: leave the numeric lanes
+                        # empty and let the oracle evaluate this resource
+                        host_flag[b] = True
+                        continue
+                    if _digit_capped(value):
+                        # >36-digit number part: exact range exceeded
+                        host_flag[b] = True
+                        continue
+                    try:
+                        int(value, 10)
+                        num_int[b, p, e] = True  # strconv.ParseInt-able
+                    except ValueError:
+                        pass
+                    n = _value_to_micro(value)
+                    if n is not None:
+                        num_val[b, p, e] = n
+                        num_ok[b, p, e] = True
+                        try:
+                            float(value)
+                            num_plain[b, p, e] = True
+                        except ValueError:
+                            pass
+                    d = _duration_micro(value)
+                    if d is not None:
+                        dur_val[b, p, e] = d
+                        dur_any[b, p, e] = True
+                        dur_ok[b, p, e] = value != "0"
+                elif isinstance(value, dict):
+                    type_tag[b, p, e] = T_OBJ
+                else:
+                    type_tag[b, p, e] = T_LIST
+
+    num_hi = (num_val >> 31).astype(np.int32)
+    num_lo = (num_val & 0x7FFFFFFF).astype(np.int32)
+    dur_hi = (dur_val >> 31).astype(np.int32)
+    dur_lo = (dur_val & 0x7FFFFFFF).astype(np.int32)
+
+    V = max(1, len(interner.strings))
+    str_bytes = np.zeros((V, STR_LEN), dtype=np.uint8)
+    str_len = np.zeros(V, dtype=np.int32)
+    str_has_glob = np.zeros(V, dtype=bool)
+    for i, s in enumerate(interner.strings):
+        bs = s.encode("utf-8")[:STR_LEN]
+        str_bytes[i, : len(bs)] = np.frombuffer(bs, dtype=np.uint8)
+        str_len[i] = len(bs)
+        str_has_glob[i] = "*" in s or "?" in s
+
+    return FlatBatch(
+        n=B, e=E, mask=mask, slot_valid=slot_valid, null_break=null_break,
+        type_tag=type_tag,
+        str_id=str_id, num_val=num_val, num_hi=num_hi, num_lo=num_lo,
+        num_ok=num_ok, num_plain=num_plain, num_int=num_int,
+        dur_hi=dur_hi, dur_lo=dur_lo, dur_ok=dur_ok, dur_any=dur_any,
+        bool_val=bool_val,
+        elem0=elem0, kind_id=kind_id, host_flag=host_flag,
+        live=np.ones(B, dtype=bool),
+        str_bytes=str_bytes, str_len=str_len, str_has_glob=str_has_glob,
+        strings=interner.strings,
+    )
