@@ -22,8 +22,8 @@ Phases:
                10,000, equal to the plain pipeline's counts on the card
   5. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
-               card could take: the larger of its bytes over the memory
-               rate and its operations over the peak rate
+               card could take: the bytes the function must move over
+               the memory rate (each kernel is bytes-bound)
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -396,17 +396,12 @@ def random_resource(rng) -> dict:
 
 EXPECTED_HIST = [1160000, 1066000, 262000, 0, 0, 12000]
 EXPECTED_SHA = "82a85e14371fdb5944a2fa9d1f20be873a7984cf851eb49abfc43628d0f5c019"
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM memory rate (data sheet)
-# The kernels do 32-bit integer and logic work, outside the tensor cores.
-# NVIDIA's H100 SXM data sheet gives 67 T/s for float32 there; the
-# operations bound uses that rate for these operations.
-PEAK_OPS_PER_S = 67e12
-# Operations per element, counted from the kernels' source: one step of
-# the NFA (K1, per string byte); one slot's decode, leaf compare and
-# reduction (K2+K3, per check row and slot) and one aux row predicate;
-# one list entry walked (K4); one verdict cell read twice (K5).
-OPS_NFA_STEP, OPS_SLOT, OPS_AUX_ROW = 11, 115, 150
-OPS_CELL_BASE, OPS_WALK, OPS_SCAN_CELL = 40, 12, 9
+# H100 SXM memory rate (data sheet). Every kernel here is bytes-bound: per
+# element the function needs a few dozen integer operations (one NFA step
+# per string byte, one compare per slot, one list entry per reduction),
+# far under the card's integer rate, so the bound is the bytes it must
+# move, each input read once and each output written once.
+HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCES = {
     "glob_nfa": ("kyverno_tpu_torch/csrc/glob_nfa.cu",
                  "kyverno_tpu/ops/glob.py:31"),
@@ -469,7 +464,7 @@ class Stages:
         p = self.plan
         f = glob.glob_match_matrix_plain if plain else glob.glob_match_matrix
         return f(p.nfa_char, p.nfa_is_star, p.nfa_is_q, p.nfa_len,
-                 self.str_bytes, self.str_len, 0x7F)
+                 self.str_bytes, self.str_len)
 
     def k23(self, match_nv, plain=False):
         f = self.ev.eval_checks_plain if plain else self.ev.eval_checks
@@ -511,7 +506,7 @@ def plain_pipeline(plan, blob, shape):
     _, _, dictv, str_bytes = ev.blob_parts(blob, *shape)
     m = glob.glob_match_matrix_plain(plan.nfa_char, plan.nfa_is_star,
                                      plan.nfa_is_q, plan.nfa_len, str_bytes,
-                                     dictv[:, 4], 0x7F)
+                                     dictv[:, 4])
     return ev.eval_verdict_plain(plan, blob, *shape,
                                  *ev.eval_checks_plain(plan, blob, *shape, m))
 
@@ -700,16 +695,6 @@ def main() -> int:
         "eval_verdict": B * C + B * NC * 12 + B * X + 4 * B + plan_bytes + B * R,
         "scan_counts": B * R + B + 8 * R,
     }
-    str_len = (ev.blob_parts(st.blob, *st.shape)[2][:, 4] & 0x7F).clamp(max=64)
-    gate_rows = int(cps.tensors.chk_is_gate_row.sum())
-    # K4 walks, per resource, every rule's check rows and aux rows once
-    walked = C + X + int(plan.cols["axg_filt"].ge(0).sum()) + plan.A + plan.G
-    ops_of = {
-        "glob_nfa": N * int(str_len.sum()) * OPS_NFA_STEP,
-        "eval_checks": B * (C * E + gate_rows * E) * OPS_SLOT + B * X * OPS_AUX_ROW,
-        "eval_verdict": B * R * OPS_CELL_BASE + B * walked * OPS_WALK,
-        "scan_counts": B * R * OPS_SCAN_CELL,
-    }
     calls = {
         "glob_nfa": (lambda: st.k1(), lambda: st.k1(plain=True)),
         "eval_checks": (lambda: st.k23(m), lambda: st.k23(m, plain=True)),
@@ -730,20 +715,15 @@ def main() -> int:
         b = b if isinstance(b, tuple) else (b,)
         max_err = max(float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                       if x.numel() else 0.0 for x, y in zip(a, b))
-        bytes_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops_of[name] / PEAK_OPS_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        bound_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
         src, repl = KERNEL_SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": launches[name],
                      "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, "bytes": bytes_of[name],
-                     "ops": ops_of[name]})
+                     "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": None, "bytes": bytes_of[name]})
         log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
-            f"{bound_ms:.5f} ms by {bound_by} ({bytes_of[name]} bytes -> "
-            f"{bytes_ms:.5f} ms, {ops_of[name]} ops -> {ops_ms:.5f} ms); "
+            f"{bound_ms:.5f} ms by bytes ({bytes_of[name]} bytes); "
             f"{100 * bound_ms / ms:.2f}% of the bound; {smi}")
     dev_ms = cuda_ms(lambda: ev.evaluate_blob(plan, st.blob, *st.shape), 50)
     e2e = []
@@ -751,9 +731,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cps.evaluate_device(batch)
         e2e.append((time.perf_counter() - t0) * 1e3)
-    path_bound = max((blob_bytes + plan_bytes + B * R) / HBM_BYTES_PER_S,
-                     sum(ops_of[k] for k in ops_of if k != "scan_counts")
-                     / PEAK_OPS_PER_S) * 1e3
+    path_bound = (blob_bytes + plan_bytes + B * R) / HBM_BYTES_PER_S * 1e3
     log(f"[times] evaluate_blob on the device (K1+K2+K3+K4): {dev_ms:.4f} ms, "
         f"bound {path_bound:.5f} ms; "
         f"evaluate_device with copies, median of 5: {statistics.median(e2e):.3f} ms "

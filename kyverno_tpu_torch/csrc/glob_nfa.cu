@@ -27,6 +27,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+// A dictionary length word keeps flag bits above bit 7; lengths are <= 64.
+constexpr uint32_t kLenMask = 0x7F;
 
 __global__ void glob_nfa_kernel(const uint8_t* __restrict__ nfa_char,
                                 const uint8_t* __restrict__ nfa_star,
@@ -35,7 +37,7 @@ __global__ void glob_nfa_kernel(const uint8_t* __restrict__ nfa_char,
                                 int S,
                                 const uint8_t* __restrict__ str_bytes, int L,
                                 const int32_t* __restrict__ str_len,
-                                long long len_stride, uint32_t len_mask,
+                                long long len_stride,
                                 int V, uint8_t* __restrict__ out) {
   __shared__ unsigned long long consume[256];
   __shared__ unsigned long long star_sh;
@@ -68,7 +70,7 @@ __global__ void glob_nfa_kernel(const uint8_t* __restrict__ nfa_char,
   const unsigned long long star = star_sh;
   unsigned long long s = 1ull;
   s = (s | ((s & star) << 1)) & full;
-  int len = (int)((uint32_t)str_len[(long long)v * len_stride] & len_mask);
+  int len = (int)((uint32_t)str_len[(long long)v * len_stride] & kLenMask);
   if (len > L) len = L;
   const uint8_t* bytes = str_bytes + (long long)v * L;
   for (int j = 0; j < len; ++j) {
@@ -86,13 +88,13 @@ __global__ void glob_nfa_kernel(const uint8_t* __restrict__ nfa_char,
 extern "C" int ktpu_glob_nfa(int64_t nfa_char, int64_t nfa_star, int64_t nfa_q,
                              int64_t nfa_len, int64_t N, int64_t S,
                              int64_t str_bytes, int64_t L, int64_t str_len,
-                             int64_t len_stride, int64_t len_mask, int64_t V,
+                             int64_t len_stride, int64_t V,
                              int64_t out, int64_t stream) {
   dim3 grid((unsigned)((V + kThreads - 1) / kThreads), (unsigned)N);
   glob_nfa_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)nfa_char, (const uint8_t*)nfa_star,
       (const uint8_t*)nfa_q, (const int32_t*)nfa_len, (int)S,
       (const uint8_t*)str_bytes, (int)L, (const int32_t*)str_len,
-      (long long)len_stride, (uint32_t)len_mask, (int)V, (uint8_t*)out);
+      (long long)len_stride, (int)V, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

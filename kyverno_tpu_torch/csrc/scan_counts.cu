@@ -61,11 +61,8 @@ __global__ void counts_kernel(const int8_t* __restrict__ v, int B, int R,
 extern "C" int ktpu_scan_counts(int64_t v, int64_t B, int64_t R,
                                 int64_t fails, int64_t passes,
                                 int64_t host_rows, int64_t stream) {
+  // fails and passes arrive zeroed: the wrapper allocates them so.
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync((void*)fails, 0, sizeof(int) * R, st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync((void*)passes, 0, sizeof(int) * R, st);
-  if (err != cudaSuccess) return (int)err;
   const long long threads = B * 32;
   rows_kernel<<<(unsigned)((threads + kThreads - 1) / kThreads), kThreads, 0,
                 st>>>((const int8_t*)v, (int)B, (int)R, (uint8_t*)host_rows);

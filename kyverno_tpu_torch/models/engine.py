@@ -82,12 +82,6 @@ class AsyncVerdicts:
             self._out = None
         return self._verdicts
 
-    def done(self) -> bool:
-        """Non-blocking completeness probe."""
-        if self._verdicts is not None or self._event is None:
-            return True
-        return bool(self._event.query())
-
 
 class CompiledPolicySet:
     def __init__(self, policies: list, device=None,

@@ -797,8 +797,7 @@ def match_matrix(plan: Plan, blob, B: int, P: int, E: int, V: int):
     """Stage 1 (K1) over the blob's dictionary: [N, V] bool."""
     _, _, dictv, str_bytes = blob_parts(blob, B, P, E, V)
     return glob_match_matrix(plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q,
-                             plan.nfa_len, str_bytes, dictv[:, 4],
-                             len_mask=0x7F)
+                             plan.nfa_len, str_bytes, dictv[:, 4])
 
 
 def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):

@@ -5,7 +5,9 @@
 The NFA has one state per pattern position. ``*`` states self-loop and
 epsilon-advance (runs of stars are collapsed at compile time, so one
 propagation step per transition suffices); ``?`` consumes any byte; a
-string steps only while ``j < str_len``.
+string steps only while ``j < str_len``. A string's length is
+``str_len & 0x7F``: the packed dictionary keeps flag bits above bit 7 of
+the same word, and no valid length exceeds ``STR_LEN`` = 64.
 
 :func:`glob_match_matrix` launches the CUDA kernel ``csrc/glob_nfa.cu``
 for tensors on the card and runs :func:`glob_match_matrix_plain`, the
@@ -18,6 +20,7 @@ import torch
 
 from . import _build
 
+LEN_MASK = 0x7F
 
 def _epsilon_closure(states, star_pad):
     """Advance through '*' states without consuming input."""
@@ -27,7 +30,7 @@ def _epsilon_closure(states, star_pad):
 
 
 def glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
-                            str_bytes, str_len, len_mask: int = -1):
+                            str_bytes, str_len):
     """match[n, v] as a [N, V, S+1] boolean lattice stepped over the bytes.
 
     Args (tensors on one device):
@@ -36,13 +39,13 @@ def glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
       nfa_is_q:    [N, S] bool
       nfa_len:     [N]    int32 pattern length (accepting state index)
       str_bytes:   [V, L] uint8 zero-padded string bytes
-      str_len:     [V]    int32; ``str_len & len_mask`` is the length
+      str_len:     [V]    int32; ``str_len & LEN_MASK`` is the length
     Returns: [N, V] bool
     """
     n, s = nfa_char.shape
     v, L = str_bytes.shape
     dev = nfa_char.device
-    lens = str_len.to(torch.int64) & len_mask
+    lens = str_len.to(torch.int64) & LEN_MASK
     char_pad = torch.zeros((n, s + 1), dtype=torch.int64, device=dev)
     char_pad[:, :s] = nfa_char.to(torch.int64)
     star_pad = torch.zeros((n, s + 1), dtype=torch.bool, device=dev)
@@ -68,14 +71,14 @@ def glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
 
 
 def glob_match_matrix(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
-                      str_bytes, str_len, len_mask: int = -1):
+                      str_bytes, str_len):
     """match[n, v] for every (glob pattern n, dictionary string v): the
     kernel on the card, the plain version on the CPU. ``str_len`` may be
     a strided view (the dictionary column of a packed blob)."""
     dev = str_bytes.device
     if dev.type == "cpu":
         return glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q,
-                                       nfa_len, str_bytes, str_len, len_mask)
+                                       nfa_len, str_bytes, str_len)
     if dev.type != "cuda":
         raise ValueError(f"glob_match_matrix: unsupported device {dev}")
     n, s = nfa_char.shape
@@ -99,10 +102,10 @@ def glob_match_matrix(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
     out = torch.empty((n, v), dtype=torch.bool, device=dev)
     if n == 0 or v == 0:
         return out
-    f = _build.fn("glob_nfa", "ktpu_glob_nfa", 14)
+    f = _build.fn("glob_nfa", "ktpu_glob_nfa", 13)
     err = f(nfa_char.data_ptr(), nfa_is_star.data_ptr(), nfa_is_q.data_ptr(),
             nfa_len.data_ptr(), n, s, str_bytes.data_ptr(), L,
-            str_len.data_ptr(), str_len.stride(0), len_mask & 0xFFFFFFFF, v,
+            str_len.data_ptr(), str_len.stride(0), v,
             out.data_ptr(), _build.stream_handle(dev))
     _build.check("glob_nfa", err)
     _build.LAUNCHES["glob_nfa"] += 1

@@ -65,15 +65,15 @@ def test_glob_matrix_equals_jax_and_wildcard(case):
 
 
 def test_len_mask_reads_packed_dictionary_column():
-    """The blob path passes dictv[:, 4] (length | flag bits above 7) with
-    len_mask 0x7F; the result equals the plain-length call."""
+    """The blob path passes dictv[:, 4] (length | flag bits above 7); the
+    length mask drops the flags, so the result equals the plain-length
+    call."""
     nfa, str_bytes, str_len = _tables(PATTERNS, STRINGS)
     t = [torch.from_numpy(np.ascontiguousarray(a)) for a in nfa]
     packed = torch.from_numpy(str_len | (1 << 7) | (1 << 9))
     a = tglob.glob_match_matrix(*t, torch.from_numpy(str_bytes),
                                 torch.from_numpy(str_len))
-    b = tglob.glob_match_matrix(*t, torch.from_numpy(str_bytes), packed,
-                                len_mask=0x7F)
+    b = tglob.glob_match_matrix(*t, torch.from_numpy(str_bytes), packed)
     assert torch.equal(a, b)
 
 
