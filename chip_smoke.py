@@ -7,13 +7,18 @@ its plain PyTorch version.
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
                build/torch_kernels/ (one process per source, in parallel)
-  2. kernels   K1 glob NFA, K2+K3 check evaluation, K4 verdict reduction
-               and K5 scan counts against their plain versions, on the
-               card, with zero tolerance (the outputs are integers and
+  2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch) and K5
+               scan counts against their plain versions, on the card,
+               with zero tolerance (the outputs are integers and
                booleans): an anchor-heavy seeded corpus (gates,
-               conditions, existence, anchorMap, anyPattern, aux rows), a
-               deny-only set (no check rows) and the 250-policy library
-               x 10k mixed resources
+               conditions, existence, anchorMap, anyPattern, aux rows),
+               also cut into ten rule tiles; a deny-only set (no check
+               rows); the 250-policy library x 10k mixed resources; the
+               1000-policy library x 2,000, whose plan is larger than a
+               block's shared memory and runs as several rule tiles; and
+               a wide corpus of 301 paths x 16 elements a path, whose
+               slots cut it into seven tiles and blocks of fewer than 8
+               resources
   3. main      CompiledPolicySet(library_250).evaluate_device(flatten(10k))
                with the launch counters set to 0 just before: the pinned
                verdict histogram and sha256, evaluate_device_async equal,
@@ -23,7 +28,8 @@ Phases:
   5. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
-               the memory rate (each kernel is bytes-bound)
+               the memory rate (each kernel is bytes-bound); eval_rules
+               also at B = 100,000 and at two smaller tile budgets
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -393,6 +399,51 @@ def random_resource(rng) -> dict:
 
 
 # ---------------------------------------------------------------------
+# A wide seeded corpus: rules over a few hundred distinct container keys
+# (``k<j>``), read in pods of up to 16 containers, so that a rule tile's
+# decoded slots (paths x 16 elements x resources) outgrow its plan section.
+# Three keys a rule, most behind an equality anchor (checked where
+# present), some rules behind a conditional anchor (a gate), and one rule
+# over ``big`` keys at once, which takes a tile alone and fits a block
+# only at fewer than 8 resources.
+
+WIDE_VALUES = ["v*", "?*", ">=3", "!x*", "1-9", True]
+
+
+def wide_policy_docs(n_keys: int = 300, big: int = 100) -> list:
+    docs = []
+    for r in range(n_keys // 3):
+        body = {}
+        for j in range(3 * r, 3 * r + 3):
+            key = f"k{j}" if r % 4 == 0 and j % 3 == 0 else f"=(k{j})"
+            body[key] = WIDE_VALUES[j % len(WIDE_VALUES)]
+        if r % 5 == 1:
+            body["(name)"] = "c1*"
+        docs.append(_rule(f"wide-{r}", {"validate": {"pattern": {
+            "spec": {"containers": [body]}}}}))
+    docs.append(_rule("wide-big", {"validate": {"pattern": {"spec": {
+        "containers": [{f"=(k{j})": WIDE_VALUES[j % len(WIDE_VALUES)]
+                        for j in range(big)}]}}}}))
+    return docs
+
+
+def wide_resource(rng, n_keys: int = 300, containers: int = 0) -> dict:
+    """A pod of ``containers`` containers (1-16 at random if 0), each
+    holding about one key in twenty."""
+    values = ["v1", "vx", "x1", 2, 5, 12, True, False, "", None]
+    n = containers or int(rng.integers(1, 17))
+    cs = []
+    for i in range(n):
+        c = {"name": f"c{int(rng.integers(0, 20))}"}
+        for j in np.nonzero(rng.random(n_keys) < 0.05)[0]:
+            c[f"k{j}"] = values[int(rng.integers(len(values)))]
+        cs.append(c)
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": f"wide-{int(rng.integers(0, 999))}"},
+            "spec": {"containers": cs}}
+
+
+# ---------------------------------------------------------------------
 
 EXPECTED_HIST = [1160000, 1066000, 262000, 0, 0, 12000]
 EXPECTED_SHA = "82a85e14371fdb5944a2fa9d1f20be873a7984cf851eb49abfc43628d0f5c019"
@@ -405,10 +456,8 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCES = {
     "glob_nfa": ("kyverno_tpu_torch/csrc/glob_nfa.cu",
                  "kyverno_tpu/ops/glob.py:31"),
-    "eval_checks": ("kyverno_tpu_torch/csrc/eval_checks.cu",
-                    "kyverno_tpu/ops/eval.py:205"),
-    "eval_verdict": ("kyverno_tpu_torch/csrc/eval_verdict.cu",
-                     "kyverno_tpu/ops/eval.py:465"),
+    "eval_rules": ("kyverno_tpu_torch/csrc/eval_rules.cu",
+                   "kyverno_tpu/ops/eval.py:205"),
     "scan_counts": ("kyverno_tpu_torch/csrc/scan_counts.cu",
                     "kyverno_tpu/ops/eval.py:951"),
 }
@@ -442,7 +491,7 @@ def same(name: str, a, b) -> int:
 
 
 class Stages:
-    """The four kernel calls of one blob, each beside its plain version."""
+    """The three kernel calls of one blob, each beside its plain version."""
 
     def __init__(self, cps, resources):
         import torch
@@ -466,13 +515,9 @@ class Stages:
         return f(p.nfa_char, p.nfa_is_star, p.nfa_is_q, p.nfa_len,
                  self.str_bytes, self.str_len)
 
-    def k23(self, match_nv, plain=False):
-        f = self.ev.eval_checks_plain if plain else self.ev.eval_checks
-        return f(self.plan, self.blob, *self.shape, match_nv)
-
-    def k4(self, k3, plain=False):
-        f = self.ev.eval_verdict_plain if plain else self.ev.eval_verdict
-        return f(self.plan, self.blob, *self.shape, *k3)
+    def rules(self, match_nv, plain=False, plan=None):
+        f = self.ev.eval_rules_plain if plain else self.ev.eval_rules
+        return f(plan or self.plan, self.blob, *self.shape, match_nv)
 
     def k5(self, v, plain=False):
         f = self.ev.scan_counts_plain if plain else self.ev.scan_counts
@@ -484,22 +529,28 @@ class Stages:
 
         m_k, m_p = self.k1(), self.k1(plain=True)
         n1 = same(f"{label} K1", m_k, m_p)
-        k3_k, k3_p = self.k23(m_k), self.k23(m_k, plain=True)
-        n3 = same(f"{label} K2+K3", k3_k, k3_p)
-        v_k, v_p = self.k4(k3_k), self.k4(k3_k, plain=True)
-        n4 = same(f"{label} K4", v_k, v_p)
+        v_k, v_p = self.rules(m_k), self.rules(m_k, plain=True)
+        n2 = same(f"{label} eval_rules", v_k, v_p)
         s_k, s_p = self.k5(v_k), self.k5(v_k, plain=True)
         n5 = same(f"{label} K5", s_k, s_p)
         # and the whole plain pipeline from the blob alone
         same(f"{label} plain pipeline", v_k,
              plain_pipeline(self.plan, self.blob, self.shape))
         torch.cuda.synchronize()
-        return {"glob_nfa": n1, "eval_checks": n3, "eval_verdict": n4,
-                "scan_counts": n5}
+        return {"glob_nfa": n1, "eval_rules": n2, "scan_counts": n5}
+
+    def launch(self) -> tuple:
+        """The block size and shared memory of the last eval_rules launch,
+        after checking the bytes against the plan's own account of them."""
+        tb, smem = (int(x) for x in self.ev.LAST_LAUNCH)
+        check(smem == self.plan.smem_bytes(self.E, tb),
+              f"eval_rules took {smem} bytes a block at {tb} resources, the "
+              f"plan counts {self.plan.smem_bytes(self.E, tb)}")
+        return tb, smem
 
 
 def plain_pipeline(plan, blob, shape):
-    """K1 -> K2+K3 -> K4 by the plain versions alone."""
+    """K1 -> stages 2-6 by the plain versions alone."""
     from kyverno_tpu_torch.ops import eval as ev
     from kyverno_tpu_torch.ops import glob
 
@@ -507,8 +558,7 @@ def plain_pipeline(plan, blob, shape):
     m = glob.glob_match_matrix_plain(plan.nfa_char, plan.nfa_is_star,
                                      plan.nfa_is_q, plan.nfa_len, str_bytes,
                                      dictv[:, 4])
-    return ev.eval_verdict_plain(plan, blob, *shape,
-                                 *ev.eval_checks_plain(plan, blob, *shape, m))
+    return ev.eval_rules_plain(plan, blob, *shape, m)
 
 
 def cuda_ms(fn, n: int, warm: int = 3) -> float:
@@ -529,6 +579,26 @@ def cuda_ms(fn, n: int, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, n: int = 50) -> float:
+    """Milliseconds per call of ``fn`` over ``n`` calls queued back to back
+    behind a sleep kernel (about 10 ms), so that the host's time to
+    enqueue them overlaps the sleep: the card's own time per call, launch
+    gaps included. For kernels, whose wrappers enqueue one launch each."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def nvidia_smi_line() -> str:
@@ -557,6 +627,7 @@ def main() -> int:
     from kyverno_tpu_torch.models import CompiledPolicySet
     from kyverno_tpu_torch.ops import _build
     from kyverno_tpu_torch.ops import eval as ev
+    from kyverno_tpu_torch.ops.plan import TT_GATE0, TT_NPATH, TT_SLOT0, Plan
 
     check(not any(m == "jax" or m.startswith("jax.") or m == "kyverno_tpu"
                   or m.startswith("kyverno_tpu.") for m in sys.modules),
@@ -581,10 +652,21 @@ def main() -> int:
           "the anchor corpus compiled to no anyPattern rule")
     rng = np.random.default_rng(11)
     n_anchor = 500 if args.quick else 4000
-    counts = Stages(anchor, [random_resource(rng) for _ in range(n_anchor)]
-                    ).compare("anchor")
+    anchor_st = Stages(anchor, [random_resource(rng) for _ in range(n_anchor)])
+    counts = anchor_st.compare("anchor")
     log(f"[kernels] anchor corpus: C={t.chk_op.size} X={t.ax_op.size} "
         f"gates={t.n_gates} cond={anchor.plan.NCOND} B={n_anchor}: equal {counts}")
+    # the same corpus cut into tiles that split its gates and condition
+    # slots, so that their tile-local ids differ from the global ones
+    tiled = Plan(t, anchor.device, tile_words=600)
+    check(tiled.n_tiles > 1 and len({r[TT_GATE0] for r in tiled.tile_table}) > 1
+          and len({r[TT_SLOT0] for r in tiled.tile_table}) > 1,
+          "the 600-word anchor plan does not split the gates and conditions")
+    m = anchor_st.k1()
+    n = same("anchor tiled eval_rules", anchor_st.rules(m, plan=tiled),
+             anchor_st.rules(m, plain=True))
+    log(f"[kernels] anchor corpus in {tiled.n_tiles} rule tiles (600 words): "
+        f"eval_rules equal on {n} verdicts")
     deny = CompiledPolicySet([load_policy(d) for d in deny_only_docs()])
     check(deny.plan.C == 0, "the deny-only set compiled to check rows")
     counts = Stages(deny, [random_resource(rng) for _ in range(300)]).compare("deny-only")
@@ -594,7 +676,30 @@ def main() -> int:
     n_lib = 1000 if args.quick else 10_000
     lib_stages = Stages(lib_cps, [mixed_resource(i) for i in range(n_lib)])
     counts = lib_stages.compare("library")
-    log(f"[kernels] library 250 x {n_lib}: equal {counts}")
+    log(f"[kernels] library 250 x {n_lib}: {lib_cps.plan.n_tiles} rule tile(s), "
+        f"{lib_cps.plan.buf.numel() * 4} plan bytes; equal {counts}")
+    big = CompiledPolicySet([load_policy(d) for d in _synth_policy_docs(1000)])
+    check(big.plan.n_tiles > 1, "the 1000-policy plan is one rule tile")
+    n_big = 500 if args.quick else 2000
+    big_stages = Stages(big, [mixed_resource(i) for i in range(n_big)])
+    counts = big_stages.compare("library-1000")
+    tb, smem = big_stages.launch()
+    log(f"[kernels] library 1000 x {n_big}: {big.plan.n_tiles} rule tiles "
+        f"{big.plan.tiles}, {big.plan.buf.numel() * 4} plan bytes, "
+        f"{tb} resources and {smem} bytes a block; equal {counts}")
+    wide = CompiledPolicySet([load_policy(d) for d in wide_policy_docs()])
+    wrng = np.random.default_rng(3)
+    n_wide = 200 if args.quick else 1000
+    wide_st = Stages(wide, [wide_resource(wrng, containers=16 if i == 0 else 0)
+                            for i in range(n_wide)])
+    check(wide_st.E == 16 and wide_st.P > 300, f"wide batch {wide_st.shape}")
+    counts = wide_st.compare("wide")
+    tb, smem = wide_st.launch()
+    check(tb < 8, f"the wide corpus ran at {tb} resources a block")
+    log(f"[kernels] wide corpus x {n_wide}: P={wide_st.P} E={wide_st.E}, "
+        f"{wide.plan.n_tiles} rule tiles {wide.plan.tiles}, at most "
+        f"{int(wide.plan.tile_table[:, TT_NPATH].max())} paths a tile; {tb} "
+        f"resources and {smem} bytes a block; equal {counts}")
     if args.quick:
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
@@ -685,30 +790,32 @@ def main() -> int:
     plan_bytes = plan.buf.numel() * 4
     blob_bytes = st.blob.numel() * 4
     m = st.k1()
-    k3 = st.k23(m)
-    v = st.k4(k3)
-    cells_bytes = B * P * E * 8
+    v = st.rules(m)
+
+    def rules_bytes(b_, v_):
+        """eval_rules reads the cells, bmeta, the dictionary rows, the glob
+        matrix and the plan once each, and writes the matrix; nothing in
+        between leaves the chip."""
+        return b_ * P * E * 8 + 4 * b_ + 20 * v_ + N * v_ + plan_bytes + b_ * R
+
     bytes_of = {
         "glob_nfa": N * S * 3 + N * 4 + V * 64 + V * 4 + N * V,
-        "eval_checks": cells_bytes + 4 * B + 20 * V + N * V + plan_bytes
-        + B * C + B * NC * 12 + B * X,
-        "eval_verdict": B * C + B * NC * 12 + B * X + 4 * B + plan_bytes + B * R,
+        "eval_rules": rules_bytes(B, V),
         "scan_counts": B * R + B + 8 * R,
     }
     calls = {
         "glob_nfa": (lambda: st.k1(), lambda: st.k1(plain=True)),
-        "eval_checks": (lambda: st.k23(m), lambda: st.k23(m, plain=True)),
-        "eval_verdict": (lambda: st.k4(k3), lambda: st.k4(k3, plain=True)),
+        "eval_rules": (lambda: st.rules(m), lambda: st.rules(m, plain=True)),
         "scan_counts": (lambda: st.k5(v), lambda: st.k5(v, plain=True)),
     }
     errs = {"glob_nfa": (m, st.k1(plain=True)),
-            "eval_checks": (k3, st.k23(m, plain=True)),
-            "eval_verdict": (v, st.k4(k3, plain=True)),
+            "eval_rules": (v, st.rules(m, plain=True)),
             "scan_counts": (st.k5(v), st.k5(v, plain=True))}
     smi = nvidia_smi_line()
     rows = []
     for name in _build.KERNELS:
         ms = cuda_ms(calls[name][0], 50)
+        dev_only_ms = device_ms(calls[name][0])
         plain_ms = cuda_ms(calls[name][1], 20)
         a, b = errs[name]
         a = a if isinstance(a, tuple) else (a,)
@@ -721,22 +828,61 @@ def main() -> int:
                      "replaces": repl, "launches": launches[name],
                      "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": "bytes",
-                     "library_ms": None, "bytes": bytes_of[name]})
-        log(f"[times] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms); bound "
-            f"{bound_ms:.5f} ms by bytes ({bytes_of[name]} bytes); "
-            f"{100 * bound_ms / ms:.2f}% of the bound; {smi}")
+                     "library_ms": None, "bytes": bytes_of[name],
+                     "device_ms": dev_only_ms})
+        log(f"[times] {name}: {ms:.4f} ms a launch between events, "
+            f"{dev_only_ms:.4f} ms on the card back to back (plain "
+            f"{plain_ms:.4f} ms); bound {bound_ms:.5f} ms by bytes "
+            f"({bytes_of[name]} bytes); {100 * bound_ms / ms:.2f}% of the "
+            f"bound; {smi}")
+    st.rules(m)
+    tb, smem = st.launch()
+    log(f"[times] eval_rules at B={B}: {plan.n_tiles} rule tile(s), "
+        f"{tb} resources and {smem} bytes a block")
     dev_ms = cuda_ms(lambda: ev.evaluate_blob(plan, st.blob, *st.shape), 50)
+    dev_back = device_ms(lambda: ev.evaluate_blob(plan, st.blob, *st.shape))
     e2e = []
     for _ in range(5):
         t0 = time.perf_counter()
         cps.evaluate_device(batch)
         e2e.append((time.perf_counter() - t0) * 1e3)
     path_bound = (blob_bytes + plan_bytes + B * R) / HBM_BYTES_PER_S * 1e3
-    log(f"[times] evaluate_blob on the device (K1+K2+K3+K4): {dev_ms:.4f} ms, "
-        f"bound {path_bound:.5f} ms; "
+    log(f"[times] evaluate_blob on the device (K1 + eval_rules): {dev_ms:.4f} ms "
+        f"a call between events, {dev_back:.4f} ms back to back; bound "
+        f"{path_bound:.5f} ms; "
         f"evaluate_device with copies, median of 5: {statistics.median(e2e):.3f} ms "
         f"for {B} x {R} verdicts; shapes B={B} P={P} E={E} V={V} N={N} C={C} "
-        f"X={X} R={R}")
+        f"X={X} NCOND={NC} R={R}")
+
+    # eval_rules at smaller tile budgets, same inputs
+    sweep = []
+    for words in (4096, 8192):
+        pw = Plan(cps.tensors, cps.device, tile_words=words)
+        same(f"eval_rules tile_words={words}", st.rules(m, plan=pw), v)
+        tb, _ = (int(x) for x in ev.LAST_LAUNCH)
+        sweep.append(f"tile_words={words} ({pw.n_tiles} tiles, {tb} resources "
+                     f"a block): {device_ms(lambda: st.rules(m, plan=pw)):.4f} ms")
+    log(f"[times] eval_rules at B={B}, on the card back to back, equal at "
+        f"each: " + "; ".join(sweep))
+
+    # eval_rules at B = 100,000: where the bytes bound passes a launch's latency
+    t0 = time.perf_counter()
+    st100 = Stages(cps, [mixed_resource(i) for i in range(100_000)])
+    flat100_s = time.perf_counter() - t0
+    m100 = st100.k1()
+    v100 = st100.rules(m100)
+    tb100, smem100 = st100.launch()
+    same("eval_rules B=100000", v100, st100.rules(m100, plain=True))
+    ms100 = cuda_ms(lambda: st100.rules(m100), 30)
+    dev100 = device_ms(lambda: st100.rules(m100), 30)
+    bytes100 = rules_bytes(st100.B, st100.V)
+    bound100 = bytes100 / HBM_BYTES_PER_S * 1e3
+    del v100
+    log(f"[times] eval_rules at B={st100.B} (V={st100.V}, flatten {flat100_s:.3f} s, "
+        f"{tb100} resources and {smem100} bytes a block): {ms100:.4f} ms "
+        f"a launch between events, {dev100:.4f} ms on the card back to back; "
+        f"bound {bound100:.5f} ms by bytes ({bytes100} bytes); "
+        f"{100 * bound100 / dev100:.2f}% of the bound; equal to plain; {smi}")
     log(f"{smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

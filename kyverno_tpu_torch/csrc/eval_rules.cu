@@ -1,0 +1,1027 @@
+// eval_rules — stages 2-6 of the verdict program in one launch: from the
+// packed blob and K1's glob matrix to the int8 verdicts [B, R].
+//
+// Replaces stages 2-6 of kyverno_tpu/ops/eval.py::build_eval_fn's evaluate
+// (eval.py:205-863): the per-check slot gather, gates and element
+// reduction (:219-463), the group / alternative / rule reduction
+// (:465-567), the aux programs (:569-821) and the verdict composition
+// (:823-863), with the no-check and no-aux branches; and the blob decode
+// of eval.py:905 _split_blob and models/flatten.py:280 unpack_batch
+// (xp=jnp), which XLA fused into them.
+//
+// Bound on the H100: bytes. The function reads the blob's cells and bmeta,
+// the 20-byte dictionary rows, the [N, V] glob matrix and the plan once
+// each, and writes one byte per (b, r). Per (b, check row) and per
+// (b, aux row) it needs a few dozen integer operations, far under the
+// card's integer rate. What held the earlier form (gate, checks and aux
+// launches, then a verdict launch) at 1-2% of that bound was not bandwidth
+// but redundant decode, scattered plan reads, chains of dependent loads
+// and intermediates in device memory. This design answers each:
+//
+//  - Redundant decode: every (b, path, e) slot the tile reads is decoded
+//    once per block (cells, the dictionary row, the derived lanes) into
+//    shared memory, structure of arrays with the resource fastest. Check
+//    and aux rows read slots from there, not from the blob and the
+//    dictionary once per check.
+//  - Scattered plan reads: the grid is (resource tiles of TB resources) x
+//    (rule tiles of the plan). One thread starts a bulk copy
+//    (cp.async.bulk, completion counted on an mbarrier) of the block's
+//    rule-tile section into shared memory while the others decode slots.
+//    Items are numbered with the resource fastest, so TB lanes take one
+//    plan row for TB resources: a plan read is a shared-memory broadcast,
+//    and the control flow follows the row (the value test is computed
+//    for the row's operator alone, and what a row does not use is
+//    skipped), the same in every lane of the row.
+//  - Dependent loads: the plan flattens each rule's rule -> alternatives
+//    -> groups -> rows and rule -> filters -> aux groups nests into one
+//    list of entries each, with end-of-group / -alternative / -filter
+//    bits, so a verdict is two flat walks over shared memory instead of
+//    six nested ones.
+//  - Intermediates, and one walk per resource: the warp's ballots turn
+//    each row's flags into masks over the block's resources (bit bi is
+//    resource bi; TB <= 32). The verdict phase walks each rule once for
+//    all of them, with the OR / AND of the TPU program as mask operations
+//    and the verdict as three bit-planes of its code. Gate words, flag
+//    masks, condition-word planes and verdict planes live in shared
+//    memory between __syncthreads; only the verdicts leave, as one
+//    coalesced write of [TB, rules] bytes.
+//
+// Phases of a block, in order:
+//   1. stage the section (async) and decode the slots and bmeta words
+//   2. gates: one E-bit word per (gate, b), open where the element's gate
+//      rows pass (eval.py:360-389)
+//   3. check rows and aux rows: flags per (row, b), gathered into masks
+//      per row; a condition row also gives three E-bit words per b, kept
+//      as one mask per (word, element) (eval.py:390-463, 535-547, 571-761)
+//   4. verdicts: one thread per rule walks its two entry lists from the
+//      identities of the empty OR / AND (a rule without alternatives keeps
+//      the INT_MIN of its segment_max, which stage 6 always overwrites)
+//      and composes stage 6 in the TPU program's order
+//   5. the verdict bytes, from the planes, one resource's row per warp
+// TB (resources per block, a power of two up to 32, the bits of a mask) is
+// chosen at launch: the largest of 32, 16 and 8 whose grid fills the card
+// one and a half times over, within the shared memory a block may take.
+// Each block lays out its shared memory for its own tile (layout() in
+// plan.cuh: the section, the slots, the flags, the verdict planes), and
+// the launch asks for the largest tile's. ops/plan.py cuts the tiles so
+// that each fits at 8 resources a block with the flattener's 16 slots a
+// path, and at one resource with 32; a larger E takes smaller blocks.
+// The launch bound holds a thread to 80 registers, so that three blocks
+// of 256 threads share an SM where their shared memory allows: with its
+// offsets read from the tile table at run time, the kernel would take 96
+// and fit two.
+
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "plan.cuh"
+
+using namespace ktpu;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxTB = 32;    // a block's resources are the bits of a mask
+// A bulk copy that has not landed after this long traps the kernel (a
+// launch error) instead of hanging the card.
+constexpr unsigned long long kStageTimeoutNs = 2000000000ull;
+
+// decoded slot lanes in shared memory
+enum SlotLane {
+  L_META = 0, L_SID = 1, L_BITS = 2, L_NUMH = 3, L_NUML = 4, L_DURH = 5,
+  L_DURL = 6, L_NLANES = 7,
+};
+enum SlotBit {
+  SB_VALID = 1, SB_NBRK = 2, SB_NINT = 4, SB_NUMOK = 8, SB_NPLAIN = 16,
+  SB_DUROK = 32, SB_DURANY = 64, SB_BOOLV = 128, SB_EMPTY = 256,
+  SB_KEYGLOB = 512,
+};
+
+static_assert((int)L_NLANES == (int)SM_SLOT_LANES,
+              "plan.cuh layout(): slot lanes");
+
+// One row of a column-major table in shared memory.
+struct Row {
+  const int32_t* p;
+  int stride;
+  __device__ int operator[](int col) const { return p[col * stride]; }
+};
+
+// The block's decoded slots: lane k of (local path lp, element e,
+// resource bi) at lanes[k * n + (lp * E + e) * TB + bi]. A row reads the
+// lanes it needs: mask, type, element and string id and the bits always,
+// the numbers and durations only where its operator compares them.
+struct Slots {
+  uint32_t* lanes;
+  int n, E, TB;
+
+  __device__ void put(int i, const Slot& s) const {
+    lanes[L_META * n + i] = (uint32_t)s.mask | ((uint32_t)s.type << 16) |
+                            ((uint32_t)(s.elem0 + 1) << 19);
+    lanes[L_SID * n + i] = (uint32_t)s.sid;
+    lanes[L_BITS * n + i] =
+        (s.valid ? SB_VALID : 0) | (s.nbrk ? SB_NBRK : 0) |
+        (s.nint ? SB_NINT : 0) | (s.numok ? SB_NUMOK : 0) |
+        (s.nplain ? SB_NPLAIN : 0) | (s.durok ? SB_DUROK : 0) |
+        (s.durany ? SB_DURANY : 0) | (s.boolv ? SB_BOOLV : 0) |
+        (s.empty ? SB_EMPTY : 0) | (s.keyglob ? SB_KEYGLOB : 0);
+    lanes[L_NUMH * n + i] = (uint32_t)s.numh;
+    lanes[L_NUML * n + i] = (uint32_t)s.numl;
+    lanes[L_DURH * n + i] = (uint32_t)s.durh;
+    lanes[L_DURL * n + i] = (uint32_t)s.durl;
+  }
+
+  __device__ int at(int lp, int e, int bi) const {
+    return (lp * E + e) * TB + bi;
+  }
+  __device__ int lane(int k, int i) const { return (int)lanes[k * n + i]; }
+};
+
+// ---- the bulk copy of a section into shared memory
+
+__device__ inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ inline void barrier_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(1) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// bytes: a multiple of 16, both addresses 16-byte aligned
+__device__ inline void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                 uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ inline unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the single phase (parity 0) of a barrier used once
+__device__ inline void barrier_wait(uint64_t* bar) {
+  const uint32_t b = smem_u32(bar);
+  const unsigned long long t0 = global_ns();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(b), "r"(0u) : "memory");
+    if (done) return;
+    if (global_ns() - t0 > kStageTimeoutNs) __trap();
+  }
+}
+
+// ---- the tile's section in shared memory: counts and array bases, read
+// into registers once per thread after the copy lands
+
+struct Sec {
+  int C, X, R, ngates;
+  const int32_t *chk, *aux, *gate_ptr, *gate_grp, *grp_ptr, *grp_row,
+      *pat_ptr, *pat, *rule_flags, *rule_kinds, *auxp_ptr, *auxp, *axg_ptr,
+      *axg_row, *axg_info;
+};
+
+__device__ inline Sec section(const int32_t* s) {
+  Sec v;
+  v.C = s[TS_C];
+  v.X = s[TS_X];
+  v.R = s[TS_R];
+  v.ngates = s[TS_NGATES];
+  v.chk = s + s[TS_CHK];
+  v.aux = s + s[TS_AUX];
+  v.gate_ptr = s + s[TS_GATE_PTR];
+  v.gate_grp = s + s[TS_GATE_GRP];
+  v.grp_ptr = s + s[TS_GRP_PTR];
+  v.grp_row = s + s[TS_GRP_ROW];
+  v.pat_ptr = s + s[TS_PAT_PTR];
+  v.pat = s + s[TS_PAT];
+  v.rule_flags = s + s[TS_RULE_FLAGS];
+  v.rule_kinds = s + s[TS_RULE_KINDS];
+  v.auxp_ptr = s + s[TS_AUXP_PTR];
+  v.auxp = s + s[TS_AUXP];
+  v.axg_ptr = s + s[TS_AXG_PTR];
+  v.axg_row = s + s[TS_AXG_ROW];
+  v.axg_info = s + s[TS_AXG_INFO];
+  return v;
+}
+
+// The lanes of one decoded slot that every row reads.
+struct SlotCore {
+  int i, mask, type, elem0, sid;
+  uint32_t bits;
+  __device__ bool has(uint32_t b) const { return (bits & b) != 0; }
+};
+
+__device__ inline SlotCore slot_core(const Slots& sl, int i) {
+  SlotCore c;
+  const uint32_t meta = (uint32_t)sl.lane(L_META, i);
+  c.i = i;
+  c.mask = (int)(meta & 0xFFFFu);
+  c.type = (int)((meta >> 16) & 7u);
+  c.elem0 = (int)((meta >> 19) & 0xFFu) - 1;
+  c.sid = sl.lane(L_SID, i);
+  c.bits = (uint32_t)sl.lane(L_BITS, i);
+  return c;
+}
+
+// ---- stage 2 for one (check row, slot): eval.py:239-358. The value test
+// is computed for the row's operator alone; the operator is the same in
+// every lane of a warp when a block takes 32 or more resources.
+
+struct SlotEval {
+  bool leaf_present, value_ok, slot_ok, guard_pass;
+  int first_absent;
+};
+
+__device__ inline SlotEval eval_slot(const Row& ck, int op, const SlotCore& s,
+                                     const Slots& sl, int V,
+                                     const uint8_t* __restrict__ match_nv) {
+  const int guard = ck[CK_GUARD];
+  const int leaf_bit = 1 << ck[CK_PLEN];
+  const int absent_bits = (~s.mask) & ((leaf_bit << 1) - 2);
+  const int first_absent = absent_bits & (-absent_bits);
+  const bool leaf_present = absent_bits == 0;
+  const bool guard_pass = (first_absent & guard) != 0;
+  const bool nbrk = s.has(SB_NBRK);
+  const bool nil_like = s.type == T_NULL || (!leaf_present && !nbrk);
+  const bool numok = s.has(SB_NUMOK);
+  const bool numok_n = numok || nil_like;
+
+  bool value_ok = false, eval_on_nil = false;
+  switch (op) {
+    case STR_EQ:
+    case STR_NE:
+      if (ck[CK_NUMFB]) {
+        const bool eq = lex_eq(sl.lane(L_NUMH, s.i), sl.lane(L_NUML, s.i),
+                               ck[CK_LO_H], ck[CK_LO_L]);
+        value_ok = numok_n && (op == STR_EQ ? eq : !eq);
+        eval_on_nil = true;
+      } else {
+        const bool stringy =
+            s.type == T_STR || s.type == T_BOOL || s.type == T_NUM;
+        const bool hit = s.sid >= 0 && ck[CK_HAS_NFA] &&
+                         match_nv[(long long)ck[CK_NFA] * V + s.sid];
+        value_ok = stringy && (op == STR_EQ ? hit : !hit);
+      }
+      break;
+    case NUM_EQ:
+    case NUM_NE: {
+      const bool lit = ck[CK_NUMMODE] == 1 ? s.has(SB_NINT) : s.has(SB_NPLAIN);
+      const bool ok = numok && (s.type == T_NUM || (s.type == T_STR && lit));
+      const bool eq = lex_eq(sl.lane(L_NUMH, s.i), sl.lane(L_NUML, s.i),
+                             ck[CK_LO_H], ck[CK_LO_L]);
+      value_ok = ok && (op == NUM_EQ ? eq : !eq);
+      break;
+    }
+    case NUM_GT:
+    case NUM_GE:
+    case NUM_LT:
+    case NUM_LE:
+    case NUM_IN_RANGE:
+    case NUM_NOT_IN_RANGE: {
+      const int nh = sl.lane(L_NUMH, s.i), nl = sl.lane(L_NUML, s.i);
+      const int lo_h = ck[CK_LO_H], lo_l = ck[CK_LO_L];
+      const bool lt_lo = lex_lt(nh, nl, lo_h, lo_l);
+      const bool gt_lo = lex_lt(lo_h, lo_l, nh, nl);
+      bool r;
+      if (op == NUM_GT) r = gt_lo;
+      else if (op == NUM_GE) r = !lt_lo;
+      else if (op == NUM_LT) r = lt_lo;
+      else if (op == NUM_LE) r = !gt_lo;
+      else {
+        const bool in = !lt_lo && !lex_lt(ck[CK_HI_H], ck[CK_HI_L], nh, nl);
+        r = op == NUM_IN_RANGE ? in : !in;
+      }
+      value_ok = numok_n && r;
+      eval_on_nil = true;
+      break;
+    }
+    case BOOL_EQ:
+      value_ok = s.type == T_BOOL && s.has(SB_BOOLV) == (ck[CK_BOOL] != 0);
+      break;
+    case IS_NULL: {
+      const bool zero = s.type == T_NUM && numok &&
+                        sl.lane(L_NUMH, s.i) == 0 && sl.lane(L_NUML, s.i) == 0;
+      value_ok = nil_like || (s.type == T_BOOL && !s.has(SB_BOOLV)) || zero ||
+                 (s.type == T_STR && s.has(SB_EMPTY));
+      eval_on_nil = true;
+      break;
+    }
+    case EXISTS_OBJECT: value_ok = s.type == T_OBJ; break;
+    case EXISTS_NONNIL: value_ok = leaf_present && s.type != T_NULL; break;
+    case EXISTS_LIST: value_ok = s.type == T_LIST; break;
+    case ABSENT: value_ok = true; break;
+    default: break;
+  }
+
+  bool slot_ok;
+  if (op == ABSENT) {
+    slot_ok = !leaf_present && !nbrk &&
+              ((first_absent & (guard | leaf_bit)) != 0);
+  } else {
+    const bool nil_leaf = !leaf_present && !nbrk && !guard_pass &&
+                          first_absent == leaf_bit;
+    slot_ok = (leaf_present || (nil_leaf && eval_on_nil))
+                  ? value_ok : (guard_pass && !nbrk);
+  }
+  SlotEval r;
+  r.leaf_present = leaf_present;
+  r.value_ok = value_ok;
+  r.slot_ok = slot_ok;
+  r.guard_pass = guard_pass;
+  r.first_absent = first_absent;
+  return r;
+}
+
+// ---- phase 2: gate_open word of (gate, bi), eval.py:365-378. An absent
+// key or an invalid slot keeps it open; AND over no groups is open.
+__device__ inline uint32_t gate_word(const Sec& S, int gate, int bi,
+                                     const Slots& sl, int V,
+                                     const uint8_t* __restrict__ match_nv) {
+  uint32_t word = 0xFFFFFFFFu;
+  for (int gi = S.gate_ptr[gate]; gi < S.gate_ptr[gate + 1]; ++gi) {
+    const int g = S.gate_grp[gi];
+    uint32_t gw = 0;                           // OR over no rows: closed
+    for (int ri = S.grp_ptr[g]; ri < S.grp_ptr[g + 1]; ++ri) {
+      const Row ck{S.chk + S.grp_row[ri], S.C};
+      if (!ck[CK_IS_GATE]) continue;
+      const int op = ck[CK_OP], path = ck[CK_PATH];
+      for (int e = 0; e < sl.E; ++e) {
+        const SlotCore s = slot_core(sl, sl.at(path, e, bi));
+        const SlotEval ev = eval_slot(ck, op, s, sl, V, match_nv);
+        if (!ev.leaf_present || ev.value_ok || !s.has(SB_VALID)) gw |= 1u << e;
+      }
+    }
+    word &= gw;
+  }
+  return word;
+}
+
+// ---- phase 3a: the flags of (check row c, bi) and, for a condition row,
+// its three E-bit words (eval.py:380-463, 535-547). What a row does not
+// use (existence, anchor tracking, condition words, gate structure) is
+// skipped by a branch on the row, the same in every lane of its group.
+constexpr uint32_t kCondRow = 16;   // beside the CF_ bits: a condition row
+
+__device__ inline uint32_t check_row(const Sec& S, int c, int bi, int TB,
+                                     const Slots& sl, int V,
+                                     const uint8_t* __restrict__ match_nv,
+                                     const uint32_t* sgate, uint32_t* words) {
+  const Row ck{S.chk + c, S.C};
+  const int E = sl.E;
+  const int op = ck[CK_OP];
+  const int path = ck[CK_PATH];
+  const int gate = ck[CK_GATE];
+  const int track = ck[CK_TRACK];
+  const bool is_gate = ck[CK_IS_GATE] != 0;
+  const bool is_cond = ck[CK_IS_COND] != 0;
+  const bool exist = ck[CK_EXIST] != 0;
+  const bool value_check = !(op == ABSENT || op == EXISTS_OBJECT ||
+                             op == EXISTS_NONNIL || op == EXISTS_LIST);
+  const int tr_bit = 1 << max(track, 0);
+  const int tr_lo = max(track - 1, 0);
+  const int tr_hi = max(track, 0);
+  const int cond_bit = is_cond ? 1 << max(ck[CK_COND_DEPTH], 0) : 0;
+  const uint32_t gword = gate >= 0 ? sgate[gate * TB + bi] : 0u;
+
+  bool and_ok = true, or_ok = false, exist_all = true, valid_any = false;
+  bool tr_reg = false, tr_pres = false, key_absent = false, brk = false;
+  bool list_any = false;
+  uint32_t okw = 0, kpw = 0, chw = 0;
+  for (int e = 0; e < E; ++e) {
+    const SlotCore s = slot_core(sl, sl.at(path, e, bi));
+    const SlotEval ev = eval_slot(ck, op, s, sl, V, match_nv);
+    const bool valid = s.has(SB_VALID), nbrk = s.has(SB_NBRK);
+    bool slot_ok = ev.slot_ok;
+    if (gate >= 0 && s.elem0 >= 0) {
+      const int e0 = min(s.elem0, E - 1);
+      if (!((gword >> e0) & 1u)) slot_ok = true;   // gate closed: skip
+    }
+    and_ok = and_ok && (slot_ok || !valid);
+    or_ok = or_ok || (slot_ok && valid && ev.leaf_present);
+    if (exist) {
+      const bool clean_miss =
+          (ev.first_absent == tr_bit || ev.guard_pass) && !nbrk;
+      exist_all = exist_all && (clean_miss || !valid);
+      valid_any = valid_any || valid;
+    }
+    if (is_cond) {
+      if (ev.leaf_present && ev.value_ok) okw |= 1u << e;
+      if ((s.mask & cond_bit) != 0 && valid) kpw |= 1u << e;
+      const bool chain =
+          (ev.first_absent != 0 && ev.first_absent < cond_bit &&
+           !(ev.guard_pass && !nbrk) && valid) ||
+          (nbrk && ev.first_absent == cond_bit && valid);
+      if (chain) chw |= 1u << e;
+    }
+    if (track >= 0) {
+      const bool break_at_tr = nbrk && ev.first_absent == tr_bit;
+      tr_reg = tr_reg || (((s.mask >> tr_lo) & 1) && valid && !break_at_tr);
+      tr_pres = tr_pres || (((s.mask >> tr_hi) & 1) && valid);
+    }
+    if (is_gate) {
+      key_absent = key_absent || (!ev.leaf_present && valid && s.elem0 >= 0);
+      brk = brk || (nbrk && valid);
+    }
+    if (value_check)
+      list_any = list_any || (s.type == T_LIST && ev.leaf_present && valid);
+  }
+  const bool check_ok = exist ? (or_ok || (exist_all && valid_any)) : and_ok;
+  const bool anchor_missing = track >= 0 && tr_reg && !tr_pres;
+  const bool unc = (is_gate && key_absent) || list_any;
+  const bool gate_struct = is_gate && brk;
+  words[0] = okw;
+  words[1] = kpw;
+  words[2] = chw;
+  return (check_ok ? CF_OK : 0u) | (anchor_missing ? CF_MISSING : 0u) |
+         (unc ? CF_UNC : 0u) | (gate_struct ? CF_STRUCT : 0u) |
+         (is_cond ? kCondRow : 0u);
+}
+
+// rel4 of eval.py: the four relations GT, GE, LT, LE from base
+__device__ inline bool rel4(int op, int base, bool lt, bool gt) {
+  return (op == base && gt) || (op == base + 1 && !lt) ||
+         (op == base + 2 && lt) || (op == base + 3 && !gt);
+}
+
+// ---- phase 3b: the flags of (aux row x, bi) on slot 0 (eval.py:571-761).
+// A row with no path and a constant operator reads no slot.
+__device__ inline uint8_t aux_row(const Sec& S, int x, int bi, uint32_t bmeta,
+                                  const Slots& sl, int V,
+                                  const uint8_t* __restrict__ match_nv) {
+  const Row ax{S.aux + x, S.X};
+  const int op = ax[AX_OP];
+  const int kind = ax[AX_KIND];
+  const bool kind_ok = kind < 0 || (int)(bmeta & 0xFFFFu) - 1 == kind;
+  const bool has_p = ax[AX_HAS_PATH] != 0;
+  if (!has_p && (op == A_TRUE || op == A_FALSE))
+    return (op == A_TRUE && kind_ok) ? XF_ROW : 0;
+
+  const SlotCore s = slot_core(sl, sl.at(ax[AX_PATH], 0, bi));
+  const int leafb = 1 << ax[AX_PLEN];
+  const bool nbrk = s.has(SB_NBRK), nint = s.has(SB_NINT);
+  const bool presx = ((~s.mask) & ((leafb << 1) - 2)) == 0;
+  const bool nullx = (presx && s.type == T_NULL) || (!presx && nbrk);
+  const bool absx = !presx && !nbrk;
+  const bool strk = s.type == T_STR, numk = s.type == T_NUM;
+  const bool boolk = s.type == T_BOOL;
+  auto globx = [&]() {
+    return s.sid >= 0 && ax[AX_HAS_NFA] &&
+           match_nv[(long long)ax[AX_NFA] * V + s.sid];
+  };
+
+  bool op_val = false;
+  switch (op) {
+    case A_TRUE: op_val = true; break;
+    case A_GLOB: op_val = (strk || (numk && nint)) && globx(); break;
+    case A_EXISTS: op_val = presx; break;
+    case A_NOT_EXISTS: op_val = !presx; break;
+    case A_CIN_ITEM:
+    case A_CIN_GLOB:
+      op_val = (strk || (numk && ax[AX_ALLOW_NUM] && nint)) && globx();
+      break;
+    case A_CEQ: {
+      const bool numok = s.has(SB_NUMOK);
+      const bool o_str = ax[AX_IS_OSTR], o_num = ax[AX_IS_ONUM];
+      const bool o_quant = ax[AX_IS_OQUANT];
+      const bool dur_pair = s.has(SB_DUROK) && (ax[AX_IS_ODUR] || o_num);
+      const int nh = sl.lane(L_NUMH, s.i), nl = sl.lane(L_NUML, s.i);
+      const bool n_eq_q = lex_eq(nh, nl, ax[AX_Q_H], ax[AX_Q_L]);
+      if (boolk) {
+        op_val = ax[AX_IS_OBOOL] && s.has(SB_BOOLV) == (ax[AX_OBOOL] != 0);
+      } else if (numk) {
+        op_val = numok && o_quant && n_eq_q &&
+                 (o_num || (o_str && ((nint && ax[AX_IS_OINT]) ||
+                                      (!nint && ax[AX_IS_OFLOAT]))));
+      } else if (strk) {
+        if (dur_pair)
+          op_val = lex_eq(sl.lane(L_DURH, s.i), sl.lane(L_DURL, s.i),
+                          ax[AX_S_H], ax[AX_S_L]);
+        else if (numok)
+          op_val = o_str && o_quant && n_eq_q;
+        else
+          op_val = o_str && globx();
+      }
+      break;
+    }
+    case A_CGT:
+    case A_CGE:
+    case A_CLT:
+    case A_CLE: {
+      const int nh = sl.lane(L_NUMH, s.i), nl = sl.lane(L_NUML, s.i);
+      const int qh = ax[AX_Q_H], ql = ax[AX_Q_L];
+      const int sh = ax[AX_S_H], sl_ = ax[AX_S_L];
+      const bool o_str = ax[AX_IS_OSTR], o_num = ax[AX_IS_ONUM];
+      const bool o_dur = ax[AX_IS_ODUR];
+      const bool cmp_q = rel4(op, A_CGT, lex_lt(nh, nl, qh, ql),
+                              lex_lt(qh, ql, nh, nl));
+      const bool cmp_ns = rel4(op, A_CGT, lex_lt(nh, nl, sh, sl_),
+                               lex_lt(sh, sl_, nh, nl));
+      const bool numkey_cmp =
+          (o_num && cmp_q) || (!o_num && o_str && o_dur && cmp_ns) ||
+          (!o_num && o_str && !o_dur && ax[AX_IS_OFLOAT] && cmp_q);
+      const bool dur_pair = s.has(SB_DUROK) && (o_dur || o_num);
+      if (numk) {
+        op_val = numkey_cmp;
+      } else if (strk && dur_pair) {
+        const int dh = sl.lane(L_DURH, s.i), dl = sl.lane(L_DURL, s.i);
+        op_val = rel4(op, A_CGT, lex_lt(dh, dl, sh, sl_), lex_lt(sh, sl_, dh, dl));
+      } else if (strk && s.has(SB_NPLAIN)) {
+        op_val = numkey_cmp;
+      } else if (strk) {
+        op_val = s.has(SB_NUMOK) && o_str && ax[AX_IS_OQUANT] && cmp_q;
+      }
+      break;
+    }
+    case A_DGT:
+    case A_DGE:
+    case A_DLT:
+    case A_DLE: {
+      const int sh = ax[AX_S_H], sl_ = ax[AX_S_L];
+      if (numk) {
+        const int nh = sl.lane(L_NUMH, s.i), nl = sl.lane(L_NUML, s.i);
+        op_val = rel4(op, A_DGT, lex_lt(nh, nl, sh, sl_), lex_lt(sh, sl_, nh, nl));
+      } else if (strk && s.has(SB_DURANY)) {
+        const int dh = sl.lane(L_DURH, s.i), dl = sl.lane(L_DURL, s.i);
+        op_val = rel4(op, A_DGT, lex_lt(dh, dl, sh, sl_), lex_lt(sh, sl_, dh, dl));
+      }
+      break;
+    }
+    default: break;
+  }
+
+  bool rowv = op_val;
+  bool errx = false;
+  if (has_p) {
+    const bool absres = ax[AX_ABSENT];
+    if (ax[AX_IS_MK]) {
+      const bool is_exist_op = op == A_EXISTS || op == A_NOT_EXISTS;
+      const bool pres_nonnull = presx && s.type != T_NULL;
+      rowv = is_exist_op ? op_val : (pres_nonnull ? op_val : absres);
+    } else if (ax[AX_IS_DENY]) {
+      rowv = !nullx && (presx ? op_val : absres);
+    } else {
+      rowv = (presx && !nullx) ? op_val : absres;
+    }
+    errx = ax[AX_ERR] && (absx || nullx);
+  }
+  rowv = rowv && kind_ok;
+  bool unc = false;
+  if (op == A_CIN_ITEM || op == A_CIN_GLOB)
+    unc = s.type == T_LIST || s.type == T_OBJ || (ax[AX_NEGATED] && boolk) ||
+          (numk && ax[AX_ALLOW_NUM] && !nint) ||
+          (ax[AX_KEY_PAT] && strk && s.has(SB_KEYGLOB));
+  else if (op == A_GLOB)
+    unc = presx && !(strk || (numk && nint) || s.type == T_NULL);
+  unc = unc && kind_ok;
+  return (uint8_t)((rowv ? XF_ROW : 0) | (unc ? XF_UNC : 0) |
+                   (errx ? XF_ERR : 0));
+}
+
+// ---- phase 4: the verdicts of rule r for every resource of the block,
+// stages 4-6 (eval.py:465-863), as bit-slices: bit bi of a mask is
+// resource bi, and the verdict is three bit-planes of its code.
+
+// The block's flags in shared memory: per check row the masks of CF_OK,
+// CF_MISSING, CF_UNC and CF_STRUCT; per aux row those of XF_ROW, XF_UNC
+// and XF_ERR; per condition slot, j (ok, key present, chain) and element
+// e, the mask of bit e of word j.
+struct Flags {
+  const uint32_t *chk, *aux, *cond;
+  int E;
+  __device__ uint32_t c(int row, int k) const { return chk[row * 4 + k]; }
+  __device__ uint32_t x(int row, int k) const { return aux[row * 3 + k]; }
+  __device__ uint32_t w(int slot, int j, int e) const {
+    return cond[(slot * 3 + j) * E + e];
+  }
+};
+
+struct Planes {
+  uint32_t p0 = 0, p1 = 0, p2 = 0;
+  // resources in m take verdict code v
+  __device__ void set(uint32_t m, int v) {
+    p0 = (p0 & ~m) | ((v & 1) ? m : 0u);
+    p1 = (p1 & ~m) | ((v & 2) ? m : 0u);
+    p2 = (p2 & ~m) | ((v & 4) ? m : 0u);
+  }
+  // the resources whose verdict is v
+  __device__ uint32_t is(int v) const {
+    return ((v & 1) ? p0 : ~p0) & ((v & 2) ? p1 : ~p1) & ((v & 4) ? p2 : ~p2);
+  }
+};
+
+// The condition groups of an alternative: for each element, the OR over
+// the group's condition rows of each word; a key present where the check
+// failed skips the alternative, any chain failure fails it.
+__device__ inline void cond_group(const Sec& S, const Flags& F, int j0, int j1,
+                                  uint32_t& skip, uint32_t& chain) {
+  for (int e = 0; e < F.E; ++e) {
+    uint32_t ok = 0, kp = 0, ch = 0;
+    for (int j = j0; j < j1; ++j) {
+      const int ent = S.pat[j];
+      if (!(ent & PE_COND)) continue;
+      const int slot = S.chk[CK_COND_SLOT * S.C + (ent >> PE_SHIFT)];
+      ok |= F.w(slot, 0, e);
+      kp |= F.w(slot, 1, e);
+      ch |= F.w(slot, 2, e);
+    }
+    skip |= kp & ~ok;
+    chain |= ch;
+  }
+}
+
+__device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
+                                        bool has_checks, bool has_aux,
+                                        int kmax, int nb, const uint32_t* sbm,
+                                        uint32_t host_m, uint32_t live_m) {
+  const uint32_t ALL = 0xFFFFFFFFu;
+  const int rflags = S.rule_flags[r];
+  const bool covered = rflags & RF_COVERED;
+  const bool host = rflags & RF_HOST;
+  const bool deny = rflags & RF_DENY;
+  Planes v;
+
+  // ---- stage 4: pattern verdict. A rule has one alternative (whose
+  // verdict it takes) or several (it passes where one passes). A rule
+  // without alternatives keeps the INT_MIN of its segment_max, which
+  // stage 6 overwrites whatever the rule's flags.
+  if (has_checks) {
+    uint32_t unc = 0, st = 0, pass = 0;
+    uint32_t alt_bad = 0, skip = 0, chain = 0, miss = 0, g_or = 0;
+    bool has_plain = false, has_cond = false, multi = false;
+    int g0 = S.pat_ptr[r];
+#pragma unroll 1
+    for (int j = S.pat_ptr[r]; j < S.pat_ptr[r + 1]; ++j) {
+      const int ent = S.pat[j];
+      if (!(ent & PE_NOROW)) {
+        const int c = ent >> PE_SHIFT;
+        if (ent & PE_PLAIN) {
+          has_plain = true;
+          g_or |= F.c(c, 0);
+        }
+        if (ent & PE_TRACKED) miss |= F.c(c, 1);
+        unc |= F.c(c, 2);
+        st |= F.c(c, 3);
+        has_cond = has_cond || (ent & PE_COND);
+        if (ent & PE_GROUP_END) {
+          if (has_plain) alt_bad |= ~g_or;
+          if (has_cond) cond_group(S, F, g0, j + 1, skip, chain);
+          g_or = 0;
+          has_plain = has_cond = false;
+          g0 = j + 1;
+        }
+      } else {
+        g0 = j + 1;
+      }
+      if (ent & PE_ALT_END) {
+        const uint32_t ok = ~(alt_bad | chain);
+        if (ent & PE_MULTI) {
+          multi = true;
+          pass |= ~skip & ok;
+        } else {
+          v.set(ALL, V_FAIL);
+          v.set(~skip & ~ok & miss, V_HOST);
+          v.set(~skip & ok, V_PASS);
+          v.set(skip, V_SKIP);
+          v.set(skip & ~ok, V_HOST);           // ambiguous
+        }
+        alt_bad = skip = chain = miss = 0;
+      }
+    }
+    if (multi) {
+      v.set(ALL, V_FAIL);
+      v.set(pass, V_PASS);
+    }
+    v.set(unc & (v.is(V_FAIL) | v.is(V_ERROR) | v.is(V_SKIP)), V_HOST);
+    v.set(st, V_HOST);
+  } else {
+    v.set(ALL, covered ? V_PASS : V_NA);
+  }
+
+  // ---- stage 5: aux programs. A group's value is its rows' OR, XOR its
+  // negate bit (eval.py:765-767); filters AND their groups. Every OR
+  // starts empty and every AND full: the *_n masks hold negated ANDs.
+  uint32_t applicable = ALL, precond_ok = ALL, deny_match = 0;
+  uint32_t deny_err = 0, match_unc = 0, cond_unc = 0;
+  if (has_aux) {
+    const int32_t* is_mk = S.aux + AX_IS_MK * S.X;
+    uint32_t m_or = 0, m_n = 0, e_or = 0, e_n = 0, f_n = 0;
+    uint32_t pre_n = 0, pre_any = 0, den_n = 0, den_any = 0;
+#pragma unroll 1
+    for (int j = S.auxp_ptr[r]; j < S.auxp_ptr[r + 1]; ++j) {
+      const int ent = S.auxp[j];
+      if (!(ent & AE_NOGROUP)) {
+        const int g = ent >> AE_SHIFT;
+        uint32_t any = 0;
+#pragma unroll 1
+        for (int i = S.axg_ptr[g]; i < S.axg_ptr[g + 1]; ++i) {
+          const int row = S.axg_row[i];
+          any |= F.x(row, 0);
+          const uint32_t u = F.x(row, 1);
+          if (u) {
+            if (is_mk[row]) match_unc |= u;
+            else cond_unc |= u;
+          }
+          deny_err |= F.x(row, 2);
+        }
+        const int info = S.axg_info[g];
+        const uint32_t gv = (info & AG_NEGATE) ? ~any : any;
+        const int klass = info >> AG_KLASS_SHIFT;
+        if (klass == AUX_PRECOND) {
+          if (info & AG_ANY) pre_any |= gv; else pre_n |= ~gv;
+        } else if (klass == AUX_DENY) {
+          if (info & AG_ANY) den_any |= gv; else den_n |= ~gv;
+        }
+        if (ent & AE_FILTER) f_n |= ~gv;
+      }
+      if (ent & AE_FILT_END) {
+        if (ent & AE_FILT_EX) {
+          e_or |= ~f_n;
+          e_n |= f_n;
+        } else {
+          m_or |= ~f_n;
+          m_n |= f_n;
+        }
+        f_n = 0;
+      }
+    }
+    const uint32_t match_ok = ((rflags & RF_MATCH_ANY) ? m_or : ~m_n) |
+                              ((rflags & RF_HAS_MATCH) ? 0u : ALL);
+    const uint32_t exclude_hit = ((rflags & RF_EXCLUDE_ALL) ? ~e_n : e_or) &
+                                 ((rflags & RF_HAS_EXCLUDE) ? ALL : 0u);
+    applicable = match_ok & ~exclude_hit;
+    precond_ok = ~pre_n & (pre_any | ((rflags & RF_PRECOND_ANY) ? 0u : ALL));
+    deny_match = ~den_n & (den_any | ((rflags & RF_DENY_ANY) ? 0u : ALL));
+  }
+
+  // ---- stage 6: composition, in the TPU program's order (eval.py:823-856)
+  if (deny) {
+    v.set(ALL, V_PASS);
+    v.set(deny_match, V_FAIL);
+    v.set(deny_err, V_ERROR);
+  }
+  if (!covered && !host && !deny) v.set(ALL, V_NA);
+  v.set(~precond_ok, V_SKIP);
+  if (!host) {
+    v.set(cond_unc, V_HOST);
+    v.set(~applicable, V_NA);
+    v.set(match_unc, V_HOST);
+  } else {
+    // rule_kind_ids pads with -1, and an unknown kind is -1 too: it hits
+    // every host-only rule's kind prefilter, as in the TPU program
+    uint32_t kind_hit = (rflags & RF_ALL_KINDS) ? ALL : 0u;
+    const int32_t* kinds = S.rule_kinds + r * kmax;
+    for (int bi = 0; bi < nb; ++bi) {
+      const int kind_id = (int)(sbm[bi] & 0xFFFFu) - 1;
+      for (int k = 0; k < kmax; ++k)
+        if (kinds[k] == kind_id) kind_hit |= 1u << bi;
+    }
+    v.set(ALL, V_HOST);
+    v.set(~kind_hit, V_NA);
+  }
+  v.set(host_m, V_HOST);
+  v.set(~live_m, V_NA);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+rules_kernel(const int32_t* __restrict__ plan, Blob bl,
+             const uint8_t* __restrict__ match_nv, int tb_shift,
+             int8_t* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t bar;
+  const int TB = 1 << tb_shift, E = bl.E, V = bl.V;
+  const int32_t* tt = plan + plan[H_TILES] + blockIdx.y * TT_NCOLS;
+  const TileDims td = tile_dims(tt);
+  const Layout L = layout(td, E, TB);
+  const int tid = threadIdx.x;
+  // thread -> (resource bi, first row); one pass of the block covers
+  // blockDim.x / TB rows, so a warp holds one row for up to 32 resources
+  const int bi = tid & (TB - 1);
+  const int row0 = tid >> tb_shift;
+  const int rows_per_pass = blockDim.x >> tb_shift;
+  const int b0 = blockIdx.x * TB;
+  const int nb = min(TB, bl.B - b0);
+  const bool live = bi < nb;
+  const int32_t* gsec = plan + tt[TT_OFF];
+  int32_t* sec = (int32_t*)(smem + L.plan);
+
+  // ---- 1. stage the tile's section; decode the slots meanwhile
+  if (tid == 0) barrier_init(&bar);
+  __syncthreads();
+  if (tid == 0) bulk_copy(sec, gsec, (uint32_t)tt[TT_WORDS] * 4u, &bar);
+  const Slots sl{(uint32_t*)(smem + L.slots), td.paths * E * TB, E, TB};
+  const int32_t* gpaths = gsec + gsec[TS_PATHS];
+  const int n_pe = td.paths * E;
+  if (live)
+    for (int pe = row0; pe < n_pe; pe += rows_per_pass) {
+      const int lp = pe / E;
+      sl.put(pe * TB + bi, load_slot(bl, b0 + bi, gpaths[lp], pe - lp * E));
+    }
+  uint32_t* sbm = (uint32_t*)(smem + L.bmeta);
+  if (row0 == 0 && live) sbm[bi] = bl.bmeta[b0 + bi];
+  barrier_wait(&bar);
+  __syncthreads();
+
+  const Sec S = section(sec);
+  uint32_t* sgate = (uint32_t*)(smem + L.gate);
+  uint32_t* scw = (uint32_t*)(smem + L.cond);
+  uint32_t* scf = (uint32_t*)(smem + L.cflags);
+  uint32_t* sxf = (uint32_t*)(smem + L.xflags);
+  uint32_t* svp = (uint32_t*)(smem + L.vout);
+
+  // ---- 2. gates
+  if (live)
+    for (int g = row0; g < S.ngates; g += rows_per_pass)
+      sgate[g * TB + bi] = gate_word(S, g, bi, sl, V, match_nv);
+  __syncthreads();
+
+  // ---- 3. check rows, then aux rows: a lane evaluates its (row, bi); the
+  // warp's ballots turn a row's flags into masks over the block's
+  // resources, which the row's first lane stores. Every lane takes part
+  // in every ballot (a pass covers the same rows in each warp).
+  const int lane = tid & 31;
+  const int group_lane = lane & ~(TB - 1);          // the row's first lane
+  const uint32_t low = TB == 32 ? 0xFFFFFFFFu : (1u << TB) - 1u;
+  for (int base = 0; base < S.C; base += rows_per_pass) {
+    const int c = base + row0;
+    uint32_t words[3] = {0u, 0u, 0u};
+    const uint32_t f = (live && c < S.C)
+        ? check_row(S, c, bi, TB, sl, V, match_nv, sgate, words) : 0u;
+    uint32_t m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      m[k] = (__ballot_sync(0xFFFFFFFFu, (f >> k) & 1u) >> group_lane) & low;
+    if (bi == 0 && c < S.C)
+      for (int k = 0; k < 4; ++k) scf[c * 4 + k] = m[k];
+    if (__any_sync(0xFFFFFFFFu, f & kCondRow)) {
+      const int slot = (bi == 0 && (f & kCondRow))
+          ? S.chk[CK_COND_SLOT * S.C + c] : -1;
+      for (int e = 0; e < E; ++e)
+        for (int j = 0; j < 3; ++j) {
+          const uint32_t w = (__ballot_sync(0xFFFFFFFFu, (words[j] >> e) & 1u)
+                              >> group_lane) & low;
+          if (slot >= 0) scw[(slot * 3 + j) * E + e] = w;
+        }
+    }
+  }
+  for (int base = 0; base < S.X; base += rows_per_pass) {
+    const int x = base + row0;
+    const uint32_t f = (live && x < S.X)
+        ? aux_row(S, x, bi, sbm[bi], sl, V, match_nv) : 0u;
+    uint32_t m[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      m[k] = (__ballot_sync(0xFFFFFFFFu, (f >> k) & 1u) >> group_lane) & low;
+    if (bi == 0 && x < S.X)
+      for (int k = 0; k < 3; ++k) sxf[x * 3 + k] = m[k];
+  }
+  __shared__ uint32_t host_live[2];
+  if (tid < 32) {
+    const uint32_t bm = tid < nb ? sbm[tid] : 0u;
+    const uint32_t hm = __ballot_sync(0xFFFFFFFFu, (bm >> 16) & 1u);
+    const uint32_t lm = __ballot_sync(0xFFFFFFFFu, (bm >> 17) & 1u);
+    if (tid == 0) {
+      host_live[0] = hm;
+      host_live[1] = lm;
+    }
+  }
+  __syncthreads();
+
+  // ---- 4. verdicts: one thread per rule, for all the block's resources
+  const Flags F{scf, sxf, scw, E};
+  const bool has_checks = plan[H_C] > 0;
+  const bool has_aux = plan[H_X] > 0;
+  const int kmax = plan[H_KMAX];
+  for (int r = tid; r < S.R; r += blockDim.x) {
+    const Planes v = verdict_planes(S, r, F, has_checks, has_aux, kmax, nb,
+                                    sbm, host_live[0], host_live[1]);
+    svp[r * 3 + 0] = v.p0;
+    svp[r * 3 + 1] = v.p1;
+    svp[r * 3 + 2] = v.p2;
+  }
+  __syncthreads();
+
+  // ---- 5. one coalesced write of the block's rows: a warp writes one
+  // resource's rules, each byte from the three planes
+  const long long R = plan[H_R];
+  const int r0 = tt[TT_R0];
+  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+  for (int b = warp; b < nb; b += nwarps)
+    for (int r = lane; r < S.R; r += 32) {
+      const uint32_t* p = svp + r * 3;
+      out[(long long)(b0 + b) * R + r0 + r] =
+          (int8_t)(((p[0] >> b) & 1u) | (((p[1] >> b) & 1u) << 1) |
+                   (((p[2] >> b) & 1u) << 2));
+    }
+}
+
+// Device limits, read once: the dynamic shared memory a block may take and
+// the number of SMs.
+int g_smem_room = -1;
+int g_sms = 0;
+int g_smem_set = 0;     // the kernel's dynamic shared memory limit, as set
+
+int device_limits() {
+  if (g_smem_room < 0) {
+    int dev = 0, optin = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin,
+                                   cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncAttributes fa;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, rules_kernel);
+    if (err != cudaSuccess) return (int)err;
+    g_sms = sms;
+    g_smem_room = optin - (int)fa.sharedSizeBytes;
+  }
+  return 0;
+}
+
+int set_smem(int bytes) {
+  if (bytes > g_smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rules_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    g_smem_set = bytes;
+  }
+  return 0;
+}
+
+// The shared memory a launch at tb resources a block asks for: that of
+// its largest tile.
+int launch_bytes(const int32_t* tiles, int64_t n_tiles, int E, int tb) {
+  int most = 0;
+  for (int64_t k = 0; k < n_tiles; ++k)
+    most = max(most, layout(tile_dims(tiles + k * TT_NCOLS), E, tb).total);
+  return most;
+}
+
+// Resources a block takes: the largest of 32, 16 and 8 whose grid fills
+// the card at least one and a half times at the occupancy its shared
+// memory allows (larger blocks stage the plan for more resources and walk
+// each rule for more, but a grid of less than that leaves SMs idle in its
+// last wave), else 8; smaller only where 8 does not fit (an E above the
+// flattener's 16), halving down to 1. 0 if not even one resource fits.
+int choose_tb(const int32_t* tiles, int64_t n_tiles, int E, int64_t B) {
+  for (int t = kMaxTB; t >= 1; t /= 2) {
+    const int bytes = launch_bytes(tiles, n_tiles, E, t);
+    if (bytes > g_smem_room) continue;
+    if (t <= 8) return t;
+    int per_sm = 0;
+    if (set_smem(bytes) != 0 ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rules_kernel,
+                                                      kThreads, bytes) !=
+            cudaSuccess)
+      continue;
+    const int64_t blocks = (B + t - 1) / t * n_tiles;
+    if (2 * blocks >= 3 * (int64_t)per_sm * g_sms) return t;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// One launch of stages 2-6. tiles: the plan's tile table [n_tiles,
+// TT_NCOLS] in host memory; info: host int32[2] that receives the
+// resources a block and the dynamic shared memory a block of the launch.
+extern "C" int ktpu_eval_rules(int64_t plan, int64_t blob, int64_t B,
+                               int64_t P, int64_t E, int64_t V,
+                               int64_t match_nv, int64_t tiles,
+                               int64_t n_tiles, int64_t info, int64_t out,
+                               int64_t stream) {
+  int err = device_limits();
+  if (err != 0) return err;
+  const int32_t* tt = (const int32_t*)tiles;
+  const int tb = choose_tb(tt, n_tiles, (int)E, B);
+  if (tb == 0) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = launch_bytes(tt, n_tiles, (int)E, tb);
+  if ((err = set_smem(bytes)) != 0) return err;
+  int tb_shift = 0;
+  while ((1 << tb_shift) < tb) ++tb_shift;
+  ((int32_t*)info)[0] = tb;
+  ((int32_t*)info)[1] = bytes;
+  const Blob bl = make_blob((const uint32_t*)blob, (int)B, (int)P, (int)E,
+                            (int)V);
+  const dim3 grid((unsigned)((B + tb - 1) / tb), (unsigned)n_tiles);
+  rules_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift,
+      (int8_t*)out);
+  return (int)cudaGetLastError();
+}

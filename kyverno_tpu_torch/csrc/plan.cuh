@@ -1,32 +1,80 @@
 // Shared layout of the device plan and the packed batch blob.
 //
 // The plan is one int32 buffer built once per compiled policy set
-// (kyverno_tpu_torch/ops/eval.py::build_plan). It starts with a header:
-// H_C .. H_KMAX are sizes, H_CHK .. H_FILT_EX are offsets (in int32
-// words from the start of the buffer) of the arrays below. The CSR lists
-// ("*_PTR" [n+1] offsets into "*_<ITEM>" ids) replace the TPU program's
-// segment scatters: a kernel walks a rule's alternatives, groups and rows
-// instead of reducing over segment ids. The numbers here must equal the
-// constants of the same names in ops/eval.py (a CPU test compares them).
+// (kyverno_tpu_torch/ops/plan.py::Plan). It starts with a global header
+// (H_*), then a tile table [H_NTILES, TT_NCOLS] of global ids, then one
+// section per tile. A tile is a range of consecutive rules; its section
+// holds everything a block needs to evaluate those rules, with ids local
+// to the tile: a section header (TS_C .. TS_NPATH are counts, TS_CHK ..
+// TS_AXG_INFO offsets in int32 words from the section's start), the check
+// table and the aux table column-major (column k of the check table is
+// [k * TS_C, (k + 1) * TS_C)), the global ids of the paths the tile reads
+// (CK_PATH and AX_PATH index this list), and CSR lists ("*_PTR" [n+1]
+// offsets into "*_<ITEM>" ids) that replace the TPU program's segment
+// scatters: gate -> groups -> rows, aux group -> aux rows, and per rule
+// one flat list of pattern entries and one of aux-group entries. Sections
+// start and end on 16 bytes, so one bulk copy stages a section in shared
+// memory. The numbers here must equal the constants of the same names in
+// ops/plan.py (a CPU test compares them).
 
 #pragma once
 #include <cstdint>
 
 namespace ktpu {
 
-// ---- plan header
+// ---- global header
 enum Header {
-  H_C = 0, H_X = 1, H_G = 2, H_A = 3, H_R = 4, H_NGATES = 5, H_NCOND = 6,
-  H_GX = 7, H_FX = 8, H_KMAX = 9,
-  H_CHK = 10, H_AUX = 11, H_GATE_PTR = 12, H_GATE_GRP = 13, H_GRP_PTR = 14,
-  H_GRP_ROW = 15, H_ALT_PTR = 16, H_ALT_GRP = 17, H_ALT_MULTI = 18,
-  H_RULE_PTR = 19, H_RULE_ALT = 20, H_RULE_FLAGS = 21, H_RULE_KINDS = 22,
-  H_RAXG_PTR = 23, H_RAXG_GRP = 24, H_AXG_PTR = 25, H_AXG_ROW = 26,
-  H_AXG_INFO = 27, H_RF_PTR = 28, H_RF_FILT = 29, H_FG_PTR = 30,
-  H_FG_GRP = 31, H_FILT_EX = 32, H_NHEADER = 33,
+  H_C = 0, H_X = 1, H_R = 2, H_KMAX = 3, H_NTILES = 4, H_TILES = 5,
+  H_NHEADER = 6,
 };
 
-// ---- check table: [C, CK_NCOLS] int32, one row per check
+// ---- tile table: [NTILES, TT_NCOLS] int32, global ids; [lo, hi) ranges
+enum TileCol {
+  TT_R0 = 0, TT_R1 = 1, TT_C0 = 2, TT_C1 = 3, TT_X0 = 4, TT_X1 = 5,
+  TT_GATE0 = 6, TT_GATE1 = 7, TT_SLOT0 = 8, TT_SLOT1 = 9, TT_NPATH = 10,
+  TT_OFF = 11, TT_WORDS = 12, TT_NCOLS = 13,
+};
+
+// ---- a block's shared memory: per resolved slot SM_SLOT_LANES words per
+// resource; per check row SM_CHECK_MASKS masks, per aux row SM_AUX_MASKS,
+// per condition slot SM_COND_WORDS words per element, per rule
+// SM_VERDICT_PLANES; each array starts on SM_ALIGN bytes (layout() below;
+// ops/plan.py tile_bytes mirrors it)
+enum SmemLayout {
+  SM_SLOT_LANES = 7, SM_CHECK_MASKS = 4, SM_AUX_MASKS = 3, SM_COND_WORDS = 3,
+  SM_VERDICT_PLANES = 3, SM_ALIGN = 16,
+};
+
+// ---- tile section header
+enum Section {
+  TS_C = 0, TS_X = 1, TS_R = 2, TS_NGATES = 3, TS_NPATH = 4,
+  TS_CHK = 5, TS_AUX = 6, TS_PATHS = 7, TS_GATE_PTR = 8, TS_GATE_GRP = 9,
+  TS_GRP_PTR = 10, TS_GRP_ROW = 11, TS_PAT_PTR = 12, TS_PAT = 13,
+  TS_RULE_FLAGS = 14, TS_RULE_KINDS = 15, TS_AUXP_PTR = 16, TS_AUXP = 17,
+  TS_AXG_PTR = 18, TS_AXG_ROW = 19, TS_AXG_INFO = 20, TS_NHEADER = 21,
+};
+
+// ---- a rule's pattern entries (TS_PAT), in alternative then group order:
+// (local check row << PE_SHIFT) | bits. The last row of a group carries
+// PE_GROUP_END, the last entry of an alternative PE_ALT_END (and PE_MULTI
+// if the rule has several alternatives); an alternative with no rows is
+// one PE_NOROW entry. A group with no rows adds nothing and has no entry.
+enum PatEntry {
+  PE_PLAIN = 1, PE_COND = 2, PE_TRACKED = 4, PE_GROUP_END = 8,
+  PE_ALT_END = 16, PE_MULTI = 32, PE_NOROW = 64, PE_SHIFT = 8,
+};
+
+// ---- a rule's aux-group entries (TS_AUXP): (local aux group << AE_SHIFT)
+// | bits, each of the rule's groups once, its filters' groups first, filter
+// by filter. The last group of a filter carries AE_FILT_END (and
+// AE_FILT_EX for an exclude filter); a filter with no groups is one
+// AE_NOGROUP entry.
+enum AuxEntry {
+  AE_FILTER = 1, AE_FILT_END = 2, AE_FILT_EX = 4, AE_NOGROUP = 8,
+  AE_SHIFT = 8,
+};
+
+// ---- check table columns: one row per check
 enum CheckCol {
   CK_PATH = 0, CK_OP = 1, CK_PLEN = 2, CK_GUARD = 3, CK_NFA = 4,
   CK_HAS_NFA = 5, CK_LO_H = 6, CK_LO_L = 7, CK_HI_H = 8, CK_HI_L = 9,
@@ -35,7 +83,7 @@ enum CheckCol {
   CK_COND_DEPTH = 18, CK_COND_SLOT = 19, CK_NCOLS = 20,
 };
 
-// ---- aux table: [X, AX_NCOLS] int32, one row per aux primitive
+// ---- aux table columns: one row per aux primitive
 enum AuxCol {
   AX_PATH = 0, AX_HAS_PATH = 1, AX_PLEN = 2, AX_OP = 3, AX_KIND = 4,
   AX_NFA = 5, AX_HAS_NFA = 6, AX_ABSENT = 7, AX_ERR = 8, AX_ALLOW_NUM = 9,
@@ -56,8 +104,9 @@ enum RuleFlag {
 // ---- per-aux-group info bits (AXG_INFO): negate, any-block, klass << 4
 enum AuxGroupInfo { AG_NEGATE = 1, AG_ANY = 2, AG_KLASS_SHIFT = 4 };
 
-// ---- per-(b, c) check flags and per-(b, x) aux flags, written by
-// eval_checks and read by eval_verdict
+// ---- per-(b, c) check flags and per-(b, x) aux flags: what stages 2-3
+// hand to stages 4-6 (in shared memory in the kernel; returned by the
+// plain versions)
 enum CheckFlag { CF_OK = 1, CF_MISSING = 2, CF_UNC = 4, CF_STRUCT = 8 };
 enum AuxFlag { XF_ROW = 1, XF_UNC = 2, XF_ERR = 4 };
 
@@ -78,6 +127,49 @@ enum TypeTag { T_ABSENT = 0, T_NULL = 1, T_BOOL = 2, T_NUM = 3, T_STR = 4,
                T_OBJ = 5, T_LIST = 6 };
 enum VerdictCode { V_NA = 0, V_PASS = 1, V_FAIL = 2, V_SKIP = 3, V_ERROR = 4,
                    V_HOST = 5 };
+
+// The sizes of one rule tile (one row of the tile table) that set its
+// block's shared memory.
+struct TileDims {
+  int words, paths, checks, aux, rules, gates, cond;
+};
+
+__host__ __device__ inline TileDims tile_dims(const int32_t* tt) {
+  TileDims d;
+  d.words = tt[TT_WORDS];
+  d.paths = tt[TT_NPATH];
+  d.checks = tt[TT_C1] - tt[TT_C0];
+  d.aux = tt[TT_X1] - tt[TT_X0];
+  d.rules = tt[TT_R1] - tt[TT_R0];
+  d.gates = tt[TT_GATE1] - tt[TT_GATE0];
+  d.cond = tt[TT_SLOT1] - tt[TT_SLOT0];
+  return d;
+}
+
+// Byte offsets of a block's arrays in dynamic shared memory, for a tile
+// of these sizes, E slots per path and tb resources a block.
+struct Layout {
+  int plan, slots, bmeta, gate, cond, cflags, xflags, vout, total;
+};
+
+__host__ __device__ inline int align_smem(int n) {
+  return (n + SM_ALIGN - 1) & ~(SM_ALIGN - 1);
+}
+
+__host__ __device__ inline Layout layout(const TileDims& d, int E, int tb) {
+  Layout L;
+  int o = 0;
+  L.plan = o;   o += align_smem(d.words * 4);
+  L.slots = o;  o += align_smem(SM_SLOT_LANES * d.paths * E * tb * 4);
+  L.bmeta = o;  o += align_smem(tb * 4);
+  L.gate = o;   o += align_smem(d.gates * tb * 4);
+  L.cond = o;   o += align_smem(d.cond * SM_COND_WORDS * E * 4);
+  L.cflags = o; o += align_smem(d.checks * SM_CHECK_MASKS * 4);
+  L.xflags = o; o += align_smem(d.aux * SM_AUX_MASKS * 4);
+  L.vout = o;   o += align_smem(d.rules * SM_VERDICT_PLANES * 4);
+  L.total = o;
+  return L;
+}
 
 constexpr int kStrLen = 64;  // bytes per dictionary string (4 x 16 words)
 
@@ -103,13 +195,14 @@ __host__ __device__ inline Blob make_blob(const uint32_t* base, int B, int P,
   return bl;
 }
 
-// One decoded slot: the 16 per-cell lanes of flatten.unpack_batch,
-// gathered from the dictionary row the cell names.
+// One decoded slot: the per-cell lanes of flatten.unpack_batch, gathered
+// from the dictionary row the cell names, plus the two dictionary bits
+// the checks and aux rows read (empty string, key holds a glob).
 struct Slot {
   int mask, type, sid, elem0;
   bool valid, nbrk, nint;
   int numh, numl, durh, durl;
-  bool numok, nplain, durok, durany, boolv;
+  bool numok, nplain, durok, durany, boolv, empty, keyglob;
 };
 
 __device__ inline Slot load_slot(const Blob& bl, int b, int p, int e) {
@@ -143,6 +236,8 @@ __device__ inline Slot load_slot(const Blob& bl, int b, int p, int e) {
   s.durh = s.durany ? (int)d3 : 0;
   s.boolv = ((d4 >> 8) & 1u) && present && is_bool;
   s.nint = nint_raw && numlike;
+  s.empty = present && (d4 & 0x7Fu) == 0;
+  s.keyglob = present && ((d4 >> 7) & 1u);
   return s;
 }
 

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("glob_nfa", "eval_checks", "eval_verdict", "scan_counts")
+KERNELS = ("glob_nfa", "eval_rules", "scan_counts")
 HEADERS = ("plan.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
 
 
@@ -116,10 +117,14 @@ def lib(name: str) -> ctypes.CDLL:
 
 def fn(name: str, entry: str, n_args: int):
     """C entry ``entry`` of kernel ``name``; every argument is passed as
-    a 64-bit integer (pointers, the stream and the scalars alike)."""
-    f = getattr(lib(name), entry)
-    f.argtypes = [ctypes.c_int64] * n_args
-    f.restype = ctypes.c_int
+    a 64-bit integer (pointers, the stream and the scalars alike). Bound
+    once, then cached: a launch spends no host time on it."""
+    f = _fns.get((name, entry))
+    if f is None:
+        f = getattr(lib(name), entry)
+        f.argtypes = [ctypes.c_int64] * n_args
+        f.restype = ctypes.c_int
+        _fns[(name, entry)] = f
     return f
 
 

@@ -5,22 +5,25 @@ compiled check rows:
 
   1. glob-NFA over the string dictionary                    [N, V]   K1
   2. per-check, per-slot leaf comparison + anchor masks     [B, C, E]
-  3. element reduction (AND / existence-OR / gate open)     [B, C]   K2+K3
+  3. element reduction (AND / existence-OR / gate open)     [B, C]
      aux row predicates (match/exclude/precondition/deny)   [B, X]
   4. group OR -> alternative AND -> rule verdict            [B, R]
-  5. aux programs reduced to match/exclude/conditions       [B, R]   K4
+  5. aux programs reduced to match/exclude/conditions       [B, R]
   6. verdict composition: match miss -> NOT_APPLICABLE,
      failed precondition -> SKIP, met deny -> FAIL, deny
      key unresolved -> ERROR
+     (stages 2-6 are one kernel, eval_rules)
   *  scan form: per-rule FAIL/PASS counts over non-HOST rows           K5
 
-Each of K1 (``ops/glob.py``), K2+K3 (:func:`eval_checks`), K4
-(:func:`eval_verdict`) and K5 (:func:`scan_counts`) is a wrapper that
-launches a CUDA kernel from ``csrc/`` for tensors on the card and runs
-its plain PyTorch version (the ``*_plain`` function beside it) for
+Each of K1 (``ops/glob.py``), :func:`eval_rules` (stages 2-6) and K5
+(:func:`scan_counts`) is a wrapper that launches a CUDA kernel from
+``csrc/`` for tensors on the card and runs its plain PyTorch version for
 tensors on the CPU. The plain versions mirror the JAX code stage by
-stage, segment reductions included; the kernels walk the plan's CSR
-lists instead (``ops/plan.py``).
+stage, segment reductions included: :func:`eval_checks_plain` (stages
+2-3, returning the per-row flags) and :func:`eval_verdict_plain` (stages
+4-6, from those flags) compose to what ``eval_rules`` computes. The
+kernel keeps those flags in shared memory and walks the plan's CSR lists
+instead (``ops/plan.py``).
 
 The batch arrives as the packed blob (``FlatBatch.packed_blob``), held
 on the device as int32 (the same bits as the host's uint32 words).
@@ -31,13 +34,15 @@ Verdict codes: 0 = not applicable, 1 = pass, 2 = fail, 3 = skip,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..models.compiler import STR_LEN
 from ..models.ir import AUX_DENY, AUX_PRECOND, AuxOp, CheckOp
 from . import _build
 from .glob import glob_match_matrix
-from .plan import CF_MISSING, CF_OK, CF_STRUCT, CF_UNC, XF_ERR, XF_ROW, XF_UNC, Plan
+from .plan import (CF_MISSING, CF_OK, CF_STRUCT, CF_UNC, MAX_SLOTS, XF_ERR,
+                   XF_ROW, XF_UNC, Plan)
 
 V_NOT_APPLICABLE, V_PASS, V_FAIL, V_SKIP, V_ERROR, V_HOST = range(6)
 
@@ -45,23 +50,27 @@ V_NOT_APPLICABLE, V_PASS, V_FAIL, V_SKIP, V_ERROR, V_HOST = range(6)
 T_ABSENT, T_NULL, T_BOOL, T_NUM, T_STR, T_OBJ, T_LIST = range(7)
 
 INT32_MIN = -(1 << 31)
-MAX_SLOTS = 32   # E: per-element bits travel as one 32-bit word
 
 
 # ------------------------------------------------------------ blob layout
+
+def check_blob(blob: torch.Tensor, B: int, P: int, E: int, V: int) -> None:
+    """Raise unless the blob holds the parts of a (B, P, E, V) batch."""
+    if blob.numel() < B * P * E * 2 + B + V * (5 + STR_LEN // 4):
+        raise ValueError(f"blob of {blob.numel()} words is too short for "
+                         f"B={B} P={P} E={E} V={V}")
+
 
 def blob_parts(blob: torch.Tensor, B: int, P: int, E: int, V: int):
     """Views of the blob's parts: (cells [B*P*E*2], bmeta [B],
     dictv [V, 5], str_bytes [V, STR_LEN] uint8). The byte view of the
     string words is their little-endian byte order, as the JAX program's
     explicit shifts give it."""
+    check_blob(blob, B, P, E, V)
     w = STR_LEN // 4
     o0 = B * P * E * 2
     o1 = o0 + B
     o2 = o1 + V * 5
-    if blob.numel() < o2 + V * w:
-        raise ValueError(f"blob of {blob.numel()} words is too short for "
-                         f"B={B} P={P} E={E} V={V}")
     cells = blob[:o0]
     bmeta = blob[o0:o1]
     dictv = blob[o1:o2].reshape(V, 5)
@@ -166,7 +175,7 @@ def _unpack_bits(word: torch.Tensor, E: int) -> torch.Tensor:
     return ((_u32(word)[..., None] >> shifts) & 1).bool()
 
 
-# ------------------------------------------------------------- K2 + K3
+# ------------------------------------------------- stages 2-3, plain
 
 def eval_checks_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
                       match_nv):
@@ -323,7 +332,7 @@ def eval_checks_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
         check_ok = torch.where(k["c_exist"][None, :], or_ok | exist_absent_ok,
                                and_ok)
 
-        # condition rows: per-element words, OR-ed over a group's rows in K4
+        # condition rows: per-element words, OR-ed over a group's rows in stage 4
         cond_bit = 1 << torch.clamp(col("c_cond_depth"), min=0)
         cond_key_present = (mask_c & cond_bit) != 0
         cond_ok_bits = leaf_present & value_ok
@@ -347,7 +356,7 @@ def eval_checks_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
                       & (tr_parent & valid_c & ~break_at_tr).any(dim=2))
         anchor_missing = registered & ~(tr_present & valid_c).any(dim=2)
 
-        # cells the device cannot score faithfully (composed in K4)
+        # cells the device cannot score faithfully (composed in stages 4-6)
         gate_key_absent = (c_is_gate[None, :]
                            & (~leaf_present & valid_c & (elem0_c >= 0)).any(dim=2))
         gate_struct = c_is_gate[None, :] & (nbrk_c & valid_c).any(dim=2)
@@ -498,48 +507,7 @@ def eval_checks_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
     return chk_flags, cond_w, aux_flags
 
 
-def eval_checks(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
-    """K2+K3: the blob decode fused into the per-check evaluation, the
-    gate rows first, and the aux row predicates. CUDA kernel
-    ``csrc/eval_checks.cu`` on the card, :func:`eval_checks_plain` on the
-    CPU."""
-    if E > MAX_SLOTS:
-        raise ValueError(f"eval_checks: E={E} slots exceed {MAX_SLOTS}")
-    dev = blob.device
-    if dev.type == "cpu":
-        return eval_checks_plain(plan, blob, B, P, E, V, match_nv)
-    if dev.type != "cuda":
-        raise ValueError(f"eval_checks: unsupported device {dev}")
-    _require(blob, torch.int32, dev, "blob")
-    _require(match_nv, torch.bool, dev, "match_nv")
-    blob_parts(blob, B, P, E, V)
-    if tuple(match_nv.shape) != (plan.nfa_char.shape[0], V):
-        raise ValueError(f"eval_checks: match_nv {tuple(match_nv.shape)} is "
-                         f"not [N={plan.nfa_char.shape[0]}, V={V}]")
-    if plan.buf.device != dev:
-        raise ValueError("eval_checks: plan and blob are on different devices")
-    if plan.min_paths > P:
-        raise ValueError(f"eval_checks: the plan reads path {plan.min_paths - 1}"
-                         f" but the batch has P={P}")
-    C, X, NC = plan.C, plan.X, plan.NCOND
-    chk_flags = torch.empty((B, C), dtype=torch.uint8, device=dev)
-    cond_w = torch.empty((B, NC, 3), dtype=torch.int32, device=dev)
-    aux_flags = torch.empty((B, X), dtype=torch.uint8, device=dev)
-    gate_open = torch.empty((max(plan.n_gates, 1), B), dtype=torch.int32,
-                            device=dev)
-    if B == 0 or (C == 0 and X == 0):
-        return chk_flags, cond_w, aux_flags
-    f = _build.fn("eval_checks", "ktpu_eval_checks", 16)
-    err = f(plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V,
-            match_nv.data_ptr(), C, X, plan.n_gates, NC,
-            gate_open.data_ptr(), chk_flags.data_ptr(), cond_w.data_ptr(),
-            aux_flags.data_ptr(), _build.stream_handle(dev))
-    _build.check("eval_checks", err)
-    _build.LAUNCHES["eval_checks"] += 1
-    return chk_flags, cond_w, aux_flags
-
-
-# ------------------------------------------------------------------ K4
+# ------------------------------------------------- stages 4-6, plain
 
 def eval_verdict_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
                        chk_flags, cond_w, aux_flags):
@@ -715,37 +683,59 @@ def eval_verdict_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
     return verdict.to(torch.int8)[:, :plan.R]
 
 
-def eval_verdict(plan: Plan, blob, B: int, P: int, E: int, V: int,
-                 chk_flags, cond_w, aux_flags):
-    """K4: group/alternative/rule reductions, the aux programs and the
-    verdict composition, int8 [B, R]. CUDA kernel ``csrc/eval_verdict.cu``
-    on the card, :func:`eval_verdict_plain` on the CPU."""
+# ------------------------------------------------- stages 2-6, eval_rules
+
+# The resources a block and the dynamic shared memory a block (bytes) of
+# the last launch of eval_rules in this process, as the kernel chose them.
+LAST_LAUNCH = np.zeros(2, dtype=np.int32)
+_LAST_LAUNCH_PTR = LAST_LAUNCH.ctypes.data
+
+
+def eval_rules_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                     match_nv):
+    """Stages 2-6, plain: :func:`eval_verdict_plain` over
+    :func:`eval_checks_plain`. Returns int8 [B, R]."""
+    return eval_verdict_plain(plan, blob, B, P, E, V,
+                              *eval_checks_plain(plan, blob, B, P, E, V,
+                                                 match_nv))
+
+
+def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
+    """Stages 2-6 in one launch: the verdicts int8 [B, R] from the blob and
+    K1's glob matrix. CUDA kernel ``csrc/eval_rules.cu`` on the card (one
+    block per rule tile of the plan and up to 32 resources, as many as the
+    kernel chooses; see ``LAST_LAUNCH``), :func:`eval_rules_plain` on the
+    CPU."""
+    if E > MAX_SLOTS:
+        raise ValueError(f"eval_rules: E={E} slots exceed {MAX_SLOTS}")
     dev = blob.device
     if dev.type == "cpu":
-        return eval_verdict_plain(plan, blob, B, P, E, V, chk_flags, cond_w,
-                                  aux_flags)
+        return eval_rules_plain(plan, blob, B, P, E, V, match_nv)
     if dev.type != "cuda":
-        raise ValueError(f"eval_verdict: unsupported device {dev}")
+        raise ValueError(f"eval_rules: unsupported device {dev}")
     _require(blob, torch.int32, dev, "blob")
-    _require(chk_flags, torch.uint8, dev, "chk_flags")
-    _require(cond_w, torch.int32, dev, "cond_w")
-    _require(aux_flags, torch.uint8, dev, "aux_flags")
-    blob_parts(blob, B, P, E, V)
-    for name, t, shape in (("chk_flags", chk_flags, (B, plan.C)),
-                           ("cond_w", cond_w, (B, plan.NCOND, 3)),
-                           ("aux_flags", aux_flags, (B, plan.X))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"eval_verdict: {name} {tuple(t.shape)} is not {shape}")
+    _require(match_nv, torch.bool, dev, "match_nv")
+    check_blob(blob, B, P, E, V)
+    if tuple(match_nv.shape) != (plan.nfa_char.shape[0], V):
+        raise ValueError(f"eval_rules: match_nv {tuple(match_nv.shape)} is "
+                         f"not [N={plan.nfa_char.shape[0]}, V={V}]")
+    if plan.buf.device != dev:
+        raise ValueError("eval_rules: plan and blob are on different devices")
+    if plan.buf.data_ptr() % 16:
+        raise ValueError("eval_rules: the plan buffer is not 16-byte aligned")
+    if plan.min_paths > P:
+        raise ValueError(f"eval_rules: the plan reads path {plan.min_paths - 1}"
+                         f" but the batch has P={P}")
     R = plan.R
     out = torch.empty((B, R), dtype=torch.int8, device=dev)
     if B == 0 or R == 0:
         return out
-    f = _build.fn("eval_verdict", "ktpu_eval_verdict", 14)
+    f = _build.fn("eval_rules", "ktpu_eval_rules", 12)
     err = f(plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V,
-            chk_flags.data_ptr(), cond_w.data_ptr(), aux_flags.data_ptr(),
-            plan.C, plan.X, R, out.data_ptr(), _build.stream_handle(dev))
-    _build.check("eval_verdict", err)
-    _build.LAUNCHES["eval_verdict"] += 1
+            match_nv.data_ptr(), plan.tile_ptr, plan.n_tiles,
+            _LAST_LAUNCH_PTR, out.data_ptr(), _build.stream_handle(dev))
+    _build.check("eval_rules", err)
+    _build.LAUNCHES["eval_rules"] += 1
     return out
 
 
@@ -801,13 +791,12 @@ def match_matrix(plan: Plan, blob, B: int, P: int, E: int, V: int):
 
 
 def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
-    """Verdicts int8 [B, R] of one packed blob: K1 -> K2+K3 -> K4."""
-    match_nv = match_matrix(plan, blob, B, P, E, V)
-    chk_flags, cond_w, aux_flags = eval_checks(plan, blob, B, P, E, V, match_nv)
-    return eval_verdict(plan, blob, B, P, E, V, chk_flags, cond_w, aux_flags)
+    """Verdicts int8 [B, R] of one packed blob: K1 -> eval_rules."""
+    return eval_rules(plan, blob, B, P, E, V,
+                      match_matrix(plan, blob, B, P, E, V))
 
 
 def scan_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
     """Background-scan form: (fails [R], passes [R], host_rows [B]), the
-    verdict matrix never leaving the device. K1 -> K2+K3 -> K4 -> K5."""
+    verdict matrix never leaving the device. K1 -> eval_rules -> K5."""
     return scan_counts(evaluate_blob(plan, blob, B, P, E, V))

@@ -1,10 +1,14 @@
-"""K2-K5 parity: the port's int8 verdict matrices and scan counts (plain
-versions on the CPU) equal the JAX package's, exactly — once with the
-compiled tensors carried across by ``convert.py`` (kernel parity alone)
-and once from the port's own compile (the slice). Covers the cross-check
-corpora (gate and condition rows), a deny-only set (no check rows) and
-difffuzz seeds. Also pins the plan's layout to ``csrc/plan.cuh``."""
+"""Stages 2-6 and K5 parity: the port's int8 verdict matrices and scan
+counts (plain versions on the CPU) equal the JAX package's, exactly —
+once with the compiled tensors carried across by ``convert.py`` (kernel
+parity alone), once from the port's own compile (the slice) and once
+through ``eval_rules`` itself. Covers the cross-check corpora (gate and
+condition rows), a deny-only set (no check rows), difffuzz seeds and a
+wide corpus (301 paths, 16 slots a path). Also pins the plan's layout to
+``csrc/plan.cuh``: the header, the tile table, the column-major tile
+sections and a block's shared memory, and the rule tiles' ranges."""
 
+import inspect
 import os
 import re
 
@@ -14,8 +18,10 @@ import torch
 
 from kyverno_tpu_torch import convert
 from kyverno_tpu_torch.models import CompiledPolicySet as TorchPolicySet
+from kyverno_tpu_torch.models.flatten import flatten_batch
 from kyverno_tpu_torch.ops import eval as ev
 from kyverno_tpu_torch.ops import plan as plan_mod
+from kyverno_tpu_torch.api.load import load_policy as torch_load_policy
 from tests.torch_parity import (
     both_sets,
     corpus_docs,
@@ -26,7 +32,8 @@ from tests.torch_parity import (
     tensor_fields,
 )
 
-CASES = [("crosscheck", 96), ("deny_only", 48), ("fuzz3", 64), ("fuzz41", 64)]
+CASES = [("crosscheck", 96), ("deny_only", 48), ("fuzz3", 64), ("fuzz41", 64),
+         ("wide", 24)]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=[c[0] for c in CASES])
@@ -44,6 +51,8 @@ def test_verdicts_own_compile(case):
     assert np.array_equal(got, want), _first_diff(got, want)
     if corpus == "deny_only":
         assert tset.plan.C == 0
+    if corpus == "wide":
+        assert tset.plan.n_tiles > 1 and got.shape == (24, 101)
 
 
 def test_verdicts_carried_tensors(case):
@@ -67,18 +76,23 @@ def test_scan_counts(case):
 
 
 def test_stage_outputs_consistent(case):
-    """The K2+K3 flags and the K4 verdicts compose to the one-call
-    pipeline, and the async handle gives the same matrix."""
+    """The stage 2-3 flags and the stage 4-6 verdicts of the plain versions
+    compose to the JAX package's verdicts, as eval_rules (stages 2-6 in
+    one call) gives them, and the async handle gives the same matrix."""
     _, _, tset, resources, want = case
     batch = tset.flatten(resources)
     blob, shp = tset.to_device(batch)
     m = ev.match_matrix(tset.plan, blob, *shp)
-    k3 = ev.eval_checks(tset.plan, blob, *shp, m)
+    k3 = ev.eval_checks_plain(tset.plan, blob, *shp, m)
     assert k3[0].shape == (shp[0], tset.plan.C) and k3[0].dtype == torch.uint8
     assert k3[1].shape == (shp[0], tset.plan.NCOND, 3)
     assert k3[2].shape == (shp[0], tset.plan.X)
-    v = ev.eval_verdict(tset.plan, blob, *shp, *k3)
+    v = ev.eval_verdict_plain(tset.plan, blob, *shp, *k3)
     assert np.array_equal(v.numpy()[:, :tset.tensors.n_rules_live], want)
+    got = ev.eval_rules(tset.plan, blob, *shp, m)
+    assert got.shape == (shp[0], tset.plan.R) and got.dtype == torch.int8
+    got = got.numpy()[:, :tset.tensors.n_rules_live]
+    assert np.array_equal(got, want), _first_diff(got, want)
     handle = tset.evaluate_device_async(batch)
     assert np.array_equal(handle.get(), want)
 
@@ -91,49 +105,194 @@ def _first_diff(got, want):
     return f"{len(d)} cells differ; first (b={b}, r={r}): jax {want[b, r]} port {got[b, r]}"
 
 
-def test_plan_constants_match_header():
-    """Every enum the kernels read from csrc/plan.cuh has the value the
-    plan builder writes."""
+def _header_enums() -> dict:
     path = os.path.join(os.path.dirname(plan_mod.__file__), "..", "csrc",
                         "plan.cuh")
     text = open(path).read()
-    pairs = dict((k, int(v)) for k, v in re.findall(r"\b([HC][K_]?\w*|AX_\w+|"
-                                                   r"RF_\w+|AG_\w+|CF_\w+|XF_\w+)"
-                                                   r"\s*=\s*(\d+)", text))
-    shifts = dict((k, 1 << int(v)) for k, v in
-                  re.findall(r"\b(RF_\w+)\s*=\s*1\s*<<\s*(\d+)", text))
-    pairs.update(shifts)
-    checked = 0
+    pairs = dict((k, int(v)) for k, v in re.findall(
+        r"\b(H_\w+|TT_\w+|TS_\w+|CK_\w+|AX_\w+|PE_\w+|AE_\w+|CF_\w+|XF_\w+|AG_\w+"
+        r"|SM_\w+)"
+        r"\s*=\s*(\d+)", text))
+    pairs.update((k, 1 << int(v)) for k, v in
+                 re.findall(r"\b(RF_\w+)\s*=\s*1\s*<<\s*(\d+)", text))
+    return pairs
+
+
+def test_plan_constants_match_header():
+    """Every enum the kernel reads from csrc/plan.cuh has the value that
+    ops/plan.py writes, and the layout enums (global header, tile table,
+    section header, check and aux columns, entry bits) match name for
+    name, and so do those of a block's shared memory (SM_). The plan
+    budgets each tile at the flattener's own cap on slots."""
+    pairs = _header_enums()
     for name, value in pairs.items():
-        if hasattr(plan_mod, name):
-            assert getattr(plan_mod, name) == value, name
-            checked += 1
-    assert checked >= 70
+        assert getattr(plan_mod, name) == value, name
+    layout = ("H_", "TT_", "TS_", "CK_", "AX_", "PE_", "AE_", "SM_")
+    py = {n for n in vars(plan_mod) if n.startswith(layout) and n.isupper()}
+    assert py == {n for n in pairs if n.startswith(layout)}
+    assert len(pairs) >= 126
+    max_slots = inspect.signature(flatten_batch).parameters["max_slots"]
+    assert max_slots.default == plan_mod.FLAT_SLOTS
+    assert ev.MAX_SLOTS == plan_mod.MAX_SLOTS
+
+
+def _tile_table(plan):
+    buf = plan.buf_np
+    n = int(buf[plan_mod.H_NTILES])
+    t0 = int(buf[plan_mod.H_TILES])
+    return buf[t0:t0 + n * plan_mod.TT_NCOLS].reshape(n, plan_mod.TT_NCOLS)
+
+
+def _section(plan, row):
+    sec = plan.buf_np[row[plan_mod.TT_OFF]:row[plan_mod.TT_OFF] + row[plan_mod.TT_WORDS]]
+
+    def arr(h, n):
+        return sec[sec[h]:sec[h] + n]
+
+    def lst(hp, hi, i):
+        return sec[sec[hi] + sec[sec[hp] + i]: sec[hi] + sec[sec[hp] + i + 1]]
+
+    return sec, arr, lst
 
 
 @pytest.mark.parametrize("corpus", ["crosscheck", "library250"])
 def test_plan_csr_walks_cover_segments(corpus):
-    """Walking the plan's CSR lists reaches exactly the rows the JAX
-    program's segment ids assign to each rule."""
+    """Walking each rule tile's lists (a rule's pattern entries; its aux
+    groups' rows) reaches exactly the rows the JAX program's segment ids
+    assign to each rule, with one alternative end per alternative, and
+    the column-major tables hold the compiled columns (paths through the
+    tile's path list, gates and condition slots local to the tile)."""
     _, tset = both_sets(corpus_docs(corpus))
-    t, buf = tset.tensors, tset.plan.buf_np
+    t, plan = tset.tensors, tset.plan
+    P = plan_mod
+    cond_slot = np.cumsum(t.chk_is_cond) - 1
+    for row in _tile_table(plan):
+        sec, arr, lst = _section(plan, row)
+        r0, c0, x0 = row[P.TT_R0], row[P.TT_C0], row[P.TT_X0]
+        for r in range(row[P.TT_R1] - r0):
+            pat = lst(P.TS_PAT_PTR, P.TS_PAT, r)
+            rows = [int(e >> P.PE_SHIFT) + c0 for e in pat if not e & P.PE_NOROW]
+            assert sorted(rows) == np.nonzero(t.chk_rule == r0 + r)[0].tolist()
+            n_alts = int(np.sum(t.alt_rule == r0 + r))
+            assert sum(bool(e & P.PE_ALT_END) for e in pat) == n_alts
+            aux = [int(x) + x0 for e in lst(P.TS_AUXP_PTR, P.TS_AUXP, r)
+                   if not e & P.AE_NOGROUP
+                   for x in lst(P.TS_AXG_PTR, P.TS_AXG_ROW, e >> P.AE_SHIFT)]
+            assert sorted(aux) == np.nonzero(t.ax_rule == r0 + r)[0].tolist()
+        Ct, Xt = sec[P.TS_C], sec[P.TS_X]
+        chk = arr(P.TS_CHK, Ct * P.CK_NCOLS).reshape(P.CK_NCOLS, Ct)
+        aux_t = arr(P.TS_AUX, Xt * P.AX_NCOLS).reshape(P.AX_NCOLS, Xt)
+        paths = arr(P.TS_PATHS, sec[P.TS_NPATH])
+        c1, x1 = row[P.TT_C1], row[P.TT_X1]
+        assert np.array_equal(paths[chk[P.CK_PATH]], t.chk_path[c0:c1])
+        assert np.array_equal(chk[P.CK_OP], t.chk_op[c0:c1])
+        gate = t.chk_gate[c0:c1]
+        assert np.array_equal(np.where(gate >= 0, chk[P.CK_GATE] + row[P.TT_GATE0], -1),
+                              gate)
+        slot = np.where(t.chk_is_cond[c0:c1], cond_slot[c0:c1], -1)
+        assert np.array_equal(
+            np.where(slot >= 0, chk[P.CK_COND_SLOT] + row[P.TT_SLOT0], -1), slot)
+        assert np.array_equal(paths[aux_t[P.AX_PATH]], np.maximum(t.ax_path[x0:x1], 0))
+        assert np.array_equal(aux_t[P.AX_OP], t.ax_op[x0:x1])
 
-    def lst(hp, hi, i):
-        p = buf[buf[hp]:]
-        return buf[buf[hi] + p[i]: buf[hi] + p[i + 1]]
 
-    for r in range(t.n_rules):
-        rows = [int(c) for a in lst(plan_mod.H_RULE_PTR, plan_mod.H_RULE_ALT, r)
-                for g in lst(plan_mod.H_ALT_PTR, plan_mod.H_ALT_GRP, a)
-                for c in lst(plan_mod.H_GRP_PTR, plan_mod.H_GRP_ROW, g)]
-        assert sorted(rows) == np.nonzero(t.chk_rule == r)[0].tolist()
-        aux = [int(x) for g in lst(plan_mod.H_RAXG_PTR, plan_mod.H_RAXG_GRP, r)
-               for x in lst(plan_mod.H_AXG_PTR, plan_mod.H_AXG_ROW, g)]
-        assert sorted(aux) == np.nonzero(t.ax_rule == r)[0].tolist()
-    chk = buf[buf[plan_mod.H_CHK]:][:t.chk_op.size * plan_mod.CK_NCOLS]
-    chk = chk.reshape(-1, plan_mod.CK_NCOLS)
-    assert np.array_equal(chk[:, plan_mod.CK_PATH], t.chk_path)
-    assert np.array_equal(chk[:, plan_mod.CK_OP], t.chk_op)
+@pytest.mark.parametrize("corpus,tile_words", [
+    ("library250", plan_mod.TILE_WORDS), ("library250", 2048),
+    ("crosscheck", plan_mod.TILE_WORDS), ("crosscheck", 600),
+    ("library1000", plan_mod.TILE_WORDS), ("library1000", 4096),
+    ("wide", plan_mod.TILE_WORDS), ("wide", 600),
+])
+def test_plan_rule_tiles(corpus, tile_words):
+    """The plan's rule tiles: consecutive rule ranges whose check-row and
+    aux-row ranges are contiguous and cover each row exactly once, each
+    gate and condition slot inside its rule's tile, and each section on
+    16 bytes. A block over any tile fits in shared memory at one resource
+    and 32 slots a path; one over a tile of several rules also at 8
+    resources and the flattener's 16 slots, with the section within the
+    tile budget. The wide corpus (301 paths) is cut by its slots, not its
+    words, and its 100-path rule takes a tile alone."""
+    tset = TorchPolicySet([torch_load_policy(d) for d in corpus_docs(corpus)],
+                          device="cpu")
+    t = tset.tensors
+    plan = plan_mod.Plan(t, "cpu", tile_words=tile_words)
+    P = plan_mod
+    table = _tile_table(plan)
+    assert len(table) == plan.n_tiles >= 1
+    if corpus == "library250" and tile_words == P.TILE_WORDS:
+        assert plan.n_tiles == 1
+    if corpus == "library1000" or tile_words < P.TILE_WORDS:
+        assert plan.n_tiles > 1
+    for lo, hi in ((P.TT_R0, P.TT_R1), (P.TT_C0, P.TT_C1), (P.TT_X0, P.TT_X1),
+                   (P.TT_SLOT0, P.TT_SLOT1)):
+        assert table[0, lo] == 0 and np.array_equal(table[1:, lo], table[:-1, hi])
+        assert np.all(table[:, hi] >= table[:, lo])
+    assert table[-1, P.TT_R1] == t.n_rules
+    assert table[-1, P.TT_C1] == t.chk_op.size and table[-1, P.TT_X1] == t.ax_op.size
+    assert table[-1, P.TT_SLOT1] == int(np.sum(t.chk_is_cond))
+    assert np.all(table[1:, P.TT_GATE0] >= table[:-1, P.TT_GATE1])
+    tile_of = np.repeat(np.arange(len(table)), table[:, P.TT_R1] - table[:, P.TT_R0])
+    for name, rule_of, lo, hi in (("check", t.chk_rule, P.TT_C0, P.TT_C1),
+                                  ("aux", t.ax_rule, P.TT_X0, P.TT_X1)):
+        idx = np.arange(len(rule_of))
+        k = tile_of[rule_of]
+        assert np.all((table[k, lo] <= idx) & (idx < table[k, hi])), name
+    gated = np.nonzero(t.chk_gate >= 0)[0]
+    k = tile_of[t.chk_rule[gated]]
+    assert np.all((table[k, P.TT_GATE0] <= t.chk_gate[gated])
+                  & (t.chk_gate[gated] < table[k, P.TT_GATE1]))
+    cond = np.nonzero(t.chk_is_cond)[0]
+    slot = np.arange(cond.size)
+    k = tile_of[t.chk_rule[cond]]
+    assert np.all((table[k, P.TT_SLOT0] <= slot) & (slot < table[k, P.TT_SLOT1]))
+    assert np.all(table[:, P.TT_OFF] % P.SECTION_ALIGN == 0)
+    assert np.all(table[:, P.TT_WORDS] % P.SECTION_ALIGN == 0)
+    dims = [P._row_dims(row) for row in table]
+    for d, row in zip(dims, table):
+        assert P.tile_bytes(*d, P.MAX_SLOTS, 1) <= P.SMEM_BYTES
+        if row[P.TT_R1] - row[P.TT_R0] > 1:
+            assert d[0] <= tile_words
+            assert P.tile_bytes(*d, P.FLAT_SLOTS, P.FLAT_TB) <= P.SMEM_BYTES
+    for E, tb in ((1, 32), (P.FLAT_SLOTS, 4)):
+        assert plan.smem_bytes(E, tb) == max(P.tile_bytes(*d, E, tb) for d in dims)
+    if corpus == "wide":
+        assert plan.n_tiles >= 6 and table[-1, P.TT_R0] == t.n_rules - 1
+        assert table[-1, P.TT_NPATH] == 100
+        assert P.tile_bytes(*dims[-1], P.FLAT_SLOTS, P.FLAT_TB) > P.SMEM_BYTES
+        assert sum(d[0] for d in dims) <= P.TILE_WORDS
+
+
+def test_plan_refuses_rows_out_of_rule_order():
+    """Rules numbered backwards still nest, but a rule tile would no longer
+    be one range of rows: `Plan` refuses it."""
+    _, tset = both_sets(corpus_docs("fuzz3"))
+    t = convert.tensors_from_numpy(tensor_fields(tset.tensors))
+    last = t.n_rules - 1
+    assert len(set(t.chk_rule.tolist())) >= 2
+    for name in ("chk_rule", "ax_rule", "alt_rule", "axg_rule", "axf_rule"):
+        setattr(t, name, last - getattr(t, name))
+    with pytest.raises(ValueError, match="not in rule order"):
+        plan_mod.Plan(t, "cpu")
+
+
+def test_plan_refuses_a_rule_beyond_shared_memory():
+    """A rule whose tile would not fit a block of one resource at 32 slots
+    a path is refused when the plan is built, not at launch."""
+    tset = TorchPolicySet([torch_load_policy(d) for d in corpus_docs("wide")],
+                          device="cpu")
+    plan_mod.Plan(tset.tensors, "cpu", smem_bytes=110_000)
+    with pytest.raises(ValueError, match="rule 100 needs"):
+        plan_mod.Plan(tset.tensors, "cpu", smem_bytes=100_000)
+
+
+def test_eval_rules_refuses_other_devices():
+    """No fallback: off the CPU, eval_rules launches the kernel or raises."""
+    jset, tset = both_sets(corpus_docs("deny_only"))
+    blob, (B, P, E, V) = jax_blob(jset, corpus_resources("deny_only", 4))
+    meta = torch.empty(blob.size, dtype=torch.int32, device="meta")
+    m = torch.empty((tset.plan.nfa_char.shape[0], V), dtype=torch.bool,
+                    device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ev.eval_rules(tset.plan, meta, B, P, E, V, m)
 
 
 def test_blob_shape_checked():

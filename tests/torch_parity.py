@@ -18,6 +18,7 @@ from dataclasses import fields
 import numpy as np
 
 import bench
+import chip_smoke
 from kyverno_tpu.analysis import difffuzz
 from kyverno_tpu.api.load import load_policies_from_path
 from kyverno_tpu.api.load import load_policy as jax_load_policy
@@ -63,10 +64,14 @@ def corpus_docs(name: str) -> list[dict]:
     side and are handed over as their raw dicts)."""
     if name == "library250":
         return bench._synth_policy_docs(250)
+    if name == "library1000":
+        return bench._synth_policy_docs(1000)
     if name == "crosscheck":
         return SYNTHETIC_POLICIES + ADVERSARIAL_POLICIES
     if name == "deny_only":
         return DENY_ONLY
+    if name == "wide":
+        return chip_smoke.wide_policy_docs()
     if name.startswith("fuzz"):
         seed = int(name[4:])
         return difffuzz.gen_policy_docs(random.Random(seed), seed, n_policies=6)
@@ -79,6 +84,10 @@ def corpus_docs(name: str) -> list[dict]:
 def corpus_resources(name: str, n: int) -> list[dict]:
     if name == "library250":
         return [bench.mixed_resource(i) for i in range(n)]
+    if name == "wide":
+        rng = np.random.default_rng(3)
+        return [chip_smoke.wide_resource(rng, containers=16 if i == 0 else 0)
+                for i in range(n)]
     if name.startswith("fuzz"):
         rng = random.Random(1000 + int(name[4:]))
         return [difffuzz.gen_resource(rng, rng.choice(("Pod", "Deployment",
