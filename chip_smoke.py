@@ -7,10 +7,13 @@ its plain PyTorch version.
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
                build/torch_kernels/ (one process per source, in parallel)
-  2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch) and K5
-               scan counts against their plain versions, on the card,
-               with zero tolerance (the outputs are integers and
-               booleans): an anchor-heavy seeded corpus (gates,
+  2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch), its
+               scan form (FAIL / PASS / HOST bit masks instead of the
+               verdicts) and K5 (the counts from the masks) against
+               their plain versions, on the card, with zero tolerance
+               (the outputs are integers and booleans), and scan_blob
+               (K1 -> scan form -> K5) against the counts of the
+               verdict matrix: an anchor-heavy seeded corpus (gates,
                conditions, existence, anchorMap, anyPattern, aux rows),
                also cut into ten rule tiles; a deny-only set (no check
                rows); the 250-policy library x 10k mixed resources; the
@@ -18,18 +21,25 @@ Phases:
                block's shared memory and runs as several rule tiles; and
                a wide corpus of 301 paths x 16 elements a path, whose
                slots cut it into seven tiles and blocks of fewer than 8
-               resources
+               resources. K1 also over a seeded set of more glob
+               patterns than one of its blocks takes, on the library's
+               10k dictionary
   3. main      CompiledPolicySet(library_250).evaluate_device(flatten(10k))
-               with the launch counters set to 0 just before: the pinned
-               verdict histogram and sha256, evaluate_device_async equal,
-               every kernel of the path launched
-  4. scan      scan_counts over 100,000 mixed resources in chunks of
-               10,000, equal to the plain pipeline's counts on the card
+               and scan_counts over 100,000 mixed resources in chunks of
+               10,000, with the launch counters set to 0 just before:
+               the pinned verdict histogram and sha256,
+               evaluate_device_async equal, every kernel of both paths
+               launched
+  4. scan      the 100k scan equal to the plain pipeline's counts on the
+               card, and its first chunk to the verdict matrix's
   5. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
-               the memory rate (each kernel is bytes-bound); eval_rules
-               also at B = 100,000 and at two smaller tile budgets
+               the memory rate (each kernel is bytes-bound); K1,
+               eval_rules, its scan form, K5 and scan_blob also at
+               B = 100,000, where scan_blob is held to launch exactly K1,
+               the scan form and K5 and to allocate no [B, R] matrix;
+               eval_rules at two smaller tile budgets
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -458,8 +468,10 @@ KERNEL_SOURCES = {
                  "kyverno_tpu/ops/glob.py:31"),
     "eval_rules": ("kyverno_tpu_torch/csrc/eval_rules.cu",
                    "kyverno_tpu/ops/eval.py:205"),
+    "eval_rules_scan": ("kyverno_tpu_torch/csrc/eval_rules.cu",
+                        "kyverno_tpu/ops/eval.py:966"),
     "scan_counts": ("kyverno_tpu_torch/csrc/scan_counts.cu",
-                    "kyverno_tpu/ops/eval.py:951"),
+                    "kyverno_tpu/ops/eval.py:967"),
 }
 
 
@@ -491,7 +503,7 @@ def same(name: str, a, b) -> int:
 
 
 class Stages:
-    """The three kernel calls of one blob, each beside its plain version."""
+    """The kernel calls of one blob, each beside its plain version."""
 
     def __init__(self, cps, resources):
         import torch
@@ -511,41 +523,70 @@ class Stages:
         from kyverno_tpu_torch.ops import glob
 
         p = self.plan
-        f = glob.glob_match_matrix_plain if plain else glob.glob_match_matrix
-        return f(p.nfa_char, p.nfa_is_star, p.nfa_is_q, p.nfa_len,
-                 self.str_bytes, self.str_len)
+        args = (p.nfa_char, p.nfa_is_star, p.nfa_is_q, p.nfa_len,
+                self.str_bytes, self.str_len)
+        if plain:
+            return glob.glob_match_matrix_plain(*args)
+        return glob.glob_match_matrix(*args, p.glob)
 
     def rules(self, match_nv, plain=False, plan=None):
         f = self.ev.eval_rules_plain if plain else self.ev.eval_rules
         return f(plan or self.plan, self.blob, *self.shape, match_nv)
 
-    def k5(self, v, plain=False):
-        f = self.ev.scan_counts_plain if plain else self.ev.scan_counts
-        return f(v)
+    def scan_form(self, match_nv, plan=None):
+        return self.ev.eval_rules_scan(plan or self.plan, self.blob,
+                                       *self.shape, match_nv)
 
-    def compare(self, label: str) -> dict:
+    def scan_form_plain(self, match_nv, plan=None):
+        plan = plan or self.plan
+        return self.ev.scan_masks_plain(
+            plan, self.rules(match_nv, plain=True, plan=plan))
+
+    def k5(self, masks, plain=False):
+        f = self.ev.scan_reduce_plain if plain else self.ev.scan_reduce
+        return f(*masks, self.B)
+
+    def scan(self, plan=None):
+        return self.ev.scan_blob(plan or self.plan, self.blob, *self.shape)
+
+    def compare(self, label: str, plan=None) -> dict:
         """Every kernel against its plain version on the same inputs."""
         import torch
 
+        plan = plan or self.plan
         m_k, m_p = self.k1(), self.k1(plain=True)
         n1 = same(f"{label} K1", m_k, m_p)
-        v_k, v_p = self.rules(m_k), self.rules(m_k, plain=True)
-        n2 = same(f"{label} eval_rules", v_k, v_p)
-        s_k, s_p = self.k5(v_k), self.k5(v_k, plain=True)
-        n5 = same(f"{label} K5", s_k, s_p)
+        v_k = self.rules(m_k, plan=plan)
+        n2 = same(f"{label} eval_rules", v_k, self.rules(m_k, plain=True, plan=plan))
+        s_k = self.scan_form(m_k, plan=plan)
+        n3 = same(f"{label} eval_rules scan form", s_k,
+                  self.ev.scan_masks_plain(plan, v_k))
+        n5 = same(f"{label} K5", self.k5(s_k), self.k5(s_k, plain=True))
+        counts = self.ev.scan_counts_plain(v_k)
+        same(f"{label} scan_blob", self.scan(plan), counts)
         # and the whole plain pipeline from the blob alone
         same(f"{label} plain pipeline", v_k,
-             plain_pipeline(self.plan, self.blob, self.shape))
+             plain_pipeline(plan, self.blob, self.shape))
+        # what the scan had to count: FAIL and PASS cells outside HOST
+        # rows, and FAIL or PASS cells inside them that it had to drop
+        f, p, h = counts
+        in_host = v_k[h]
+        seen = {"fails": int(f.sum()), "passes": int(p.sum()),
+                "host_rows": int(h.sum()),
+                "dropped": int(((in_host == 1) | (in_host == 2)).sum())}
         torch.cuda.synchronize()
-        return {"glob_nfa": n1, "eval_rules": n2, "scan_counts": n5}
+        return {"glob_nfa": n1, "eval_rules": n2, "eval_rules_scan": n3,
+                "scan_counts": n5}, seen
 
-    def launch(self) -> tuple:
-        """The block size and shared memory of the last eval_rules launch,
-        after checking the bytes against the plan's own account of them."""
+    def launch(self, plan=None) -> tuple:
+        """The block size and shared memory of the last eval_rules launch
+        (either form), after checking the bytes against the plan's own
+        account of them."""
+        plan = plan or self.plan
         tb, smem = (int(x) for x in self.ev.LAST_LAUNCH)
-        check(smem == self.plan.smem_bytes(self.E, tb),
+        check(smem == plan.smem_bytes(self.E, tb),
               f"eval_rules took {smem} bytes a block at {tb} resources, the "
-              f"plan counts {self.plan.smem_bytes(self.E, tb)}")
+              f"plan counts {plan.smem_bytes(self.E, tb)}")
         return tb, smem
 
 
@@ -559,6 +600,22 @@ def plain_pipeline(plan, blob, shape):
                                      plan.nfa_is_q, plan.nfa_len, str_bytes,
                                      dictv[:, 4])
     return ev.eval_rules_plain(plan, blob, *shape, m)
+
+
+def glob_patterns(rng, strings, n: int) -> list:
+    """``n`` seeded glob patterns, most cut from dictionary strings with
+    '*' and '?' put in, so that many of them match."""
+    pats = []
+    while len(pats) < n:
+        s = strings[int(rng.integers(len(strings)))][:40]
+        chars = list(s) if s and rng.random() < 0.8 else list(
+            "ab:-."[int(i)] for i in rng.integers(0, 5, int(rng.integers(0, 12))))
+        for k in rng.integers(0, len(chars) + 1, int(rng.integers(0, 4))):
+            chars.insert(int(k), "*" if rng.random() < 0.8 else "?")
+        if chars and rng.random() < 0.3:
+            chars[int(rng.integers(len(chars)))] = "?"
+        pats.append("".join(chars))
+    return pats
 
 
 def cuda_ms(fn, n: int, warm: int = 3) -> float:
@@ -585,7 +642,8 @@ def device_ms(fn, n: int = 50) -> float:
     """Milliseconds per call of ``fn`` over ``n`` calls queued back to back
     behind a sleep kernel (about 10 ms), so that the host's time to
     enqueue them overlaps the sleep: the card's own time per call, launch
-    gaps included. For kernels, whose wrappers enqueue one launch each."""
+    gaps included. For calls that enqueue a few launches each, whose
+    host time stays under the sleep's."""
     import torch
 
     fn()
@@ -625,8 +683,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from kyverno_tpu_torch.api.load import load_policy
     from kyverno_tpu_torch.models import CompiledPolicySet
+    from kyverno_tpu_torch.models.compiler import _compile_glob
     from kyverno_tpu_torch.ops import _build
     from kyverno_tpu_torch.ops import eval as ev
+    from kyverno_tpu_torch.ops import glob
     from kyverno_tpu_torch.ops.plan import TT_GATE0, TT_NPATH, TT_SLOT0, Plan
 
     check(not any(m == "jax" or m.startswith("jax.") or m == "kyverno_tpu"
@@ -653,7 +713,8 @@ def main() -> int:
     rng = np.random.default_rng(11)
     n_anchor = 500 if args.quick else 4000
     anchor_st = Stages(anchor, [random_resource(rng) for _ in range(n_anchor)])
-    counts = anchor_st.compare("anchor")
+    scan_seen = {}
+    counts, scan_seen["anchor"] = anchor_st.compare("anchor")
     log(f"[kernels] anchor corpus: C={t.chk_op.size} X={t.ax_op.size} "
         f"gates={t.n_gates} cond={anchor.plan.NCOND} B={n_anchor}: equal {counts}")
     # the same corpus cut into tiles that split its gates and condition
@@ -662,27 +723,47 @@ def main() -> int:
     check(tiled.n_tiles > 1 and len({r[TT_GATE0] for r in tiled.tile_table}) > 1
           and len({r[TT_SLOT0] for r in tiled.tile_table}) > 1,
           "the 600-word anchor plan does not split the gates and conditions")
-    m = anchor_st.k1()
-    n = same("anchor tiled eval_rules", anchor_st.rules(m, plan=tiled),
-             anchor_st.rules(m, plain=True))
+    counts, scan_seen["anchor tiled"] = anchor_st.compare("anchor tiled", plan=tiled)
     log(f"[kernels] anchor corpus in {tiled.n_tiles} rule tiles (600 words): "
-        f"eval_rules equal on {n} verdicts")
+        f"equal {counts}")
     deny = CompiledPolicySet([load_policy(d) for d in deny_only_docs()])
     check(deny.plan.C == 0, "the deny-only set compiled to check rows")
-    counts = Stages(deny, [random_resource(rng) for _ in range(300)]).compare("deny-only")
+    counts, scan_seen["deny-only"] = Stages(
+        deny, [random_resource(rng) for _ in range(300)]).compare("deny-only")
     log(f"[kernels] deny-only set (C=0): equal {counts}")
     library_docs = _synth_policy_docs(250)
     lib_cps = CompiledPolicySet([load_policy(d) for d in library_docs])
     n_lib = 1000 if args.quick else 10_000
     lib_stages = Stages(lib_cps, [mixed_resource(i) for i in range(n_lib)])
-    counts = lib_stages.compare("library")
+    counts, scan_seen["library"] = lib_stages.compare("library")
     log(f"[kernels] library 250 x {n_lib}: {lib_cps.plan.n_tiles} rule tile(s), "
         f"{lib_cps.plan.buf.numel() * 4} plan bytes; equal {counts}")
+    # K1 over more patterns than a block takes, so that grid.y > 1
+    strings = [bytes(row[:int(n)]).decode("latin-1") for row, n in zip(
+        lib_stages.str_bytes.cpu().numpy(),
+        (lib_stages.str_len & glob.LEN_MASK).cpu().numpy())]
+    grng = np.random.default_rng(5)
+    rows = [r for r in (_compile_glob(p) for p in glob_patterns(grng, strings, 60))
+            if r is not None][:40]
+    nfa = [torch.from_numpy(np.stack([r[k] for r in rows])).cuda()
+           for k in range(3)]
+    nfa.append(torch.tensor([r[3] for r in rows], dtype=torch.int32).cuda())
+    tables = glob.nfa_tables(*nfa, "cuda")
+    g_k = glob.glob_match_matrix(*nfa, lib_stages.str_bytes, lib_stages.str_len,
+                                 tables)
+    n = same("K1 40 patterns", g_k, glob.glob_match_matrix_plain(
+        *nfa, lib_stages.str_bytes, lib_stages.str_len))
+    hits = int(g_k.sum())
+    check(len(rows) > 2 * glob.KERNEL_PATTERNS and 0 < hits < n,
+          f"K1 pattern set: {len(rows)} patterns, {hits} of {n} matches")
+    log(f"[kernels] K1 over {len(rows)} seeded patterns x {lib_stages.V} "
+        f"strings ({-(-len(rows) // glob.KERNEL_PATTERNS)} pattern groups): "
+        f"equal on {n}, {hits} matches")
     big = CompiledPolicySet([load_policy(d) for d in _synth_policy_docs(1000)])
     check(big.plan.n_tiles > 1, "the 1000-policy plan is one rule tile")
     n_big = 500 if args.quick else 2000
     big_stages = Stages(big, [mixed_resource(i) for i in range(n_big)])
-    counts = big_stages.compare("library-1000")
+    counts, scan_seen["library-1000"] = big_stages.compare("library-1000")
     tb, smem = big_stages.launch()
     log(f"[kernels] library 1000 x {n_big}: {big.plan.n_tiles} rule tiles "
         f"{big.plan.tiles}, {big.plan.buf.numel() * 4} plan bytes, "
@@ -693,13 +774,20 @@ def main() -> int:
     wide_st = Stages(wide, [wide_resource(wrng, containers=16 if i == 0 else 0)
                             for i in range(n_wide)])
     check(wide_st.E == 16 and wide_st.P > 300, f"wide batch {wide_st.shape}")
-    counts = wide_st.compare("wide")
+    counts, scan_seen["wide"] = wide_st.compare("wide")
     tb, smem = wide_st.launch()
     check(tb < 8, f"the wide corpus ran at {tb} resources a block")
     log(f"[kernels] wide corpus x {n_wide}: P={wide_st.P} E={wide_st.E}, "
         f"{wide.plan.n_tiles} rule tiles {wide.plan.tiles}, at most "
         f"{int(wide.plan.tile_table[:, TT_NPATH].max())} paths a tile; {tb} "
         f"resources and {smem} bytes a block; equal {counts}")
+    # K5 and the scan form have each count to make and each HOST row to
+    # drop on the card: some corpus has FAIL and PASS cells outside HOST
+    # rows, and FAIL or PASS cells inside them
+    log(f"[kernels] scan counts of the compared corpora: {scan_seen}")
+    check(any(min(c.values()) > 0 for c in scan_seen.values()),
+          "no compared corpus has FAIL and PASS cells both outside and "
+          "inside HOST rows")
     if args.quick:
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
@@ -737,7 +825,7 @@ def main() -> int:
     scan_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"[main] launches on the main path: {launches}")
-    for name in _build.KERNELS:
+    for name in _build.LAUNCHES:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
 
@@ -780,61 +868,84 @@ def main() -> int:
         f"included): fails {int(scan_tot[0].sum())}, passes "
         f"{int(scan_tot[1].sum())}, host rows {scan_host_rows}; equal to plain")
 
-    # ---- 5. times at the slice's shapes (library 250 x 10k)
+    # ---- 5. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
     N = int(plan.nfa_char.shape[0])
-    S = int(plan.nfa_char.shape[1])
-    C, X, NC, R = plan.C, plan.X, plan.NCOND, plan.R
+    C, X, NC, R, T = plan.C, plan.X, plan.NCOND, plan.R, plan.n_tiles
     plan_bytes = plan.buf.numel() * 4
-    blob_bytes = st.blob.numel() * 4
+    # K1's function reads the NFA rows; the shift-and tables the plan
+    # builds from them are its kernel's own expansion, not in the bound
+    nfa_bytes = sum(t.numel() * t.element_size() for t in (
+        plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q, plan.nfa_len))
+    table_bytes = sum(t.numel() * t.element_size() for t in plan.glob)
+
+    def bytes_for(s_):
+        """The bytes each function must move: every input read once and
+        every output written once. eval_rules (either form) reads the
+        cells, bmeta, the dictionary rows, the glob matrix and the plan,
+        and writes the verdicts or the masks; K5 reads the masks and
+        writes the counts and host rows. scan_blob counts the blob, the
+        glob matrix, the plan, the NFA rows and its outputs once each,
+        so that no intermediate of its own can shrink its bound. K1 and
+        scan_blob count the NFA rows, not the tables built from them."""
+        b_, v_ = s_.B, s_.V
+        G = -(-b_ // 32)
+        masks = 4 * (2 * G * R + T * G)
+        rules_in = (b_ * s_.P * s_.E * 8 + 4 * b_ + 20 * v_ + N * v_
+                    + plan_bytes)
+        return {"glob_nfa": nfa_bytes + v_ * 64 + v_ * 4 + N * v_,
+                "eval_rules": rules_in + b_ * R,
+                "eval_rules_scan": rules_in + masks,
+                "scan_counts": masks + 8 * R + b_,
+                "scan_blob": (s_.blob.numel() * 4 + N * v_ + plan_bytes
+                              + nfa_bytes + 8 * R + b_)}
+
+    def calls_for(s_, m_, masks_):
+        return {"glob_nfa": lambda: s_.k1(),
+                "eval_rules": lambda: s_.rules(m_),
+                "eval_rules_scan": lambda: s_.scan_form(m_),
+                "scan_counts": lambda: s_.k5(masks_),
+                "scan_blob": lambda: s_.scan()}
+
     m = st.k1()
     v = st.rules(m)
-
-    def rules_bytes(b_, v_):
-        """eval_rules reads the cells, bmeta, the dictionary rows, the glob
-        matrix and the plan once each, and writes the matrix; nothing in
-        between leaves the chip."""
-        return b_ * P * E * 8 + 4 * b_ + 20 * v_ + N * v_ + plan_bytes + b_ * R
-
-    bytes_of = {
-        "glob_nfa": N * S * 3 + N * 4 + V * 64 + V * 4 + N * V,
-        "eval_rules": rules_bytes(B, V),
-        "scan_counts": B * R + B + 8 * R,
-    }
-    calls = {
-        "glob_nfa": (lambda: st.k1(), lambda: st.k1(plain=True)),
-        "eval_rules": (lambda: st.rules(m), lambda: st.rules(m, plain=True)),
-        "scan_counts": (lambda: st.k5(v), lambda: st.k5(v, plain=True)),
-    }
-    errs = {"glob_nfa": (m, st.k1(plain=True)),
-            "eval_rules": (v, st.rules(m, plain=True)),
-            "scan_counts": (st.k5(v), st.k5(v, plain=True))}
+    masks = st.scan_form(m)
+    bytes_of = bytes_for(st)
+    calls = calls_for(st, m, masks)
+    plains = {"glob_nfa": lambda: st.k1(plain=True),
+              "eval_rules": lambda: st.rules(m, plain=True),
+              "eval_rules_scan": lambda: st.scan_form_plain(m),
+              "scan_counts": lambda: st.k5(masks, plain=True),
+              "scan_blob": lambda: ev.scan_counts_plain(
+                  plain_pipeline(plan, st.blob, st.shape))}
     smi = nvidia_smi_line()
-    rows = []
-    for name in _build.KERNELS:
-        ms = cuda_ms(calls[name][0], 50)
-        dev_only_ms = device_ms(calls[name][0])
-        plain_ms = cuda_ms(calls[name][1], 20)
-        a, b = errs[name]
+    rows = {}
+    for name in list(_build.LAUNCHES) + ["scan_blob"]:
+        a, b = calls[name](), plains[name]()
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
         max_err = max(float((x.to(torch.int64) - y.to(torch.int64)).abs().max())
                       if x.numel() else 0.0 for x, y in zip(a, b))
+        check(max_err == 0, f"{name} differs from its plain version at 10k")
+        ms = cuda_ms(calls[name], 50)
+        dev_only_ms = device_ms(calls[name])
+        plain_ms = cuda_ms(plains[name], 20)
         bound_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
-        src, repl = KERNEL_SOURCES[name]
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches[name],
-                     "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes",
-                     "library_ms": None, "bytes": bytes_of[name],
-                     "device_ms": dev_only_ms})
-        log(f"[times] {name}: {ms:.4f} ms a launch between events, "
+        rows[name] = {"name": name, "route": "cuda", "launches": launches.get(name),
+                      "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "library_ms": None, "bytes": bytes_of[name],
+                      "device_ms": dev_only_ms}
+        log(f"[times] {name} at B={B}: {ms:.4f} ms a call between events, "
             f"{dev_only_ms:.4f} ms on the card back to back (plain "
             f"{plain_ms:.4f} ms); bound {bound_ms:.5f} ms by bytes "
-            f"({bytes_of[name]} bytes); {100 * bound_ms / ms:.2f}% of the "
-            f"bound; {smi}")
+            f"({bytes_of[name]} bytes); {100 * bound_ms / dev_only_ms:.2f}% of "
+            f"the bound back to back; {smi}")
+    log(f"[times] glob_nfa's kernel reads {table_bytes} bytes of plan-built "
+        f"tables for its {N} patterns, which its bound leaves out: the "
+        f"function's input is the {nfa_bytes} bytes of NFA rows")
     st.rules(m)
     tb, smem = st.launch()
     log(f"[times] eval_rules at B={B}: {plan.n_tiles} rule tile(s), "
@@ -846,7 +957,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cps.evaluate_device(batch)
         e2e.append((time.perf_counter() - t0) * 1e3)
-    path_bound = (blob_bytes + plan_bytes + B * R) / HBM_BYTES_PER_S * 1e3
+    path_bound = (st.blob.numel() * 4 + plan_bytes + B * R) / HBM_BYTES_PER_S * 1e3
     log(f"[times] evaluate_blob on the device (K1 + eval_rules): {dev_ms:.4f} ms "
         f"a call between events, {dev_back:.4f} ms back to back; bound "
         f"{path_bound:.5f} ms; "
@@ -864,8 +975,9 @@ def main() -> int:
                      f"a block): {device_ms(lambda: st.rules(m, plan=pw)):.4f} ms")
     log(f"[times] eval_rules at B={B}, on the card back to back, equal at "
         f"each: " + "; ".join(sweep))
+    del st, m, v, masks, calls, plains
 
-    # eval_rules at B = 100,000: where the bytes bound passes a launch's latency
+    # B = 100,000: where the bytes bound passes a launch's latency
     t0 = time.perf_counter()
     st100 = Stages(cps, [mixed_resource(i) for i in range(100_000)])
     flat100_s = time.perf_counter() - t0
@@ -873,18 +985,54 @@ def main() -> int:
     v100 = st100.rules(m100)
     tb100, smem100 = st100.launch()
     same("eval_rules B=100000", v100, st100.rules(m100, plain=True))
-    ms100 = cuda_ms(lambda: st100.rules(m100), 30)
-    dev100 = device_ms(lambda: st100.rules(m100), 30)
-    bytes100 = rules_bytes(st100.B, st100.V)
-    bound100 = bytes100 / HBM_BYTES_PER_S * 1e3
+    masks100 = st100.scan_form(m100)
+    same("eval_rules scan form B=100000", masks100,
+         ev.scan_masks_plain(plan, v100))
+    same("K5 B=100000", st100.k5(masks100), st100.k5(masks100, plain=True))
+    same("scan_blob B=100000", st100.scan(), ev.scan_counts_plain(v100))
+    # scan_blob launches K1, the scan form and K5 once each and never
+    # holds the [B, R] matrix
     del v100
-    log(f"[times] eval_rules at B={st100.B} (V={st100.V}, flatten {flat100_s:.3f} s, "
-        f"{tb100} resources and {smem100} bytes a block): {ms100:.4f} ms "
-        f"a launch between events, {dev100:.4f} ms on the card back to back; "
-        f"bound {bound100:.5f} ms by bytes ({bytes100} bytes); "
-        f"{100 * bound100 / dev100:.2f}% of the bound; equal to plain; {smi}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    st100.scan()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    scan_launches = dict(_build.LAUNCHES)
+    check(scan_launches == {"glob_nfa": 1, "eval_rules": 0, "eval_rules_scan": 1,
+                            "scan_counts": 1},
+          f"scan_blob launched {scan_launches}")
+    check(peak < st100.B * R, f"scan_blob took {peak} bytes at its peak, "
+          f"the [B, R] matrix is {st100.B * R}")
+    log(f"[scan] scan_blob at B={st100.B}: launches {scan_launches}; "
+        f"{peak} bytes allocated at its peak, against {st100.B * R} for the "
+        f"[B, R] matrix")
+    bytes100 = bytes_for(st100)
+    calls100 = calls_for(st100, m100, masks100)
+    for name in list(_build.LAUNCHES) + ["scan_blob"]:
+        ms100 = cuda_ms(calls100[name], 30)
+        dev100 = device_ms(calls100[name], 30)
+        bound100 = bytes100[name] / HBM_BYTES_PER_S * 1e3
+        rows[name]["at_100k"] = {"ms": ms100, "device_ms": dev100,
+                                 "bound_ms": bound100, "bytes": bytes100[name]}
+        log(f"[times] {name} at B={st100.B} (V={st100.V}): {ms100:.4f} ms a "
+            f"call between events, {dev100:.4f} ms on the card back to back; "
+            f"bound {bound100:.5f} ms by bytes ({bytes100[name]} bytes); "
+            f"{100 * bound100 / dev100:.2f}% of the bound back to back; {smi}")
+    st100.scan_form(m100)
+    tb_s, smem_s = st100.launch()
+    log(f"[times] at B={st100.B}: flatten {flat100_s:.3f} s; eval_rules "
+        f"{tb100} resources and {smem100} bytes a block, its scan form {tb_s} "
+        f"and {smem_s}")
+    kernels = []
+    for name, row in rows.items():
+        if name in KERNEL_SOURCES:
+            src, repl = KERNEL_SOURCES[name]
+            kernels.append({**row, "source": src, "replaces": repl})
     log(f"{smi}")
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name,
         "count": torch.cuda.device_count()}}), flush=True)

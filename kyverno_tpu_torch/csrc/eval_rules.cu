@@ -58,6 +58,23 @@
 //      the INT_MIN of its segment_max, which stage 6 always overwrites)
 //      and composes stage 6 in the TPU program's order
 //   5. the verdict bytes, from the planes, one resource's row per warp
+//
+// The scan form (rules_kernel<true>, entry ktpu_eval_rules_scan) replaces
+// the verdicts of build_scan_fn_blob's program (eval.py:962-966), whose
+// reduction XLA fused after them so that the matrix never left the chip.
+// Phases 1-4 are the same; phase 4 writes, from each rule's planes in
+// registers, bit masks instead of verdict bytes, and phase 5 goes:
+//   fail_m[g, r] (code 2: p1 & ~p0 & ~p2) and pass_m[g, r] (code 1:
+//   p0 & ~p1 & ~p2), uint32 [G, R], rule fastest so that the stores of a
+//   warp's rules coalesce; host_m[t, g] (code 5: p0 & ~p1 & p2), uint32
+//   [n_tiles, G], the OR over rule tile t's rules. G = ceil(B / 32): word
+//   g holds resources 32g .. 32g+31 at bit b % 32, whatever TB the launch
+//   chose, and each mask is cut to the block's nb live resources.
+// A block of TB >= 8 resources owns whole bytes of its word and stores
+// them (the last block of the grid also stores the zero bytes after the
+// batch's end); below 8, blocks share a byte, so the entry zeroes the
+// masks with one memset and blocks atomicOr their bits in. K5
+// (scan_counts.cu) reduces the masks to the counts.
 // TB (resources per block, a power of two up to 32, the bits of a mask) is
 // chosen at launch: the largest of 32, 16 and 8 whose grid fills the card
 // one and a half times over, within the shared memory a block may take.
@@ -798,12 +815,40 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
   return v;
 }
 
+// The scan form's outputs: the masks of one buffer (ops/eval.py
+// eval_rules_scan), fail [G, R], pass [G, R], host [n_tiles, G].
+struct ScanOut {
+  uint32_t *fail, *pass, *host;
+  int G;
+  size_t words;    // of the buffer, from fail: 2 G R + n_tiles G
+};
+
+// Store bits 0 .. TB-1 of m at bit sh of *word (sh a multiple of TB). A
+// block of 8 or more resources owns whole bytes and stores them; the
+// last block of the grid also stores the bytes after its own, up to the
+// word's end, so that no byte of the masks is left unwritten. Smaller
+// blocks share bytes: atomicOr into the zeroed masks.
+__device__ inline void put_bits(uint32_t* word, uint32_t m, int sh, int TB,
+                                bool last) {
+  if (TB < 8) {
+    if (m) atomicOr(word, m << sh);
+  } else if (TB == 32) {
+    *word = m;
+  } else {
+    uint8_t* bytes = (uint8_t*)word;
+    const int k0 = sh >> 3, n = last ? 4 - k0 : TB >> 3;
+    for (int k = 0; k < n; ++k) bytes[k0 + k] = (uint8_t)(m >> (8 * k));
+  }
+}
+
+template <bool kScan>
 __global__ void __launch_bounds__(kThreads, 3)
 rules_kernel(const int32_t* __restrict__ plan, Blob bl,
              const uint8_t* __restrict__ match_nv, int tb_shift,
-             int8_t* __restrict__ out) {
+             int8_t* __restrict__ out, ScanOut so) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
+  __shared__ uint32_t host_or;     // scan form: the tile's HOST resources
   const int TB = 1 << tb_shift, E = bl.E, V = bl.V;
   const int32_t* tt = plan + plan[H_TILES] + blockIdx.y * TT_NCOLS;
   const TileDims td = tile_dims(tt);
@@ -821,7 +866,10 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
   int32_t* sec = (int32_t*)(smem + L.plan);
 
   // ---- 1. stage the tile's section; decode the slots meanwhile
-  if (tid == 0) barrier_init(&bar);
+  if (tid == 0) {
+    barrier_init(&bar);
+    host_or = 0;
+  }
   __syncthreads();
   if (tid == 0) bulk_copy(sec, gsec, (uint32_t)tt[TT_WORDS] * 4u, &bar);
   const Slots sl{(uint32_t*)(smem + L.slots), td.paths * E * TB, E, TB};
@@ -907,6 +955,30 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
   const bool has_checks = plan[H_C] > 0;
   const bool has_aux = plan[H_X] > 0;
   const int kmax = plan[H_KMAX];
+  const long long R = plan[H_R];
+  const int r0 = tt[TT_R0];
+  if (kScan) {
+    // ---- 4-5, scan form: masks from each rule's planes, in registers
+    const uint32_t cut = nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
+    const int g = b0 >> 5, sh = b0 & 31;
+    const bool last = b0 + TB >= bl.B;
+    uint32_t hm = 0;
+    for (int r = tid; r < S.R; r += blockDim.x) {
+      const Planes v = verdict_planes(S, r, F, has_checks, has_aux, kmax, nb,
+                                      sbm, host_live[0], host_live[1]);
+      const long long at = (long long)g * R + r0 + r;
+      put_bits(so.fail + at, v.p1 & ~v.p0 & ~v.p2 & cut, sh, TB, last);
+      put_bits(so.pass + at, v.p0 & ~v.p1 & ~v.p2 & cut, sh, TB, last);
+      hm |= v.p0 & ~v.p1 & v.p2 & cut;
+    }
+    hm = __reduce_or_sync(0xFFFFFFFFu, hm);
+    if (lane == 0 && hm) atomicOr(&host_or, hm);
+    __syncthreads();
+    if (tid == 0)
+      put_bits(so.host + (long long)blockIdx.y * so.G + g, host_or, sh, TB,
+               last);
+    return;
+  }
   for (int r = tid; r < S.R; r += blockDim.x) {
     const Planes v = verdict_planes(S, r, F, has_checks, has_aux, kmax, nb,
                                     sbm, host_live[0], host_live[1]);
@@ -918,8 +990,6 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
 
   // ---- 5. one coalesced write of the block's rows: a warp writes one
   // resource's rules, each byte from the three planes
-  const long long R = plan[H_R];
-  const int r0 = tt[TT_R0];
   const int warp = tid >> 5, nwarps = blockDim.x >> 5;
   for (int b = warp; b < nb; b += nwarps)
     for (int r = lane; r < S.R; r += 32) {
@@ -934,7 +1004,8 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
 // the number of SMs.
 int g_smem_room = -1;
 int g_sms = 0;
-int g_smem_set = 0;     // the kernel's dynamic shared memory limit, as set
+// each form's dynamic shared memory limit, as set
+template <bool kScan> int g_smem_set = 0;
 
 int device_limits() {
   if (g_smem_room < 0) {
@@ -945,21 +1016,24 @@ int device_limits() {
                                    cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncAttributes fa;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, rules_kernel);
+    cudaFuncAttributes fa, fs;
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, rules_kernel<false>);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fs, rules_kernel<true>);
     if (err != cudaSuccess) return (int)err;
     g_sms = sms;
-    g_smem_room = optin - (int)fa.sharedSizeBytes;
+    g_smem_room = optin - (int)max(fa.sharedSizeBytes, fs.sharedSizeBytes);
   }
   return 0;
 }
 
+template <bool kScan>
 int set_smem(int bytes) {
-  if (bytes > g_smem_set) {
+  if (bytes > g_smem_set<kScan>) {
     const cudaError_t err = cudaFuncSetAttribute(
-        rules_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        rules_kernel<kScan>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (err != cudaSuccess) return (int)err;
-    g_smem_set = bytes;
+    g_smem_set<kScan> = bytes;
   }
   return 0;
 }
@@ -979,21 +1053,50 @@ int launch_bytes(const int32_t* tiles, int64_t n_tiles, int E, int tb) {
 // each rule for more, but a grid of less than that leaves SMs idle in its
 // last wave), else 8; smaller only where 8 does not fit (an E above the
 // flattener's 16), halving down to 1. 0 if not even one resource fits.
+template <bool kScan>
 int choose_tb(const int32_t* tiles, int64_t n_tiles, int E, int64_t B) {
   for (int t = kMaxTB; t >= 1; t /= 2) {
     const int bytes = launch_bytes(tiles, n_tiles, E, t);
     if (bytes > g_smem_room) continue;
     if (t <= 8) return t;
     int per_sm = 0;
-    if (set_smem(bytes) != 0 ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rules_kernel,
-                                                      kThreads, bytes) !=
-            cudaSuccess)
+    if (set_smem<kScan>(bytes) != 0 ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, rules_kernel<kScan>, kThreads, bytes) != cudaSuccess)
       continue;
     const int64_t blocks = (B + t - 1) / t * n_tiles;
     if (2 * blocks >= 3 * (int64_t)per_sm * g_sms) return t;
   }
   return 0;
+}
+
+// One launch of stages 2-6 in either form (see the entries below).
+template <bool kScan>
+int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
+           int64_t V, int64_t match_nv, int64_t tiles, int64_t n_tiles,
+           int64_t info, int8_t* out, ScanOut so, cudaStream_t stream) {
+  int err = device_limits();
+  if (err != 0) return err;
+  const int32_t* tt = (const int32_t*)tiles;
+  const int tb = choose_tb<kScan>(tt, n_tiles, (int)E, B);
+  if (tb == 0) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = launch_bytes(tt, n_tiles, (int)E, tb);
+  if ((err = set_smem<kScan>(bytes)) != 0) return err;
+  int tb_shift = 0;
+  while ((1 << tb_shift) < tb) ++tb_shift;
+  ((int32_t*)info)[0] = tb;
+  ((int32_t*)info)[1] = bytes;
+  if (kScan && tb < 8) {
+    // blocks share the masks' bytes: they atomicOr into zeroed words
+    const cudaError_t e = cudaMemsetAsync(so.fail, 0, so.words * 4, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const Blob bl = make_blob((const uint32_t*)blob, (int)B, (int)P, (int)E,
+                            (int)V);
+  const dim3 grid((unsigned)((B + tb - 1) / tb), (unsigned)n_tiles);
+  rules_kernel<kScan><<<grid, kThreads, bytes, stream>>>(
+      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift, out, so);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1006,22 +1109,25 @@ extern "C" int ktpu_eval_rules(int64_t plan, int64_t blob, int64_t B,
                                int64_t match_nv, int64_t tiles,
                                int64_t n_tiles, int64_t info, int64_t out,
                                int64_t stream) {
-  int err = device_limits();
-  if (err != 0) return err;
+  return launch<false>(plan, blob, B, P, E, V, match_nv, tiles, n_tiles,
+                       info, (int8_t*)out, ScanOut{nullptr, nullptr, nullptr, 0, 0},
+                       (cudaStream_t)stream);
+}
+
+// The scan form: masks (uint32) is one buffer of fail_m [G, R], pass_m
+// [G, R] and host_m [n_tiles, G] in that order, G = ceil(B / 32). R is the
+// last tile's TT_R1.
+extern "C" int ktpu_eval_rules_scan(int64_t plan, int64_t blob, int64_t B,
+                                    int64_t P, int64_t E, int64_t V,
+                                    int64_t match_nv, int64_t tiles,
+                                    int64_t n_tiles, int64_t info,
+                                    int64_t masks, int64_t stream) {
   const int32_t* tt = (const int32_t*)tiles;
-  const int tb = choose_tb(tt, n_tiles, (int)E, B);
-  if (tb == 0) return (int)cudaErrorInvalidConfiguration;
-  const int bytes = launch_bytes(tt, n_tiles, (int)E, tb);
-  if ((err = set_smem(bytes)) != 0) return err;
-  int tb_shift = 0;
-  while ((1 << tb_shift) < tb) ++tb_shift;
-  ((int32_t*)info)[0] = tb;
-  ((int32_t*)info)[1] = bytes;
-  const Blob bl = make_blob((const uint32_t*)blob, (int)B, (int)P, (int)E,
-                            (int)V);
-  const dim3 grid((unsigned)((B + tb - 1) / tb), (unsigned)n_tiles);
-  rules_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift,
-      (int8_t*)out);
-  return (int)cudaGetLastError();
+  const long long R = tt[(n_tiles - 1) * TT_NCOLS + TT_R1];
+  const long long G = (B + 31) / 32;
+  uint32_t* m = (uint32_t*)masks;
+  const ScanOut so{m, m + G * R, m + 2 * G * R, (int)G,
+                   (size_t)(2 * G * R + n_tiles * G)};
+  return launch<true>(plan, blob, B, P, E, V, match_nv, tiles, n_tiles, info,
+                      nullptr, so, (cudaStream_t)stream);
 }

@@ -5,96 +5,154 @@
 // _epsilon_closure), which XLA ran as a [N, V, S+1] boolean lattice stepped
 // under lax.scan.
 //
-// Bound on the H100: bytes. The inputs are V x 64 string bytes and a few
-// hundred bytes of NFA tables; the output is N x V bytes. The work is at
-// most 64 steps of a few 64-bit operations per (n, v), far below the
+// Bound on the H100: bytes. The inputs are V x 64 string bytes, V length
+// words and 2 KB of tables a pattern; the output is N x V bytes. The work
+// is at most 64 steps of a few 64-bit operations per (n, v), far below the
 // card's integer rate, so the least time is the bytes over 3.35 TB/s.
 //
 // Design: shift-and. The S+1 <= 64 NFA states of one pattern are the bits
-// of one uint64. A block serves one pattern n and 256 strings. Its 256
-// threads first build the pattern's per-byte consume masks (bit i set when
-// state i is '?' or its literal equals the byte) in shared memory, one
-// byte value per thread, so the step loop reads a mask instead of
-// comparing S states. One step is
+// of one uint64. One step over byte c is
 //     s' = ((s & consume[c]) << 1) | (s & star);  s' |= (s' & star) << 1
-// masked to S+1 bits, exactly the lattice's advance / stay / epsilon
-// shift. The answer is bit nfa_len[n]. Each thread reads its string's
-// bytes once, in order, from the packed dictionary (no unpack pass).
+// masked to the S+1 live states (full), exactly the lattice's advance /
+// stay / epsilon shift. The answer is bit acc = nfa_len[n].
+//  - The tables depend only on the policy set, so ops/glob.py nfa_tables
+//    builds them once with the plan: consume [N, 256] (bit i where state i
+//    is '?' or its literal equals the byte), star, full and acc per
+//    pattern. A block copies the tables of its up to kNP patterns into
+//    shared memory (2 KB a pattern, 16-byte loads) and reads nothing else
+//    of the patterns; grid.y = ceil(N / kNP) groups of patterns.
+//  - Each thread takes one string and loads its 64 bytes into registers
+//    before the step loop, as sixteen independent 4-byte loads (the string
+//    area of a blob is 4-byte aligned, not 16), so no global load sits in
+//    the dependent chain s -> consume[c] -> s'.
+//  - The thread steps its block's patterns over those registers kChains
+//    at a time, interleaved, so that the chains hide each other's latency.
+//    A group short of kChains patterns pads with empty tables.
+//  - Threads of a warp hold neighbouring strings, so out[n, v] is written
+//    coalesced across v. A block takes 256, 128 or 64 strings: the largest
+//    whose grid fills the card, so that few patterns and a small
+//    dictionary still use every SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kNP = 16;        // patterns a block
+constexpr int kChains = 4;     // patterns stepped together by a thread
+constexpr int kWords = 16;     // 64 string bytes as 4-byte words
 // A dictionary length word keeps flag bits above bit 7; lengths are <= 64.
 constexpr uint32_t kLenMask = 0x7F;
 
-__global__ void glob_nfa_kernel(const uint8_t* __restrict__ nfa_char,
-                                const uint8_t* __restrict__ nfa_star,
-                                const uint8_t* __restrict__ nfa_q,
-                                const int32_t* __restrict__ nfa_len,
-                                int S,
-                                const uint8_t* __restrict__ str_bytes, int L,
-                                const int32_t* __restrict__ str_len,
-                                long long len_stride,
-                                int V, uint8_t* __restrict__ out) {
-  __shared__ unsigned long long consume[256];
-  __shared__ unsigned long long star_sh;
-  const int n = blockIdx.y;
-  const unsigned long long full =
-      (S + 1 == 64) ? ~0ull : ((1ull << (S + 1)) - 1ull);
+struct Tab {
+  unsigned long long star, full;
+  int acc;
+};
 
-  // consume mask for byte value c = threadIdx.x. The padded state S has
-  // literal 0 and no '?', as in the lattice's padded tables.
+__global__ void glob_nfa_kernel(const unsigned long long* __restrict__ consume,
+                                const unsigned long long* __restrict__ star,
+                                const unsigned long long* __restrict__ full,
+                                const int32_t* __restrict__ acc, int N, int S,
+                                const uint32_t* __restrict__ str_words,
+                                const int32_t* __restrict__ str_len,
+                                long long len_stride, int V,
+                                uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned long long sh_consume[];
+  __shared__ Tab sh_tab[kNP];
+  const int n0 = blockIdx.y * kNP;
+  const int np = min(kNP, N - n0);
+  const int np_pad = (np + kChains - 1) / kChains * kChains;
+
+  // ---- the block's tables: consume rows as 16-byte copies, padded rows 0
   {
-    const int c = threadIdx.x;
-    unsigned long long m = 0;
-    for (int i = 0; i <= S; ++i) {
-      const int ch = (i < S) ? nfa_char[(long long)n * S + i] : 0;
-      const bool q = (i < S) && nfa_q[(long long)n * S + i];
-      if (q || ch == c) m |= 1ull << i;
-    }
-    consume[c] = m;
-    if (threadIdx.x == 0) {
-      unsigned long long st = 0;
-      for (int i = 0; i < S; ++i)
-        if (nfa_star[(long long)n * S + i]) st |= 1ull << i;
-      star_sh = st;
+    const uint4* src = (const uint4*)(consume + (long long)n0 * 256);
+    uint4* dst = (uint4*)sh_consume;
+    const int live = np * 128, total = np_pad * 128;   // 128 uint4 a row
+    for (int i = threadIdx.x; i < total; i += blockDim.x)
+      dst[i] = i < live ? src[i] : make_uint4(0u, 0u, 0u, 0u);
+    if (threadIdx.x < np_pad) {
+      const int k = threadIdx.x;
+      Tab t;
+      t.star = k < np ? star[n0 + k] : 0ull;
+      t.full = k < np ? full[n0 + k] : 0ull;
+      t.acc = k < np ? acc[n0 + k] : -1;
+      sh_tab[k] = t;
     }
   }
   __syncthreads();
 
-  const int v = blockIdx.x * kThreads + threadIdx.x;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
   if (v >= V) return;
-  const unsigned long long star = star_sh;
-  unsigned long long s = 1ull;
-  s = (s | ((s & star) << 1)) & full;
   int len = (int)((uint32_t)str_len[(long long)v * len_stride] & kLenMask);
-  if (len > L) len = L;
-  const uint8_t* bytes = str_bytes + (long long)v * L;
-  for (int j = 0; j < len; ++j) {
-    const unsigned long long adv = ((s & consume[bytes[j]]) << 1) & full;
-    unsigned long long nw = adv | (s & star);
-    nw = (nw | ((nw & star) << 1)) & full;
-    s = nw;
+  if (len > 4 * kWords) len = 4 * kWords;
+  uint32_t w[kWords];
+  const uint32_t* sw = str_words + (long long)v * kWords;
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) w[k] = sw[k];
+
+  for (int p0 = 0; p0 < np; p0 += kChains) {
+    unsigned long long s[kChains], st[kChains], fl[kChains];
+    const unsigned long long* cons[kChains];
+#pragma unroll
+    for (int k = 0; k < kChains; ++k) {
+      const Tab t = sh_tab[p0 + k];
+      st[k] = t.star;
+      fl[k] = t.full;
+      cons[k] = sh_consume + (p0 + k) * 256;
+      s[k] = (1ull | (1ull & t.star) << 1) & t.full;
+    }
+#pragma unroll
+    for (int j = 0; j < 4 * kWords; ++j) {
+      if (j >= len) break;
+      const uint32_t c = (w[j >> 2] >> ((j & 3) * 8)) & 0xFFu;
+#pragma unroll
+      for (int k = 0; k < kChains; ++k) {
+        unsigned long long nw = ((s[k] & cons[k][c]) << 1) | (s[k] & st[k]);
+        s[k] = (nw | ((nw & st[k]) << 1)) & fl[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChains; ++k) {
+      const int a = sh_tab[p0 + k].acc;
+      if (p0 + k < np)
+        out[(long long)(n0 + p0 + k) * V + v] =
+            (uint8_t)((a >= 0 && a <= S) ? ((s[k] >> a) & 1ull) : 0ull);
+    }
   }
-  const int acc = nfa_len[n];
-  out[(long long)n * V + v] = (uint8_t)((acc >= 0 && acc <= S) ? ((s >> acc) & 1ull) : 0);
 }
+
+int g_sms = 0;
 
 }  // namespace
 
-extern "C" int ktpu_glob_nfa(int64_t nfa_char, int64_t nfa_star, int64_t nfa_q,
-                             int64_t nfa_len, int64_t N, int64_t S,
-                             int64_t str_bytes, int64_t L, int64_t str_len,
-                             int64_t len_stride, int64_t V,
-                             int64_t out, int64_t stream) {
-  dim3 grid((unsigned)((V + kThreads - 1) / kThreads), (unsigned)N);
-  glob_nfa_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)nfa_char, (const uint8_t*)nfa_star,
-      (const uint8_t*)nfa_q, (const int32_t*)nfa_len, (int)S,
-      (const uint8_t*)str_bytes, (int)L, (const int32_t*)str_len,
+// consume [N, 256], star [N], full [N] (uint64), acc [N] int32: the plan's
+// tables (ops/glob.py nfa_tables); str_bytes [V, 64] from a 4-byte aligned
+// address; str_len [V] int32 at a stride of len_stride words; out [N, V].
+extern "C" int ktpu_glob_nfa(int64_t consume, int64_t star, int64_t full,
+                             int64_t acc, int64_t N, int64_t S,
+                             int64_t str_bytes, int64_t str_len,
+                             int64_t len_stride, int64_t V, int64_t out,
+                             int64_t stream) {
+  if (g_sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned groups = (unsigned)((N + kNP - 1) / kNP);
+  int threads = 256;
+  while (threads > 64 &&
+         (long long)((V + threads - 1) / threads) * groups < g_sms)
+    threads /= 2;
+  const int np_pad = (int)((min((int64_t)kNP, N) + kChains - 1) / kChains) *
+                     kChains;
+  const size_t smem = (size_t)np_pad * 256 * sizeof(unsigned long long);
+  const dim3 grid((unsigned)((V + threads - 1) / threads), groups);
+  glob_nfa_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const unsigned long long*)consume, (const unsigned long long*)star,
+      (const unsigned long long*)full, (const int32_t*)acc, (int)N, (int)S,
+      (const uint32_t*)str_bytes, (const int32_t*)str_len,
       (long long)len_stride, (int)V, (uint8_t*)out);
   return (int)cudaGetLastError();
 }

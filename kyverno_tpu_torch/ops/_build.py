@@ -9,8 +9,9 @@ its library, and :func:`build_all` builds every library at once, one
 ``nvcc`` process per source, all started together.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
-:func:`check` raises on anything but 0. ``LAUNCHES`` counts, per kernel,
-the wrapper calls that launched it on the card.
+:func:`check` raises on anything but 0. ``LAUNCHES`` counts, per kernel
+(a source may hold more than one: ``eval_rules`` and its scan form
+``eval_rules_scan``), the wrapper calls that launched it on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES = {name: 0 for name in KERNELS}
+# eval_rules.cu holds two kernels: eval_rules and its scan form
+LAUNCHES = {name: 0 for name in ("glob_nfa", "eval_rules", "eval_rules_scan",
+                                 "scan_counts")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

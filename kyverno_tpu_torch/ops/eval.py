@@ -13,10 +13,13 @@ compiled check rows:
      failed precondition -> SKIP, met deny -> FAIL, deny
      key unresolved -> ERROR
      (stages 2-6 are one kernel, eval_rules)
-  *  scan form: per-rule FAIL/PASS counts over non-HOST rows           K5
+  *  scan form: eval_rules writes, instead of the verdicts, FAIL, PASS
+     and HOST bit masks over 32 resources a word; K5 reduces them to
+     per-rule FAIL/PASS counts over non-HOST rows and the HOST rows
 
-Each of K1 (``ops/glob.py``), :func:`eval_rules` (stages 2-6) and K5
-(:func:`scan_counts`) is a wrapper that launches a CUDA kernel from
+Each of K1 (``ops/glob.py``), :func:`eval_rules` and
+:func:`eval_rules_scan` (stages 2-6, one kernel source) and K5
+(:func:`scan_reduce`) is a wrapper that launches a CUDA kernel from
 ``csrc/`` for tensors on the card and runs its plain PyTorch version for
 tensors on the CPU. The plain versions mirror the JAX code stage by
 stage, segment reductions included: :func:`eval_checks_plain` (stages
@@ -41,8 +44,8 @@ from ..models.compiler import STR_LEN
 from ..models.ir import AUX_DENY, AUX_PRECOND, AuxOp, CheckOp
 from . import _build
 from .glob import glob_match_matrix
-from .plan import (CF_MISSING, CF_OK, CF_STRUCT, CF_UNC, MAX_SLOTS, XF_ERR,
-                   XF_ROW, XF_UNC, Plan)
+from .plan import (CF_MISSING, CF_OK, CF_STRUCT, CF_UNC, MAX_SLOTS, TT_R0,
+                   TT_R1, XF_ERR, XF_ROW, XF_UNC, Plan)
 
 V_NOT_APPLICABLE, V_PASS, V_FAIL, V_SKIP, V_ERROR, V_HOST = range(6)
 
@@ -700,32 +703,43 @@ def eval_rules_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
                                                  match_nv))
 
 
+def _check_rules_args(plan: Plan, blob, B, P, E, V, match_nv, name):
+    _require(blob, torch.int32, blob.device, "blob")
+    _require(match_nv, torch.bool, blob.device, "match_nv")
+    check_blob(blob, B, P, E, V)
+    if tuple(match_nv.shape) != (plan.nfa_char.shape[0], V):
+        raise ValueError(f"{name}: match_nv {tuple(match_nv.shape)} is "
+                         f"not [N={plan.nfa_char.shape[0]}, V={V}]")
+    if plan.buf.device != blob.device:
+        raise ValueError(f"{name}: plan and blob are on different devices")
+    if plan.buf.data_ptr() % 16:
+        raise ValueError(f"{name}: the plan buffer is not 16-byte aligned")
+    if plan.min_paths > P:
+        raise ValueError(f"{name}: the plan reads path {plan.min_paths - 1}"
+                         f" but the batch has P={P}")
+
+
+def _rules_device(blob, E: int, name: str):
+    """The device of a stages 2-6 call; raises for E beyond the kernel's
+    slots and for devices other than the CPU and CUDA."""
+    if E > MAX_SLOTS:
+        raise ValueError(f"{name}: E={E} slots exceed {MAX_SLOTS}")
+    dev = blob.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
 def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
     """Stages 2-6 in one launch: the verdicts int8 [B, R] from the blob and
     K1's glob matrix. CUDA kernel ``csrc/eval_rules.cu`` on the card (one
     block per rule tile of the plan and up to 32 resources, as many as the
     kernel chooses; see ``LAST_LAUNCH``), :func:`eval_rules_plain` on the
     CPU."""
-    if E > MAX_SLOTS:
-        raise ValueError(f"eval_rules: E={E} slots exceed {MAX_SLOTS}")
-    dev = blob.device
+    dev = _rules_device(blob, E, "eval_rules")
     if dev.type == "cpu":
         return eval_rules_plain(plan, blob, B, P, E, V, match_nv)
-    if dev.type != "cuda":
-        raise ValueError(f"eval_rules: unsupported device {dev}")
-    _require(blob, torch.int32, dev, "blob")
-    _require(match_nv, torch.bool, dev, "match_nv")
-    check_blob(blob, B, P, E, V)
-    if tuple(match_nv.shape) != (plan.nfa_char.shape[0], V):
-        raise ValueError(f"eval_rules: match_nv {tuple(match_nv.shape)} is "
-                         f"not [N={plan.nfa_char.shape[0]}, V={V}]")
-    if plan.buf.device != dev:
-        raise ValueError("eval_rules: plan and blob are on different devices")
-    if plan.buf.data_ptr() % 16:
-        raise ValueError("eval_rules: the plan buffer is not 16-byte aligned")
-    if plan.min_paths > P:
-        raise ValueError(f"eval_rules: the plan reads path {plan.min_paths - 1}"
-                         f" but the batch has P={P}")
+    _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules")
     R = plan.R
     out = torch.empty((B, R), dtype=torch.int8, device=dev)
     if B == 0 or R == 0:
@@ -739,12 +753,64 @@ def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
     return out
 
 
-# ------------------------------------------------------------------ K5
+# ------------------------------------------------- scan form and K5
+# Masks hold 32 resources a word: word g covers resources 32g .. 32g+31,
+# bit b % 32 for resource b, whatever block size the kernel chose. The
+# uint32 words are held as int32 tensors (the same bits), as the blob is.
+
+def _words(bits: torch.Tensor) -> torch.Tensor:
+    """[B, K] bool -> [ceil(B / 32), K] int32: bit b % 32 of word b // 32."""
+    B, K = bits.shape
+    G = -(-B // 32)
+    pad = torch.zeros((G * 32, K), dtype=torch.int64, device=bits.device)
+    pad[:B] = bits.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    w = (pad.reshape(G, 32, K) << shifts[None, :, None]).sum(dim=1)
+    return _i32(w).to(torch.int32)
+
+
+def scan_masks_plain(plan: Plan, verdict):
+    """The scan form's masks from the verdicts int8 [B, R]: (fail_m
+    [G, R], pass_m [G, R], host_m [n_tiles, G]), G = ceil(B / 32).
+    host_m[t] is the OR over rule tile t's rules (``TT_R0`` .. ``TT_R1``
+    of the plan's tile table) of their HOST cells."""
+    B, R = verdict.shape
+    if R != plan.R:
+        raise ValueError(f"scan_masks_plain: {R} verdict columns, the plan "
+                         f"has {plan.R} rules")
+    host = verdict == V_HOST
+    tiles = torch.zeros((B, plan.n_tiles), dtype=torch.bool,
+                        device=verdict.device)
+    for t, row in enumerate(plan.tile_table):
+        tiles[:, t] = host[:, int(row[TT_R0]):int(row[TT_R1])].any(dim=1)
+    return (_words(verdict == V_FAIL), _words(verdict == V_PASS),
+            _words(tiles).T.contiguous())
+
+
+def scan_reduce_plain(fail_m, pass_m, host_m, B: int):
+    """K5, plain: (fails int32 [R], passes int32 [R], host_rows bool [B])
+    from the masks: a row is HOST where any tile's mask has its bit, and
+    the counts take the FAIL / PASS bits of the other rows."""
+    G, R = fail_m.shape
+    dev = fail_m.device
+    host = torch.zeros(G, dtype=torch.int64, device=dev)
+    for row in _u32(host_m):
+        host |= row
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    keep = (~host & 0xFFFFFFFF)[:, None]
+
+    def count(m):
+        bits = ((_u32(m) & keep)[..., None] >> shifts) & 1
+        return bits.sum(dim=(0, 2)).to(torch.int32)
+
+    host_rows = ((host[:, None] >> shifts) & 1).bool().reshape(-1)[:B]
+    return count(fail_m), count(pass_m), host_rows
+
 
 def scan_counts_plain(verdict):
     """Per-rule FAIL/PASS counts over rows with no HOST cell, and the
     rows that hold one: (fails int32 [R], passes int32 [R], host_rows
-    bool [B])."""
+    bool [B]). The reference for the whole scan reduction."""
     host_rows = (verdict == V_HOST).any(dim=1)
     live = ~host_rows[:, None]
     fails = ((verdict == V_FAIL) & live).sum(dim=0, dtype=torch.int32)
@@ -752,27 +818,65 @@ def scan_counts_plain(verdict):
     return fails, passes, host_rows
 
 
-def scan_counts(verdict):
-    """K5: CUDA kernel ``csrc/scan_counts.cu`` on the card,
-    :func:`scan_counts_plain` on the CPU."""
-    dev = verdict.device
+def eval_rules_scan(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                    match_nv):
+    """Stages 2-6, scan form: (fail_m, pass_m, host_m) as
+    :func:`scan_masks_plain` gives them, without the [B, R] verdicts.
+    The scan form of ``csrc/eval_rules.cu`` on the card (the same blocks
+    as :func:`eval_rules`, which write masks instead of verdict bytes),
+    :func:`scan_masks_plain` over :func:`eval_rules_plain` on the CPU."""
+    dev = _rules_device(blob, E, "eval_rules_scan")
     if dev.type == "cpu":
-        return scan_counts_plain(verdict)
+        return scan_masks_plain(plan, eval_rules_plain(plan, blob, B, P, E,
+                                                       V, match_nv))
+    _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules_scan")
+    R, T = plan.R, plan.n_tiles
+    G = -(-B // 32)
+    # one buffer, so that the kernel's entry zeroes it (where its blocks
+    # share words) with one memset
+    buf = torch.empty(2 * G * R + T * G, dtype=torch.int32, device=dev)
+    masks = (buf[:G * R].view(G, R), buf[G * R:2 * G * R].view(G, R),
+             buf[2 * G * R:].view(T, G))
+    if B == 0 or R == 0:
+        return masks
+    f = _build.fn("eval_rules", "ktpu_eval_rules_scan", 12)
+    err = f(plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V,
+            match_nv.data_ptr(), plan.tile_ptr, T, _LAST_LAUNCH_PTR,
+            buf.data_ptr(), _build.stream_handle(dev))
+    _build.check("eval_rules_scan", err)
+    _build.LAUNCHES["eval_rules_scan"] += 1
+    return masks
+
+
+def scan_reduce(fail_m, pass_m, host_m, B: int):
+    """K5: (fails [R], passes [R], host_rows [B]) from the scan form's
+    masks. CUDA kernel ``csrc/scan_counts.cu`` on the card (one launch;
+    its entry zeroes the counts), :func:`scan_reduce_plain` on the CPU."""
+    dev = fail_m.device
+    if dev.type == "cpu":
+        return scan_reduce_plain(fail_m, pass_m, host_m, B)
     if dev.type != "cuda":
-        raise ValueError(f"scan_counts: unsupported device {dev}")
-    _require(verdict, torch.int8, dev, "verdict")
-    B, R = verdict.shape
-    fails = torch.zeros(R, dtype=torch.int32, device=dev)
-    passes = torch.zeros(R, dtype=torch.int32, device=dev)
+        raise ValueError(f"scan_reduce: unsupported device {dev}")
+    G, R = fail_m.shape
+    for name, t in (("fail_m", fail_m), ("pass_m", pass_m), ("host_m", host_m)):
+        _require(t, torch.int32, dev, name)
+    if (tuple(pass_m.shape) != (G, R) or host_m.dim() != 2
+            or host_m.shape[1] != G or G != -(-B // 32)):
+        raise ValueError(f"scan_reduce: masks {tuple(fail_m.shape)}, "
+                         f"{tuple(pass_m.shape)}, {tuple(host_m.shape)} do "
+                         f"not fit B={B}")
+    counts = torch.empty((2, R), dtype=torch.int32, device=dev)
     host_rows = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
-        return fails, passes, host_rows
-    f = _build.fn("scan_counts", "ktpu_scan_counts", 7)
-    err = f(verdict.data_ptr(), B, R, fails.data_ptr(), passes.data_ptr(),
+        counts.zero_()
+        return counts[0], counts[1], host_rows
+    f = _build.fn("scan_counts", "ktpu_scan_counts", 10)
+    err = f(fail_m.data_ptr(), pass_m.data_ptr(), host_m.data_ptr(),
+            host_m.shape[0], G, R, B, counts.data_ptr(),
             host_rows.data_ptr(), _build.stream_handle(dev))
     _build.check("scan_counts", err)
     _build.LAUNCHES["scan_counts"] += 1
-    return fails, passes, host_rows
+    return counts[0], counts[1], host_rows
 
 
 # ------------------------------------------------------------- pipeline
@@ -787,7 +891,7 @@ def match_matrix(plan: Plan, blob, B: int, P: int, E: int, V: int):
     """Stage 1 (K1) over the blob's dictionary: [N, V] bool."""
     _, _, dictv, str_bytes = blob_parts(blob, B, P, E, V)
     return glob_match_matrix(plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q,
-                             plan.nfa_len, str_bytes, dictv[:, 4])
+                             plan.nfa_len, str_bytes, dictv[:, 4], plan.glob)
 
 
 def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
@@ -797,6 +901,9 @@ def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
 
 
 def scan_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
-    """Background-scan form: (fails [R], passes [R], host_rows [B]), the
-    verdict matrix never leaving the device. K1 -> eval_rules -> K5."""
-    return scan_counts(evaluate_blob(plan, blob, B, P, E, V))
+    """Background-scan form: (fails [R], passes [R], host_rows [B]).
+    K1 -> eval_rules (scan form) -> K5: the [B, R] verdicts are never
+    made, only FAIL / PASS / HOST masks of 32 resources a word."""
+    masks = eval_rules_scan(plan, blob, B, P, E, V,
+                            match_matrix(plan, blob, B, P, E, V))
+    return scan_reduce(*masks, B)

@@ -24,6 +24,10 @@ block's shared memory at 8 resources a block with the flattener's 16
 slots a path, and at one resource with the kernel's cap of 32
 (:func:`tile_bytes`).
 
+``Plan.glob`` holds K1's shift-and tables (``ops/glob.py``
+:func:`nfa_tables`), built once here: they depend only on the policy
+set.
+
 ``Plan.cols`` holds the same static columns as separate tensors, in the
 form the plain PyTorch versions use: segment ids, as the JAX program
 closed over them.
@@ -36,6 +40,7 @@ import torch
 
 from ..models.compiler import PolicyTensors
 from ..models.ir import AUX_DENY, AUX_EXCLUDE, AUX_MATCH, SEP
+from .glob import nfa_tables
 
 # ---- csrc/plan.cuh: global header
 (H_C, H_X, H_R, H_KMAX, H_NTILES, H_TILES, H_NHEADER) = range(7)
@@ -287,6 +292,9 @@ class Plan:
         self.nfa_is_star = dt(t.nfa_is_star, b).contiguous()
         self.nfa_is_q = dt(t.nfa_is_q, b).contiguous()
         self.nfa_len = dt(t.nfa_len, torch.int32).contiguous()
+        # K1's shift-and tables, built once beside the plan buffer
+        self.glob = nfa_tables(t.nfa_char, t.nfa_is_star, t.nfa_is_q,
+                               t.nfa_len, self.device)
 
         # columns for the plain versions (segment-id form, as in JAX)
         self.cols = dict(

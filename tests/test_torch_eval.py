@@ -4,7 +4,9 @@ once with the compiled tensors carried across by ``convert.py`` (kernel
 parity alone), once from the port's own compile (the slice) and once
 through ``eval_rules`` itself. Covers the cross-check corpora (gate and
 condition rows), a deny-only set (no check rows), difffuzz seeds and a
-wide corpus (301 paths, 16 slots a path). Also pins the plan's layout to
+wide corpus (301 paths, 16 slots a path). The scan runs through the scan
+form's masks (``scan_masks_plain``, ``scan_reduce_plain``), with the plan
+as one rule tile and as several. Also pins the plan's layout to
 ``csrc/plan.cuh``: the header, the tile table, the column-major tile
 sections and a block's shared memory, and the rule tiles' ranges."""
 
@@ -67,12 +69,58 @@ def test_verdicts_carried_tensors(case):
     assert np.array_equal(got, want), _first_diff(got, want)
 
 
-def test_scan_counts(case):
-    _, jset, tset, resources, _ = case
+@pytest.mark.parametrize("tile_words", [plan_mod.TILE_WORDS, 600])
+def test_scan_counts(case, tile_words):
+    """The scan (K1 -> eval_rules' scan form -> K5, plain on the CPU)
+    equals the JAX package's build_scan_fn_blob, with the plan as the
+    engine builds it and cut into several rule tiles, so that the HOST
+    masks of several tiles are OR-ed."""
+    corpus, jset, tset, resources, _ = case
     want = jax_scan(jset, resources)
-    got = tset.scan_counts(tset.flatten(resources))
+    batch = tset.flatten(resources)
+    if tile_words == plan_mod.TILE_WORDS:
+        got = tset.scan_counts(batch)
+    else:
+        # the deny-only set's two rules fit one tile of 600 words
+        words = 64 if corpus == "deny_only" else tile_words
+        plan = plan_mod.Plan(tset.tensors, "cpu", tile_words=words)
+        assert plan.n_tiles > 1
+        blob, shp = tset.to_device(batch)
+        got = tuple(x.numpy() for x in ev.scan_blob(plan, blob, *shp))
     for name, w, g in zip(("fails", "passes", "host_rows"), want, got):
         assert w.dtype == g.dtype and np.array_equal(w, g), name
+
+
+@pytest.mark.parametrize("B", [0, 1, 31, 32, 33, 300])
+def test_scan_masks_and_reduce_equal_counts(B):
+    """scan_masks_plain then scan_reduce_plain equal scan_counts_plain on
+    seeded verdict matrices over a plan of several rule tiles, with HOST
+    cells in the first and the last rule of a tile; the masks hold bit
+    b % 32 of word b // 32 for resource b, and zeros past B."""
+    _, tset = both_sets(corpus_docs("crosscheck"))
+    plan = plan_mod.Plan(tset.tensors, "cpu", tile_words=600)
+    assert plan.n_tiles > 2
+    R = plan.R
+    rng = np.random.default_rng(B)
+    v = rng.choice(6, size=(B, R), p=[0.3, 0.3, 0.3, 0.05, 0.04, 0.01])
+    ends = plan.tile_table[1, [plan_mod.TT_R0, plan_mod.TT_R1]]
+    for b in range(0, B, 7):
+        v[b, ends[0] if b % 2 else ends[1] - 1] = ev.V_HOST
+    verdict = torch.from_numpy(v.astype(np.int8))
+    masks = ev.scan_masks_plain(plan, verdict)
+    G = -(-B // 32)
+    assert [tuple(m.shape) for m in masks] == [(G, R), (G, R), (plan.n_tiles, G)]
+    assert all(m.dtype == torch.int32 for m in masks)
+    words = masks[0].numpy().view(np.uint32)
+    bits = (words[:, None, :] >> np.arange(32, dtype=np.uint32)[None, :, None]) & 1
+    bits = bits.reshape(G * 32, R)
+    assert np.array_equal(bits[:B], v == ev.V_FAIL) and not bits[B:].any()
+    got = ev.scan_reduce_plain(*masks, B)
+    want = ev.scan_counts_plain(verdict)
+    for name, w, g in zip(("fails", "passes", "host_rows"), want, got):
+        assert w.dtype == g.dtype and torch.equal(w, g), name
+    if B >= 32:
+        assert bool(want[2].any())
 
 
 def test_stage_outputs_consistent(case):
@@ -285,7 +333,8 @@ def test_plan_refuses_a_rule_beyond_shared_memory():
 
 
 def test_eval_rules_refuses_other_devices():
-    """No fallback: off the CPU, eval_rules launches the kernel or raises."""
+    """No fallback: off the CPU, eval_rules (either form) and K5 launch
+    their kernels or raise."""
     jset, tset = both_sets(corpus_docs("deny_only"))
     blob, (B, P, E, V) = jax_blob(jset, corpus_resources("deny_only", 4))
     meta = torch.empty(blob.size, dtype=torch.int32, device="meta")
@@ -293,6 +342,12 @@ def test_eval_rules_refuses_other_devices():
                     device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ev.eval_rules(tset.plan, meta, B, P, E, V, m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ev.eval_rules_scan(tset.plan, meta, B, P, E, V, m)
+    masks = [torch.empty(s, dtype=torch.int32, device="meta")
+             for s in ((1, 2), (1, 2), (1, 1))]
+    with pytest.raises(ValueError, match="unsupported device"):
+        ev.scan_reduce(*masks, B)
 
 
 def test_blob_shape_checked():
