@@ -2,7 +2,8 @@
 its plain PyTorch version.
 
     python3 chip_smoke.py            # all phases (one card)
-    python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs
+    python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs,
+                                     # evaluate() at 1,000
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -30,9 +31,18 @@ Phases:
                the pinned verdict histogram and sha256,
                evaluate_device_async equal, every kernel of both paths
                launched
-  4. scan      the 100k scan equal to the plain pipeline's counts on the
+  4. evaluate  cps.evaluate(10k), the whole path (flatten -> K1 ->
+               eval_rules -> the CPU oracle for every HOST cell), with the
+               launch counters set to 0 just before: K1 and eval_rules
+               launched, no HOST cell left, the other cells equal to
+               evaluate_device's, the pinned resolved histogram and
+               sha256; its split (flatten, device, resolve) timed; and
+               the anchor corpus x 300 through evaluate() equal, cell for
+               cell, to the port's oracle run over every rule, the
+               resolved matrix holding PASS, FAIL, SKIP and ERROR
+  5. scan      the 100k scan equal to the plain pipeline's counts on the
                card, and its first chunk to the verdict matrix's
-  5. times     median of CUDA-event times over warm launches for every
+  6. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
@@ -457,6 +467,17 @@ def wide_resource(rng, n_keys: int = 300, containers: int = 0) -> dict:
 
 EXPECTED_HIST = [1160000, 1066000, 262000, 0, 0, 12000]
 EXPECTED_SHA = "82a85e14371fdb5944a2fa9d1f20be873a7984cf851eb49abfc43628d0f5c019"
+# evaluate() of the same library on mixed_resource(0..n-1), HOST cells
+# resolved: the JAX package's CompiledPolicySet.evaluate gives these on
+# the CPU (JAX_PLATFORMS=cpu; policies from _synth_policy_docs(250) through
+# kyverno_tpu.api.load.load_policy; np.bincount(v.ravel(), minlength=6) and
+# sha256 of the C-contiguous int8 bytes), at n = 10,000 and at 1,000
+EXPECTED_EVAL_HIST = [1160000, 1078000, 262000, 0, 0, 0]
+EXPECTED_EVAL_SHA = "677f52e04e7e837d9776e263b5728eaa25367ced55285f754811ff63f6ae232a"
+EXPECTED_EVAL_HIST_1K = [116000, 107800, 26200, 0, 0, 0]
+EXPECTED_EVAL_SHA_1K = "be4ff425ca5e5835c24af4485f5d6a5f4cd64517b4ea505ec41c85574c0b9da5"
+# the kernels of the evaluate() path
+EVALUATE_KERNELS = ("glob_nfa", "eval_rules")
 # H100 SXM memory rate (data sheet). Every kernel here is bytes-bound: per
 # element the function needs a few dozen integer operations (one NFA step
 # per string byte, one compare per slot, one list entry per reduction),
@@ -659,6 +680,117 @@ def device_ms(fn, n: int = 50) -> float:
     return a.elapsed_time(b) / n
 
 
+def oracle_matrix(cps, resources: list) -> np.ndarray:
+    """The port's CPU oracle over every rule of every policy, built as
+    tests/ops/test_cross_check.py::oracle_matrix builds the JAX package's:
+    one ``validate`` per (resource, policy) on a context of the resource
+    alone, NOT_APPLICABLE where a rule has no response."""
+    from kyverno_tpu_torch.engine.context import Context
+    from kyverno_tpu_torch.engine.policy_context import PolicyContext
+    from kyverno_tpu_torch.engine.response import RuleStatus
+    from kyverno_tpu_torch.engine.validation import validate
+
+    code = {RuleStatus.PASS: 1, RuleStatus.FAIL: 2, RuleStatus.WARN: 1,
+            RuleStatus.ERROR: 4, RuleStatus.SKIP: 3}
+    out = np.zeros((len(resources), cps.tensors.n_rules), dtype=np.int8)
+    for b, resource in enumerate(resources):
+        for policy in cps.policies:
+            jctx = Context()
+            jctx.add_resource(resource)
+            resp = validate(PolicyContext(policy=policy, new_resource=resource,
+                                          json_context=jctx))
+            statuses = {rr.name: rr.status for rr in resp.policy_response.rules}
+            for ref in cps.rule_refs:
+                if ref.policy is policy and ref.rule.name in statuses:
+                    out[b, ref.rule_index] = code[statuses[ref.rule.name]]
+    return out
+
+
+def evaluate_phase(cps, n: int, anchor, device_v=None) -> dict:
+    """Phase 4: ``cps.evaluate`` over mixed_resource(0..n-1), with the
+    launch counters set to 0 just before and read just after, then the
+    same path step by step for its split and evaluate() once more, timed;
+    then the anchor corpus x 300
+    against the full oracle matrix. Returns the launches of the
+    evaluate() run."""
+    from kyverno_tpu_torch.ops import _build
+
+    resources = [mixed_resource(i) for i in range(n)]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = cps.evaluate(resources)
+    evaluate_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    log(f"[evaluate] launches of evaluate() at {n}: {launches}")
+    for name in EVALUATE_KERNELS:
+        check(launches[name] >= 1, f"evaluate() did not launch {name}")
+    check(got.shape == (n, cps.tensors.n_rules_live) and got.dtype == np.int8,
+          f"evaluate() gave {got.dtype}{got.shape}")
+    check(not (got == 5).any(), f"evaluate() left {int((got == 5).sum())} HOST cells")
+    # the same path step by step, timed; it must give the same matrix
+    t0 = time.perf_counter()
+    batch = cps.flatten(resources)
+    flatten_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device = cps.evaluate_device(batch)
+    device_s = time.perf_counter() - t0
+    if device_v is not None:
+        check(np.array_equal(device, device_v),
+              "evaluate_device differs from the main path's matrix")
+    host = device == 5
+    n_host = int(host.sum())
+    t0 = time.perf_counter()
+    split = cps.resolve_host_cells(resources, device.copy())
+    resolve_s = time.perf_counter() - t0
+    check(np.array_equal(split, got), "flatten -> evaluate_device -> "
+          "resolve_host_cells differs from evaluate()")
+    check(np.array_equal(got[~host], device[~host]),
+          "evaluate() changed cells that were not HOST")
+    t0 = time.perf_counter()
+    again = cps.evaluate(resources)
+    again_s = time.perf_counter() - t0
+    check(np.array_equal(again, got), "a second evaluate() differs")
+    hist = np.bincount(got.ravel().astype(np.int64), minlength=6).tolist()
+    sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+    resolved = np.bincount(got[host].astype(np.int64), minlength=6).tolist()
+    want_hist, want_sha = ((EXPECTED_EVAL_HIST, EXPECTED_EVAL_SHA) if n == 10_000
+                           else (EXPECTED_EVAL_HIST_1K, EXPECTED_EVAL_SHA_1K))
+    log(f"[evaluate] library 250 x {n}: evaluate() {evaluate_s:.3f} s, again "
+        f"{again_s:.3f} s; split: "
+        f"flatten {flatten_s:.3f} s, evaluate_device {device_s * 1e3:.3f} ms, "
+        f"resolve {resolve_s:.3f} s for {n_host} HOST cells "
+        f"({resolve_s / max(n_host, 1) * 1e6:.1f} us a cell); resolved HOST "
+        f"cells {resolved}; histogram {hist}; sha256 {sha}")
+    check(hist == want_hist, f"evaluate() histogram {hist} != {want_hist}")
+    check(sha == want_sha, f"evaluate() sha256 {sha} != {want_sha}")
+
+    # the anchor corpus: evaluate() on the card against the full oracle
+    rng = np.random.default_rng(11)
+    a_res = [random_resource(rng) for _ in range(300)]
+    a_dev = anchor.evaluate_device(anchor.flatten(a_res))
+    t0 = time.perf_counter()
+    a_got = anchor.evaluate(a_res)
+    a_eval_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    a_want = oracle_matrix(anchor, a_res)
+    oracle_s = time.perf_counter() - t0
+    diff = np.argwhere(a_got != a_want)
+    check(diff.size == 0, f"anchor corpus: evaluate() differs from the oracle "
+          f"matrix in {len(diff)} cells, first (b, r) {diff[:3].tolist()}")
+    a_hist = np.bincount(a_got.ravel().astype(np.int64), minlength=6).tolist()
+    a_res_hist = np.bincount(a_got[a_dev == 5].astype(np.int64),
+                             minlength=6).tolist()
+    log(f"[evaluate] anchor corpus x 300: {int((a_dev == 5).sum())} HOST cells "
+        f"resolved to {a_res_hist}; evaluate() {a_eval_s:.3f} s, the oracle "
+        f"over every rule {oracle_s:.3f} s; equal cell for cell; histogram "
+        f"{a_hist}")
+    check(int((a_dev == 5).sum()) > 0, "the anchor corpus left no HOST cell")
+    check(all(a_hist[v] > 0 for v in (1, 2, 3, 4)),
+          f"the anchor corpus's resolved matrix lacks PASS, FAIL, SKIP or "
+          f"ERROR: {a_hist}")
+    return launches
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -672,7 +804,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and hold the kernels to their plain versions "
-                         "on small inputs, then stop")
+                         "on small inputs, run evaluate() at 1,000, then stop")
     args = ap.parse_args()
 
     import torch
@@ -789,6 +921,7 @@ def main() -> int:
           "no compared corpus has FAIL and PASS cells both outside and "
           "inside HOST rows")
     if args.quick:
+        evaluate_phase(lib_cps, 1000, anchor)
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
@@ -843,7 +976,10 @@ def main() -> int:
     if not np.array_equal(async_v, verdicts):
         raise AssertionError("evaluate_device_async differs from evaluate_device")
 
-    # ---- 4. scan: 100k in chunks of 10k, against the plain pipeline
+    # ---- 4. evaluate(): the device verdicts, then the CPU oracle
+    eval_launches = evaluate_phase(cps, 10_000, anchor, device_v=verdicts)
+
+    # ---- 5. scan: 100k in chunks of 10k, against the plain pipeline
     ref_f = np.zeros(cps.tensors.n_rules, dtype=np.int64)
     ref_p = np.zeros_like(ref_f)
     ref_h = 0
@@ -868,7 +1004,7 @@ def main() -> int:
         f"included): fails {int(scan_tot[0].sum())}, passes "
         f"{int(scan_tot[1].sum())}, host rows {scan_host_rows}; equal to plain")
 
-    # ---- 5. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 6. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -934,6 +1070,7 @@ def main() -> int:
         plain_ms = cuda_ms(plains[name], 20)
         bound_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
         rows[name] = {"name": name, "route": "cuda", "launches": launches.get(name),
+                      "evaluate_launches": eval_launches.get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

@@ -3,8 +3,15 @@ NVIDIA H100, beside the JAX package it was ported from.
 
 Layer map:
   - ``kyverno_tpu_torch.api``     policy CRD types + loaders
-  - ``kyverno_tpu_torch.engine``  anchors, leaf and condition operators
+  - ``kyverno_tpu_torch.engine``  anchors, leaf and condition operators,
+                                  and the CPU oracle (``validation``,
+                                  ``match``, ``context``, ``variables``,
+                                  ``jmespath``) that resolves HOST cells
+  - ``kyverno_tpu_torch.store``   mock values for rules' ``context:``
+                                  entries (offline runs)
   - ``kyverno_tpu_torch.models``  policy IR, compiler, flattener, engine
+                                  (``CompiledPolicySet.evaluate``: device
+                                  verdicts, then the oracle)
   - ``kyverno_tpu_torch.ops``     CUDA kernels (glob NFA, check evaluation,
                                   verdict reduction, scan counts), each
                                   beside its plain PyTorch version
