@@ -3,11 +3,13 @@ its plain PyTorch version.
 
     python3 chip_smoke.py            # all phases (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs,
-                                     # evaluate() at 1,000
+                                     # flatten parity, evaluate() at 1,000
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
-               build/torch_kernels/ (one process per source, in parallel)
+               build/torch_kernels/ (one process per source, in parallel),
+               and g++ the native flattener (csrc/ktpu_flatten.cpp, host
+               code) beside them, at the same time
   2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch), its
                scan form (FAIL / PASS / HOST bit masks instead of the
                verdicts) and K5 (the counts from the masks) against
@@ -25,24 +27,40 @@ Phases:
                resources. K1 also over a seeded set of more glob
                patterns than one of its blocks takes, on the library's
                10k dictionary
-  3. main      CompiledPolicySet(library_250).evaluate_device(flatten(10k))
-               and scan_counts over 100,000 mixed resources in chunks of
-               10,000, with the launch counters set to 0 just before:
-               the pinned verdict histogram and sha256,
-               evaluate_device_async equal, every kernel of both paths
-               launched
-  4. evaluate  cps.evaluate(10k), the whole path (flatten -> K1 ->
-               eval_rules -> the CPU oracle for every HOST cell), with the
+  3. flatten   the native flattener's packed blob, from each of its
+               entries (the dict walk, the FlatBatch entry behind
+               cps.flatten, the chunked JSON entry over threads), equal
+               byte for byte to the Python flattener's on the library x
+               10k, the anchor corpus and the wide corpus, with no
+               fallback counted; microseconds a resource for each
+  4. main      CompiledPolicySet(library_250).evaluate_device(flatten(10k))
+               and scan_counts over 1,000,000 mixed resources made 10,000
+               at a time and flattened by flatten_packed_chunks, with the
+               launch counters set to 0 just before: the pinned verdict
+               histogram and sha256, evaluate_device_async equal, every
+               kernel of both paths launched
+  5. evaluate  cps.evaluate(10k), the whole path (native flatten -> K1 ->
+               eval_rules -> the host lane: the CPU oracle for every HOST
+               cell, through the verdict memo and fan-out), with the
                launch counters set to 0 just before: K1 and eval_rules
-               launched, no HOST cell left, the other cells equal to
-               evaluate_device's, the pinned resolved histogram and
-               sha256; its split (flatten, device, resolve) timed; and
-               the anchor corpus x 300 through evaluate() equal, cell for
-               cell, to the port's oracle run over every rule, the
-               resolved matrix holding PASS, FAIL, SKIP and ERROR
-  5. scan      the 100k scan equal to the plain pipeline's counts on the
-               card, and its first chunk to the verdict matrix's
-  6. times     median of CUDA-event times over warm launches for every
+               launched, no HOST cell left, the pinned resolved
+               histogram and sha256, every HOST cell a memo miss; a
+               second evaluate() with every HOST cell a memo hit and the
+               same sha256; the split (flatten, device, resolve with the
+               memo emptied) timed; and the anchor corpus x 300 through
+               evaluate() equal, cell for cell, to the port's oracle run
+               over every rule, the resolved matrix holding PASS, FAIL,
+               SKIP and ERROR
+  6. pipelined cps.evaluate_pipelined(10k, chunk=1024), with the launch
+               counters set to 0 just before: K1 and eval_rules once a
+               chunk, the pinned sha256, no HOST cell; its wall time and
+               the oracle seconds its prefetch hid in the device's
+               shadow (overlap_s, from the chunks' traces); then again
+               with KTPU_NATIVE=0 and the KTPU_HOST_* switches off
+  7. scan      every chunk of the 1M scan equal to the plain pipeline's
+               counts on the card, and its first chunk to the verdict
+               matrix's
+  8. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
@@ -63,6 +81,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -465,6 +484,9 @@ def wide_resource(rng, n_keys: int = 300, containers: int = 0) -> dict:
 
 # ---------------------------------------------------------------------
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# the background scan of BASELINE config 5: 1M library resources
+SCAN_RESOURCES = 1_000_000
 EXPECTED_HIST = [1160000, 1066000, 262000, 0, 0, 12000]
 EXPECTED_SHA = "82a85e14371fdb5944a2fa9d1f20be873a7984cf851eb49abfc43628d0f5c019"
 # evaluate() of the same library on mixed_resource(0..n-1), HOST cells
@@ -706,30 +728,90 @@ def oracle_matrix(cps, resources: list) -> np.ndarray:
     return out
 
 
-def evaluate_phase(cps, n: int, anchor, device_v=None) -> dict:
-    """Phase 4: ``cps.evaluate`` over mixed_resource(0..n-1), with the
-    launch counters set to 0 just before and read just after, then the
-    same path step by step for its split and evaluate() once more, timed;
-    then the anchor corpus x 300
-    against the full oracle matrix. Returns the launches of the
-    evaluate() run."""
-    from kyverno_tpu_torch.ops import _build
+def memo_delta(before: dict, after: dict) -> tuple[int, int]:
+    return (after["hits"] - before["hits"], after["misses"] - before["misses"])
 
+
+def flatten_phase(label: str, cps, resources: list) -> dict:
+    """Phase 3: every native flattener entry's packed blob against the
+    Python flattener's on ``resources``, byte for byte, with no fallback
+    counted. Returns seconds per entry (the second, warm call of each)."""
+    from kyverno_tpu_torch.models import native_flatten as nf
+    from kyverno_tpu_torch.models.flatten import flatten_batch
+
+    n = len(resources)
+    nf.reset_fallbacks()
+    t0 = time.perf_counter()
+    want = flatten_batch(resources, cps.tensors).packed_blob()[0].tobytes()
+    times = {"python": time.perf_counter() - t0}
+    entries = {
+        "dict walk": lambda: cps.flatten_packed(resources),
+        "FlatBatch": lambda: cps.flatten(resources),
+        "chunks": lambda: nf.flatten_packed_chunks(cps.tensors, resources),
+    }
+    for name, fn in entries.items():
+        for _ in range(2):
+            t0 = time.perf_counter()
+            blob = fn().packed_blob()[0]
+            times[name] = time.perf_counter() - t0
+        check(blob.tobytes() == want, f"[flatten] {label}: the native {name} "
+              "entry's blob differs from the Python flattener's")
+    check(all(v == 0 for v in nf.FALLBACKS.values()),
+          f"[flatten] {label}: fallbacks {nf.FALLBACKS}")
+    log(f"[flatten] {label} x {n}: every native entry's blob equal to the "
+        f"Python flattener's, byte for byte ({len(want)} bytes); us a "
+        f"resource (blob included): " + ", ".join(
+            f"{k} {v / n * 1e6:.3f}" for k, v in times.items())
+        + f"; fallbacks {nf.FALLBACKS}")
+    return times
+
+
+def evaluate_phase(cps, n: int, anchor, device_v=None) -> dict:
+    """Phase 5: ``cps.evaluate`` over mixed_resource(0..n-1) from an empty
+    verdict memo, with the launch counters set to 0 just before and read
+    just after; evaluate() again, every HOST cell from the memo; the same
+    path step by step for its split, the memo emptied again; then the
+    anchor corpus x 300 against the full oracle matrix. Returns the
+    launches of the first evaluate() run."""
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane
+
+    memo = hostlane.host_cache()
     resources = [mixed_resource(i) for i in range(n)]
+    memo.clear()
+    m0 = memo.stats()
     _build.reset_launches()
     t0 = time.perf_counter()
     got = cps.evaluate(resources)
     evaluate_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    m1 = memo.stats()
     log(f"[evaluate] launches of evaluate() at {n}: {launches}")
     for name in EVALUATE_KERNELS:
         check(launches[name] >= 1, f"evaluate() did not launch {name}")
     check(got.shape == (n, cps.tensors.n_rules_live) and got.dtype == np.int8,
           f"evaluate() gave {got.dtype}{got.shape}")
     check(not (got == 5).any(), f"evaluate() left {int((got == 5).sum())} HOST cells")
-    # the same path step by step, timed; it must give the same matrix
+    hist = np.bincount(got.ravel().astype(np.int64), minlength=6).tolist()
+    sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+    want_hist, want_sha = ((EXPECTED_EVAL_HIST, EXPECTED_EVAL_SHA) if n == 10_000
+                           else (EXPECTED_EVAL_HIST_1K, EXPECTED_EVAL_SHA_1K))
+    check(hist == want_hist, f"evaluate() histogram {hist} != {want_hist}")
+    check(sha == want_sha, f"evaluate() sha256 {sha} != {want_sha}")
+    # a second evaluate(): every HOST cell from the memo, same matrix
+    t0 = time.perf_counter()
+    again = cps.evaluate(resources)
+    again_s = time.perf_counter() - t0
+    m2 = memo.stats()
+    again_sha = hashlib.sha256(np.ascontiguousarray(again).tobytes()).hexdigest()
+    check(again_sha == want_sha, f"a second evaluate() gave sha256 {again_sha}")
+    # the same path step by step, timed, from an empty memo; it must give
+    # the same matrix
+    memo.clear()
+    m3 = memo.stats()
     t0 = time.perf_counter()
     batch = cps.flatten(resources)
+    batch.packed_blob()
     flatten_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     device = cps.evaluate_device(batch)
@@ -742,27 +824,46 @@ def evaluate_phase(cps, n: int, anchor, device_v=None) -> dict:
     t0 = time.perf_counter()
     split = cps.resolve_host_cells(resources, device.copy())
     resolve_s = time.perf_counter() - t0
+    m4 = memo.stats()
     check(np.array_equal(split, got), "flatten -> evaluate_device -> "
           "resolve_host_cells differs from evaluate()")
     check(np.array_equal(got[~host], device[~host]),
           "evaluate() changed cells that were not HOST")
-    t0 = time.perf_counter()
-    again = cps.evaluate(resources)
-    again_s = time.perf_counter() - t0
-    check(np.array_equal(again, got), "a second evaluate() differs")
-    hist = np.bincount(got.ravel().astype(np.int64), minlength=6).tolist()
-    sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+    # the serial loop on the same cells (the host lane's switches off),
+    # for comparison in the same run
+    saved = {k: os.environ.get(k) for k in OFF_SWITCHES if k != "KTPU_NATIVE"}
+    os.environ.update({k: "0" for k in saved})
+    try:
+        t0 = time.perf_counter()
+        serial = cps.resolve_host_cells(resources, device.copy())
+        serial_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(np.array_equal(serial, got), "the serial loop's resolve differs")
+    first, second, in_split = memo_delta(m0, m1), memo_delta(m1, m2), memo_delta(m3, m4)
+    check(first == (0, n_host) and in_split == (0, n_host),
+          f"evaluate() from an empty memo: (hits, misses) {first} and {in_split}, "
+          f"{n_host} HOST cells")
+    check(second == (n_host, 0), f"the second evaluate(): (hits, misses) {second}, "
+          f"{n_host} HOST cells")
     resolved = np.bincount(got[host].astype(np.int64), minlength=6).tolist()
-    want_hist, want_sha = ((EXPECTED_EVAL_HIST, EXPECTED_EVAL_SHA) if n == 10_000
-                           else (EXPECTED_EVAL_HIST_1K, EXPECTED_EVAL_SHA_1K))
-    log(f"[evaluate] library 250 x {n}: evaluate() {evaluate_s:.3f} s, again "
-        f"{again_s:.3f} s; split: "
-        f"flatten {flatten_s:.3f} s, evaluate_device {device_s * 1e3:.3f} ms, "
-        f"resolve {resolve_s:.3f} s for {n_host} HOST cells "
-        f"({resolve_s / max(n_host, 1) * 1e6:.1f} us a cell); resolved HOST "
-        f"cells {resolved}; histogram {hist}; sha256 {sha}")
-    check(hist == want_hist, f"evaluate() histogram {hist} != {want_hist}")
-    check(sha == want_sha, f"evaluate() sha256 {sha} != {want_sha}")
+    threads = hostlane.resolver()._max_workers
+    log(f"[evaluate] library 250 x {n}: evaluate() {evaluate_s:.3f} s (memo "
+        f"{first[0]} hits, {first[1]} misses; no prefetch in evaluate(), as in "
+        f"the JAX package), again {again_s:.3f} s (memo {second[0]} hits, "
+        f"{second[1]} misses, same sha256); split: native flatten "
+        f"{flatten_s:.3f} s ({flatten_s / n * 1e6:.2f} us a resource), "
+        f"evaluate_device {device_s * 1e3:.3f} ms, resolve {resolve_s:.3f} s for "
+        f"{n_host} HOST cells ({resolve_s / max(n_host, 1) * 1e6:.1f} us a cell; "
+        f"memo {in_split[0]} hits, {in_split[1]} misses; prefetch 0 cells "
+        f"applied; fan-out over {threads} threads); the serial loop (host lane "
+        f"switched off) {serial_s:.3f} s ({serial_s / max(n_host, 1) * 1e6:.1f} us "
+        f"a cell); resolved HOST cells "
+        f"{resolved}; histogram {hist}; sha256 {sha}")
 
     # the anchor corpus: evaluate() on the card against the full oracle
     rng = np.random.default_rng(11)
@@ -791,6 +892,86 @@ def evaluate_phase(cps, n: int, anchor, device_v=None) -> dict:
     return launches
 
 
+OFF_SWITCHES = {"KTPU_NATIVE": "0", "KTPU_HOST_PREFETCH": "0",
+                "KTPU_HOST_MEMO": "0", "KTPU_HOST_FANOUT": "0"}
+
+
+def pipelined_phase(cps, n: int, chunk: int = 1024) -> dict:
+    """Phase 6: ``cps.evaluate_pipelined`` over mixed_resource(0..n-1)
+    from an empty memo, with the launch counters set to 0 just before and
+    read just after (K1 and eval_rules once a chunk); the pinned sha256
+    and no HOST cell; the chunks' traces read for the flatten, dispatch,
+    join and resolve seconds and the prefetch's overlap_s. Then again with
+    the native flattener and the host lane switched off. Returns the
+    launches of the first run."""
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane, tracing
+
+    resources = [mixed_resource(i) for i in range(n)]
+    n_chunks = -(-n // chunk)
+    want_sha = EXPECTED_EVAL_SHA if n == 10_000 else EXPECTED_EVAL_SHA_1K
+    rec = tracing.recorder()
+    # room for a chunk's row spans (a prefetch and a resolve span a row)
+    rec.max_spans = max(rec.max_spans, 8 * chunk)
+    out = {}
+    for mode, env in (("on", {}), ("off", OFF_SWITCHES)):
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            hostlane.host_cache().clear()
+            rec.clear()
+            s0 = dict(hostlane.resolver().stats)
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            got = cps.evaluate_pipelined(resources, chunk=chunk)
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        want = {"glob_nfa": n_chunks, "eval_rules": n_chunks,
+                "eval_rules_scan": 0, "scan_counts": 0}
+        check(launches == want, f"evaluate_pipelined ({mode}) launched "
+              f"{launches}, not {want}")
+        check(not (got == 5).any(), f"evaluate_pipelined ({mode}) left "
+              f"{int((got == 5).sum())} HOST cells")
+        sha = hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest()
+        check(sha == want_sha, f"evaluate_pipelined ({mode}) sha256 {sha}")
+        traces = [t for t in rec.traces(4 * n_chunks) if t.kind == "scan_chunk"]
+        check(len(traces) == n_chunks and not any(t.spans_dropped for t in traces),
+              f"{len(traces)} chunk traces of {n_chunks}, spans dropped "
+              f"{[t.spans_dropped for t in traces]}")
+        spans = {}
+        for t in traces:
+            for sp in t.spans:
+                tot = spans.setdefault(sp.name, [0, 0.0, 0, 0])
+                tot[0] += 1
+                tot[1] += sp.duration_s
+                tot[2] += int(sp.labels.get("overlap_us", 0))
+                tot[3] += int(sp.labels.get("applied", 0))
+        st = {k: v - s0.get(k, 0) for k, v in hostlane.resolver().stats.items()}
+        join = spans.get("host_join", [0, 0.0, 0, 0])
+        overlap_s = join[2] / 1e6
+        if mode == "on":
+            check(join[0] == n_chunks and join[3] > 0,
+                  f"evaluate_pipelined: {join[0]} prefetch joins, {join[3]} cells applied")
+        log(f"[pipelined] evaluate_pipelined library 250 x {n}, chunk {chunk}, "
+            f"switches {mode} ({'defaults' if not env else env}): wall "
+            f"{wall:.3f} s; launches {launches}; no HOST cell; sha256 {sha}; "
+            f"prefetch {st.get('prefetch_submitted', 0)} cells submitted, "
+            f"{join[3]} applied, overlap_s {overlap_s:.3f}; span seconds summed "
+            f"over chunks: " + ", ".join(
+                f"{k} {v[1]:.3f} ({v[0]})" for k, v in sorted(spans.items())
+                if k in ("flatten", "device_dispatch", "host_join", "host_resolve")))
+        out[mode] = (got, launches)
+    check(np.array_equal(out["on"][0], out["off"][0]),
+          "evaluate_pipelined differs with the switches off")
+    return out["on"][1]
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -812,9 +993,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from kyverno_tpu_torch.api.load import load_policy
     from kyverno_tpu_torch.models import CompiledPolicySet
+    from kyverno_tpu_torch.models import native_flatten
     from kyverno_tpu_torch.models.compiler import _compile_glob
     from kyverno_tpu_torch.ops import _build
     from kyverno_tpu_torch.ops import eval as ev
@@ -827,9 +1009,29 @@ def main() -> int:
     dev_name = torch.cuda.get_device_name(0)
     log(f"device: {dev_name}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 1. build
+    # ---- 1. build: nvcc for the kernels and g++ for the native
+    # flattener, at the same time
+    native_err = []
+
+    def build_native():
+        try:
+            native_flatten._load_lib()
+        except Exception as e:          # raised below, on this thread
+            native_err.append(e)
+
+    t0 = time.perf_counter()
+    builder = threading.Thread(target=build_native)
+    builder.start()
     build_s = _build.build_all()
-    log(f"[build] {len(_build.KERNELS)} kernels built in {build_s:.2f} s")
+    builder.join()
+    if native_err:
+        raise native_err[0]
+    built = native_flatten.BUILT
+    log(f"[build] {len(_build.KERNELS)} kernels built in {build_s:.2f} s; the "
+        f"native flattener from {native_flatten.CPP.relative_to(ROOT)} in "
+        f"{built['seconds']:.2f} s ({'with' if built['dict_walk'] else 'without'} "
+        f"its dict-walk entry): {os.path.relpath(built['path'], ROOT)}; both "
+        f"in {time.perf_counter() - t0:.2f} s")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
@@ -920,20 +1122,33 @@ def main() -> int:
     check(any(min(c.values()) > 0 for c in scan_seen.values()),
           "no compared corpus has FAIL and PASS cells both outside and "
           "inside HOST rows")
+    # ---- 3. the native flattener against the Python one
+    flatten_phase("library 250", lib_cps, [mixed_resource(i) for i in range(n_lib)])
+    rng = np.random.default_rng(11)
+    flatten_phase("anchor corpus", anchor, [random_resource(rng)
+                                            for _ in range(n_anchor)])
+    wrng = np.random.default_rng(3)
+    flatten_phase("wide corpus", wide, [wide_resource(wrng, containers=16 if i == 0
+                                                      else 0)
+                                        for i in range(n_wide)])
     if args.quick:
         evaluate_phase(lib_cps, 1000, anchor)
+        pipelined_phase(lib_cps, 1000, chunk=256)
+        check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
+              f"native flattener fallbacks {native_flatten.FALLBACKS}")
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
             "count": torch.cuda.device_count()}}))
         return 0
 
-    # ---- 3. main path: compile -> flatten -> evaluate_device (+ async, scan)
+    # ---- 4. main path: compile -> flatten -> evaluate_device (+ async, scan)
     t0 = time.perf_counter()
     cps = CompiledPolicySet([load_policy(d) for d in library_docs])
     compile_s = time.perf_counter() - t0
     resources = [mixed_resource(i) for i in range(10_000)]
-    scan_chunks = 10
+    scan_n, scan_chunk = SCAN_RESOURCES, 10_000
+    native_flatten.reset_fallbacks()
     _build.reset_launches()
     t0 = time.perf_counter()
     batch = cps.flatten(resources)
@@ -945,13 +1160,20 @@ def main() -> int:
     async_v = handle.get()
     scan_tot = None
     scan_host_rows = 0
-    scan_batches = []
+    scan_batches, scan_counts = [], []
+    gen_s = flat_s = count_s = 0.0
     t0 = time.perf_counter()
-    for c in range(scan_chunks):
-        chunk = [mixed_resource(c * 10_000 + j) for j in range(10_000)]
-        sb = cps.flatten(chunk)
-        scan_batches.append(sb)
+    for c in range(scan_n // scan_chunk):
+        g0 = time.perf_counter()
+        chunk = [mixed_resource(c * scan_chunk + j) for j in range(scan_chunk)]
+        g1 = time.perf_counter()
+        sb = native_flatten.flatten_packed_chunks(cps.tensors, chunk)
+        g2 = time.perf_counter()
         f, p, h = cps.scan_counts(sb)
+        g3 = time.perf_counter()
+        gen_s, flat_s, count_s = gen_s + g1 - g0, flat_s + g2 - g1, count_s + g3 - g2
+        scan_batches.append(sb)
+        scan_counts.append((f, p, h))
         scan_host_rows += int(h.sum())
         scan_tot = (f.astype(np.int64), p.astype(np.int64)) if scan_tot is None \
             else (scan_tot[0] + f, scan_tot[1] + p)
@@ -961,13 +1183,15 @@ def main() -> int:
     for name in _build.LAUNCHES:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
+          f"native flattener fallbacks on the main path {native_flatten.FALLBACKS}")
 
     check(verdicts.shape == (10_000, cps.tensors.n_rules_live)
           and verdicts.dtype == np.int8,
           f"verdicts {verdicts.dtype}{verdicts.shape}")
     hist = np.bincount(verdicts.ravel().astype(np.int64), minlength=6).tolist()
     sha = hashlib.sha256(np.ascontiguousarray(verdicts).tobytes()).hexdigest()
-    log(f"[main] compile {compile_s:.3f} s, flatten {flatten_s:.3f} s, "
+    log(f"[main] compile {compile_s:.3f} s, native flatten {flatten_s:.3f} s, "
         f"evaluate_device {evaluate_s * 1e3:.3f} ms; histogram {hist}; sha256 {sha}")
     if hist != EXPECTED_HIST:
         raise AssertionError(f"histogram {hist} != {EXPECTED_HIST}")
@@ -975,36 +1199,45 @@ def main() -> int:
         raise AssertionError(f"sha256 {sha} != {EXPECTED_SHA}")
     if not np.array_equal(async_v, verdicts):
         raise AssertionError("evaluate_device_async differs from evaluate_device")
+    log(f"[main] scan of {scan_n} resources in {scan_n // scan_chunk} chunks of "
+        f"{scan_chunk}: {scan_s:.3f} s wall (making the resources {gen_s:.3f} s, "
+        f"flatten_packed_chunks over {native_flatten._chunk_workers()} threads "
+        f"{flat_s:.3f} s = {flat_s / scan_n * 1e6:.3f} us a resource, "
+        f"scan_counts with its copies {count_s:.3f} s); fails "
+        f"{int(scan_tot[0].sum())}, passes {int(scan_tot[1].sum())}, host rows "
+        f"{scan_host_rows}; {nvidia_smi_line()}")
 
-    # ---- 4. evaluate(): the device verdicts, then the CPU oracle
+    # ---- 5. evaluate(): the device verdicts, then the host lane
     eval_launches = evaluate_phase(cps, 10_000, anchor, device_v=verdicts)
 
-    # ---- 5. scan: 100k in chunks of 10k, against the plain pipeline
-    ref_f = np.zeros(cps.tensors.n_rules, dtype=np.int64)
-    ref_p = np.zeros_like(ref_f)
-    ref_h = 0
-    for sb in scan_batches:
+    # ---- 6. evaluate_pipelined(): chunks overlapped with the host lane
+    pipe_launches = pipelined_phase(cps, 10_000, chunk=1024)
+    check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
+          f"native flattener fallbacks {native_flatten.FALLBACKS}")
+
+    # ---- 7. scan: every chunk against the plain pipeline
+    t0 = time.perf_counter()
+    for c, (sb, (f, p, h)) in enumerate(zip(scan_batches, scan_counts)):
         blob, shp = cps.to_device(sb)
         v = plain_pipeline(cps.plan, blob, shp)
-        f, p, h = ev.scan_counts_plain(v)
-        ref_f += f.cpu().numpy()
-        ref_p += p.cpu().numpy()
-        ref_h += int(h.sum())
-    if not (np.array_equal(scan_tot[0], ref_f) and np.array_equal(scan_tot[1], ref_p)
-            and scan_host_rows == ref_h):
-        raise AssertionError("scan counts differ from the plain pipeline")
+        rf, rp, rh = (x.cpu().numpy() for x in ev.scan_counts_plain(v))
+        check(np.array_equal(f, rf) and np.array_equal(p, rp)
+              and np.array_equal(h, rh),
+              f"scan chunk {c}: counts differ from the plain pipeline")
+    plain_s = time.perf_counter() - t0
     # the first scan chunk is the main path's batch: its counts are the
     # matrix's, read on the host
     live = ~(verdicts == 5).any(axis=1)
-    f0, p0, _ = cps.scan_counts(scan_batches[0])
+    f0, p0, _ = scan_counts[0]
     check(np.array_equal(f0, ((verdicts == 2) & live[:, None]).sum(axis=0))
           and np.array_equal(p0, ((verdicts == 1) & live[:, None]).sum(axis=0)),
           "scan counts of the first chunk differ from the verdict matrix's")
-    log(f"[scan] {scan_chunks} x 10000 resources in {scan_s:.3f} s (flatten "
-        f"included): fails {int(scan_tot[0].sum())}, passes "
-        f"{int(scan_tot[1].sum())}, host rows {scan_host_rows}; equal to plain")
+    log(f"[scan] {len(scan_batches)} x {scan_chunk} resources: every chunk's "
+        f"counts equal to the plain pipeline's ({plain_s:.3f} s to check), the "
+        f"first chunk's to the verdict matrix's")
+    del scan_batches, scan_counts
 
-    # ---- 6. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 8. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -1071,6 +1304,7 @@ def main() -> int:
         bound_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
         rows[name] = {"name": name, "route": "cuda", "launches": launches.get(name),
                       "evaluate_launches": eval_launches.get(name),
+                      "pipelined_launches": pipe_launches.get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],
@@ -1160,9 +1394,9 @@ def main() -> int:
             f"{100 * bound100 / dev100:.2f}% of the bound back to back; {smi}")
     st100.scan_form(m100)
     tb_s, smem_s = st100.launch()
-    log(f"[times] at B={st100.B}: flatten {flat100_s:.3f} s; eval_rules "
-        f"{tb100} resources and {smem100} bytes a block, its scan form {tb_s} "
-        f"and {smem_s}")
+    log(f"[times] at B={st100.B}: making, flattening and copying the resources "
+        f"{flat100_s:.3f} s; eval_rules {tb100} resources and {smem100} bytes a "
+        f"block, its scan form {tb_s} and {smem_s}")
     kernels = []
     for name, row in rows.items():
         if name in KERNEL_SOURCES:

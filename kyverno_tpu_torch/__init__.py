@@ -9,9 +9,15 @@ Layer map:
                                   ``jmespath``) that resolves HOST cells
   - ``kyverno_tpu_torch.store``   mock values for rules' ``context:``
                                   entries (offline runs)
-  - ``kyverno_tpu_torch.models``  policy IR, compiler, flattener, engine
-                                  (``CompiledPolicySet.evaluate``: device
-                                  verdicts, then the oracle)
+  - ``kyverno_tpu_torch.models``  policy IR, compiler, flatteners (Python,
+                                  and the native one built from
+                                  ``csrc/ktpu_flatten.cpp``), engine
+                                  (``CompiledPolicySet.evaluate`` and
+                                  ``evaluate_pipelined``: device verdicts,
+                                  then the host lane)
+  - ``kyverno_tpu_torch.runtime`` ``KTPU_*`` switches, span recorder, and
+                                  the host lane (prefetch, verdict memo,
+                                  fan-out) that resolves HOST cells
   - ``kyverno_tpu_torch.ops``     CUDA kernels (glob NFA, check evaluation,
                                   verdict reduction, scan counts), each
                                   beside its plain PyTorch version

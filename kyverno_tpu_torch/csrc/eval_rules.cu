@@ -1,7 +1,7 @@
 // eval_rules — stages 2-6 of the verdict program in one launch: from the
 // packed blob and K1's glob matrix to the int8 verdicts [B, R].
 //
-// Replaces stages 2-6 of kyverno_tpu/ops/eval.py::build_eval_fn's evaluate
+// Replaces stages 2-6 of the JAX package's ops/eval.py::build_eval_fn evaluate
 // (eval.py:205-863): the per-check slot gather, gates and element
 // reduction (:219-463), the group / alternative / rule reduction
 // (:465-567), the aux programs (:569-821) and the verdict composition

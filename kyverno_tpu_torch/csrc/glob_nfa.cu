@@ -1,7 +1,7 @@
 // K1 — glob NFA over the string dictionary: match[n, v] = glob(pattern n)
 // accepts dictionary string v.
 //
-// Replaces kyverno_tpu/ops/glob.py::glob_match_matrix (with
+// Replaces the JAX package's ops/glob.py::glob_match_matrix (with
 // _epsilon_closure), which XLA ran as a [N, V, S+1] boolean lattice stepped
 // under lax.scan.
 //

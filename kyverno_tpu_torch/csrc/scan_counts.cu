@@ -2,7 +2,7 @@
 // that hold no HOST cell, and host_rows [B], from the bit masks that the
 // scan form of eval_rules writes (eval_rules.cu, rules_kernel<true>).
 //
-// Replaces the reduction tail of kyverno_tpu/ops/eval.py::build_scan_fn_blob
+// Replaces the reduction tail of the JAX package's ops/eval.py::build_scan_fn_blob
 // (eval.py:966-975), which XLA fused after the verdict program so that the
 // [B, R] matrix never left the chip. The port keeps it on chip the same
 // way: eval_rules' scan form turns each rule's verdict planes into FAIL,

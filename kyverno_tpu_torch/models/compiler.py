@@ -238,6 +238,29 @@ class PolicyTensors:
         before any verdict matrix reaches a caller."""
         return self.n_rules if self.n_rules_logical < 0 else self.n_rules_logical
 
+    @property
+    def fingerprint(self) -> str:
+        """Content hash of everything the flatteners consume: the path
+        dictionary (order-sensitive — path ids are row indices) and the
+        kind index. Two compiles with the same fingerprint produce
+        byte-identical FlatBatch/PackedBatch encodings for any resource,
+        so native flattener handles keyed on it survive policy recompiles
+        that don't move the dictionary."""
+        fp = getattr(self, "_fingerprint", None)
+        if fp is None:
+            import hashlib
+
+            kinds = [""] * len(self.kind_index)
+            for k, i in self.kind_index.items():
+                kinds[i] = k
+            h = hashlib.blake2b(digest_size=16)
+            h.update("\n".join(self.paths).encode("utf-8"))
+            h.update(b"\x00")
+            h.update("\n".join(kinds).encode("utf-8"))
+            fp = h.hexdigest()
+            object.__setattr__(self, "_fingerprint", fp)
+        return fp
+
 
 def _compile_glob(pattern: str, literal: bool = False):
     """Glob pattern -> NFA row (char / is_star / is_q per state). Runs of

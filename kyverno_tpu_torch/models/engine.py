@@ -7,9 +7,14 @@ gives a ``FlatBatch`` whose ``packed_blob()`` is the one buffer copied to
 the card; ``evaluate_device`` returns the int8 verdict matrix
 [B, n_rules_live], in which host-lane cells read HOST (code 5), and
 ``scan_counts`` the per-rule counts of the background scan.
-``evaluate`` is the whole path: flatten, the device verdicts, then
+``evaluate`` is the whole path: flatten (the native flattener,
+``models/native_flatten.py``), the device verdicts, then
 ``resolve_host_cells``, which turns every HOST cell into the CPU oracle's
-verdict (``engine/validation.py``), so that no HOST cell is left.
+verdict (``engine/validation.py``) through the host lane
+(``runtime/hostlane.py``: a verdict memo and fan-out over threads), so
+that no HOST cell is left. ``evaluate_pipelined`` does the same chunk by
+chunk, flattening the next chunk on a thread and starting each chunk's
+host prefetch while the card scores it.
 
 The device is ``cuda`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request the constructor raises.
@@ -17,6 +22,7 @@ card and no explicit CPU request the constructor raises.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from enum import IntEnum
 
@@ -31,7 +37,7 @@ from ..engine.validation import validate as oracle_validate
 from ..ops import eval as ops_eval
 from ..ops.plan import Plan
 from .compiler import PolicyTensors, compile_tensors
-from .flatten import FlatBatch, flatten_batch
+from .flatten import FlatBatch
 from .ir import compile_rule_ir
 
 
@@ -127,7 +133,23 @@ class CompiledPolicySet:
 
     def flatten(self, resources: list[dict],
                 requests: list[dict] | None = None) -> FlatBatch:
-        return flatten_batch(resources, self.tensors, requests=requests)
+        from .native_flatten import flatten_batch_fast
+
+        return flatten_batch_fast(resources, self.tensors, requests=requests)
+
+    def flatten_packed(self, resources: list[dict] | None = None,
+                       requests: list[dict] | None = None,
+                       json_docs: bytes | None = None,
+                       n_docs: int | None = None,
+                       json_reqs: bytes | None = None):
+        """PackedBatch — the transfer-thin flatten for device dispatch.
+        Pass ``json_docs`` (JSON array bytes, e.g. an apiserver list
+        response's items) to skip Python-side serialization entirely."""
+        from .native_flatten import flatten_packed_fast
+
+        return flatten_packed_fast(
+            self.tensors, resources, requests=requests,
+            json_docs=json_docs, n_docs=n_docs, json_reqs=json_reqs)
 
     def to_device(self, batch) -> tuple[torch.Tensor, tuple[int, int, int, int]]:
         """The batch's packed blob on the device (int32, the uint32 words'
@@ -168,12 +190,102 @@ class CompiledPolicySet:
         verdicts = self.evaluate_device(batch)
         return self.resolve_host_cells(resources, verdicts)
 
+    def evaluate_pipelined(self, resources: list[dict],
+                           chunk: int = 1024) -> np.ndarray:
+        """Chunked :meth:`evaluate` with the scan pipeline: flatten chunk
+        k+1 on a prefetch thread while chunk k's device eval is in flight,
+        start chunk k's host-lane prefetch at its dispatch, and resolve
+        chunk k-1's host cells in the same shadow. Falls back to the
+        serial chunk loop when the KTPU_FLATTEN_PIPELINE kill-switch is
+        off. Verdicts are identical to ``evaluate`` — rows flatten and
+        score independently, so chunk boundaries and overlap order can't
+        change them. Only the calling thread launches kernels and copies
+        tensors: the flatten thread runs the flattener, the host lane's
+        threads the oracle."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from .flatten import pipeline_enabled
+
+        if not resources:
+            return self.evaluate(resources)
+        if not pipeline_enabled() or len(resources) <= chunk:
+            if len(resources) <= chunk:
+                return self.evaluate(resources)
+            return np.concatenate([
+                self.evaluate(resources[i:i + chunk])
+                for i in range(0, len(resources), chunk)])
+
+        from ..runtime import tracing
+        from ..runtime.hostlane import resolver
+
+        rec = tracing.recorder()
+        spans = [(i, min(i + chunk, len(resources)))
+                 for i in range(0, len(resources), chunk)]
+        traces: list = [None] * len(spans)
+        out: list[np.ndarray] = []
+
+        def drain(entry):
+            """Materialize one in-flight chunk: device join, host-lane
+            resolve, trace seal."""
+            (lo, hi), done, pf0, tr0, d00 = entry
+            verdicts = done.get()
+            rec.add_span(tr0, "device_dispatch", d00, time.perf_counter(),
+                         lane="async", rows=hi - lo)
+            h0 = time.perf_counter()
+            with tracing.active(tr0):
+                resolved = self.resolve_host_cells(
+                    resources[lo:hi], verdicts, prefetch=pf0)
+            out.append(resolved)
+            rec.add_span(tr0, "host_resolve", h0, time.perf_counter(),
+                         lane="prefetch" if pf0 is not None else "post_pass")
+            rec.finish(tr0)
+
+        with ThreadPoolExecutor(max_workers=1,
+                                thread_name_prefix="ktpu-prefetch") as pool:
+            def flatten_span(span, tr):
+                lo, hi = span
+                f0 = time.perf_counter()
+                batch = self.flatten_packed(resources[lo:hi])
+                rec.add_span(tr, "flatten", f0, time.perf_counter(),
+                             rows=hi - lo, lane="prefetch_thread")
+                return batch
+
+            traces[0] = rec.start("scan_chunk", lo=spans[0][0],
+                                  hi=spans[0][1])
+            pending = pool.submit(flatten_span, spans[0], traces[0])
+            # [(span, AsyncVerdicts, pf, trace, dispatch_t0)]
+            in_flight: list[tuple] = []
+            for k, span in enumerate(spans):
+                tr = traces[k]
+                batch = pending.result()
+                if k + 1 < len(spans):
+                    traces[k + 1] = rec.start(
+                        "scan_chunk", lo=spans[k + 1][0],
+                        hi=spans[k + 1][1])
+                    pending = pool.submit(flatten_span, spans[k + 1],
+                                          traces[k + 1])
+                d0 = time.perf_counter()
+                handle = self.evaluate_device_async(batch)
+                # host-lane prefetch rides the same shadow: the chunk's
+                # statically host-only cells start oracle-resolving now
+                # and join when the chunk's verdicts materialize below
+                with tracing.active(tr):
+                    pf = resolver().prefetch(
+                        self, resources[span[0]:span[1]])
+                in_flight.append((span, handle, pf, tr, d0))
+                if len(in_flight) > 1:
+                    drain(in_flight.pop(0))
+            for entry in in_flight:
+                drain(entry)
+        return np.concatenate(out)
+
     def resolve_host_cells(self, resources: list[dict],
                            verdicts: np.ndarray,
                            contexts: list | None = None,
                            rule_filter=None,
                            messages_out: dict | None = None,
-                           copy: bool = False) -> np.ndarray:
+                           copy: bool = False,
+                           prefetch=None) -> np.ndarray:
         """Replace Verdict.HOST cells with CPU-oracle verdicts.
 
         By default ``verdicts`` is resolved in place and also returned;
@@ -191,23 +303,30 @@ class CompiledPolicySet:
         receives the oracle's message per resolved cell, keyed
         ``(batch_row, rule_index)``.
 
-        One oracle pass per resource, in row order; an oracle exception
-        propagates and leaves no cell quietly HOST."""
+        ``prefetch`` (a runtime/hostlane.HostPrefetch started at device
+        dispatch time) joins here first: its verdicts scatter into cells
+        the device actually reported HOST, and whatever it didn't cover
+        resolves in the post-pass below. Resolution delegates to
+        runtime/hostlane (memo + fan-out); with the KTPU_HOST_* switches
+        off that is the serial per-resource loop, in row order, and an
+        oracle exception propagates. Under fan-out an exception leaves
+        that resource's cells HOST, as in the JAX package."""
         if copy:
             verdicts = verdicts.copy()
+        if prefetch is not None:
+            prefetch.apply(verdicts, messages_out)
         host_cells = np.argwhere(verdicts == Verdict.HOST)
-        by_resource: dict[int, list[int]] = {}
-        for b, r in host_cells:
-            if rule_filter is not None and int(r) not in rule_filter:
-                continue
-            by_resource.setdefault(int(b), []).append(int(r))
-        for b, rows in by_resource.items():
-            context = contexts[b] if contexts is not None else None
-            oracle = self._oracle_verdicts(resources[b], rows, context)
-            for r, (v, msg) in oracle.items():
-                verdicts[b, r] = v
-                if messages_out is not None:
-                    messages_out[(b, r)] = msg
+        if host_cells.size:
+            by_resource: dict[int, list[int]] = {}
+            for b, r in host_cells:
+                if rule_filter is not None and int(r) not in rule_filter:
+                    continue
+                by_resource.setdefault(int(b), []).append(int(r))
+            if by_resource:
+                from ..runtime.hostlane import resolver
+
+                resolver().resolve_rows(self, resources, by_resource,
+                                        verdicts, contexts, messages_out)
         return verdicts
 
     def _request_policy_context(self, resource: dict, payload: dict):

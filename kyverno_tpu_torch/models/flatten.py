@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..runtime import featureplane
 from ..utils.duration import DurationError, parse_duration
 from ..utils.gofmt import value_to_string_for_equality
 from ..utils.quantity import QuantityError, parse_quantity
@@ -147,6 +148,9 @@ class FlatBatch:
             blob = _assemble_blob(*self.packed_args())
             object.__setattr__(self, "_blob", blob)
         return blob
+
+    def to_flat(self) -> "FlatBatch":
+        return self
 
 
 def _next_pow2(n: int) -> int:
@@ -308,17 +312,20 @@ def unpack_batch(cells, bmeta, str_bytes, dictv, xp=np):
 
 @dataclass
 class PackedBatch:
-    """A flattened batch already in the packed transfer form
-    (cells [B,P,E,2] uint32, bmeta [B] uint32, str_bytes [V,STR_LEN]
-    uint8, dictv [V,5] uint32) — what ``convert.batch_from_numpy`` and
-    other packed producers hand to the engine."""
+    """Flattened batch in the packed transfer form (cells [B,P,E,2]
+    uint32, bmeta [B] uint32, str_bytes [V,STR_LEN] uint8, dictv [V,5]
+    uint32) — the native flattener's direct output (ktpu_flatten_packed)
+    and what ``convert.batch_from_numpy`` hands to the engine. Carries
+    exactly what the device kernels consume; the 22 unpacked lanes and
+    the decoded string list materialize lazily for oracle/debug
+    consumers."""
 
     n: int
     e: int
-    cells: np.ndarray
-    bmeta: np.ndarray
-    str_bytes: np.ndarray
-    dictv: np.ndarray
+    cells: np.ndarray         # [B, P, E, 2] uint32
+    bmeta: np.ndarray         # [B] uint32
+    str_bytes: np.ndarray     # [V, STR_LEN] uint8
+    dictv: np.ndarray         # [V, 5] uint32
 
     def packed_args(self) -> tuple:
         return (self.cells, self.bmeta, self.str_bytes, self.dictv)
@@ -329,6 +336,115 @@ class PackedBatch:
             blob = _assemble_blob(*self.packed_args())
             object.__setattr__(self, "_blob", blob)
         return blob
+
+    @property
+    def strings(self) -> list[str]:
+        out = getattr(self, "_strings", None)
+        if out is None:
+            lens = self.dictv[:, 4] & 0x7F
+            out = [
+                bytes(self.str_bytes[i, : lens[i]]).decode(
+                    "utf-8", "surrogateescape")
+                for i in range(int(self.dictv.shape[0]))
+            ]
+            object.__setattr__(self, "_strings", out)
+        return out
+
+    def to_flat(self) -> "FlatBatch":
+        """Unpack into the eager lane form (tests, host-side consumers)."""
+        flat = getattr(self, "_flat", None)
+        if flat is None:
+            lanes = unpack_batch(self.cells, self.bmeta, self.str_bytes,
+                                 self.dictv, xp=np)
+            kw = dict(zip(BATCH_ARRAYS + DICT_ARRAYS, lanes))
+            num_val = (kw["num_hi"].astype(np.int64) << 31) | kw["num_lo"]
+            flat = FlatBatch(n=self.n, e=self.e, num_val=num_val,
+                             strings=self.strings, **kw)
+            object.__setattr__(self, "_flat", flat)
+        return flat
+
+
+def pad_packed(cells: np.ndarray, bmeta: np.ndarray,
+               multiple: int) -> tuple[np.ndarray, np.ndarray, int]:
+    """Pad the packed batch axis to a multiple of ``multiple``. Zero fill
+    is the natural dead encoding: sid word 0 = no string, meta 0 = invalid
+    slot, bmeta 0 = unknown kind + not live."""
+    b = cells.shape[0]
+    padded = (b + multiple - 1) // multiple * multiple
+    if padded == b:
+        return cells, bmeta, b
+    pad = padded - b
+    cells = np.pad(cells, [(0, pad)] + [(0, 0)] * (cells.ndim - 1))
+    bmeta = np.pad(bmeta, (0, pad))
+    return cells, bmeta, b
+
+
+def pad_to_buckets_packed(batch: PackedBatch) -> tuple[PackedBatch, int]:
+    """Power-of-two bucket padding for the packed form (zero fill = dead
+    rows/slots/strings). Returns (padded, original_n)."""
+    B, P, E, _ = batch.cells.shape
+    V = int(batch.dictv.shape[0])
+    b2, e2, v2 = _next_pow2(B), _next_pow2(E), _next_pow2(max(1, V))
+    if (b2, e2, v2) == (B, E, V):
+        return batch, B
+    cells = np.pad(batch.cells, [(0, b2 - B), (0, 0), (0, e2 - E), (0, 0)])
+    bmeta = np.pad(batch.bmeta, (0, b2 - B))
+    dictv = np.pad(batch.dictv, [(0, v2 - V), (0, 0)])
+    str_bytes = np.pad(batch.str_bytes, [(0, v2 - V), (0, 0)])
+    return PackedBatch(n=b2, e=e2, cells=cells, bmeta=bmeta,
+                       str_bytes=str_bytes, dictv=dictv), B
+
+
+def pipeline_enabled() -> bool:
+    """KTPU_FLATTEN_PIPELINE=0 kill-switch: read dynamically at every use
+    site so an operator (or a test monkeypatching os.environ) can drop the
+    scan path back to the serial dataflow without a restart."""
+    return featureplane.enabled("KTPU_FLATTEN_PIPELINE")
+
+
+def merge_packed(chunks: list[PackedBatch]) -> PackedBatch:
+    """Concatenate independently-flattened PackedBatches (the chunked
+    multi-worker native flatten) into one batch: slot axes pad up to the
+    widest chunk and the per-chunk string tables re-intern into a shared
+    one keyed by (bytes, length), OR-merging the dictionary rows."""
+    if len(chunks) == 1:
+        return chunks[0]
+    B = sum(int(c.n) for c in chunks)
+    P = int(chunks[0].cells.shape[1])
+    E = max(1, max(int(c.e) for c in chunks))
+    cells = np.zeros((B, P, E, 2), dtype=np.uint32)
+    bmeta = np.zeros(B, dtype=np.uint32)
+    index: dict[tuple[bytes, int], int] = {}
+    sb_rows: list[np.ndarray] = []
+    dv_rows: list[np.ndarray] = []
+    at = 0
+    for c in chunks:
+        c_sb, c_dv = np.asarray(c.str_bytes), np.asarray(c.dictv)
+        v = int(c_dv.shape[0])
+        lut = np.zeros(v + 1, dtype=np.uint32)
+        for i in range(v):
+            key = (c_sb[i].tobytes(), int(c_dv[i, 4] & 0x7F))
+            j = index.get(key)
+            if j is None:
+                j = len(sb_rows)
+                index[key] = j
+                sb_rows.append(c_sb[i])
+                dv_rows.append(c_dv[i].copy())
+            else:
+                dv_rows[j] |= c_dv[i]
+            lut[i + 1] = j + 1
+        cc = np.asarray(c.cells)
+        n, e = int(c.n), int(cc.shape[2])
+        cells[at:at + n, :, :e, 0] = lut[cc[:n, :, :, 0]]
+        cells[at:at + n, :, :e, 1] = cc[:n, :, :, 1]
+        bmeta[at:at + n] = np.asarray(c.bmeta)[:n]
+        at += n
+    str_bytes = np.stack(sb_rows).astype(np.uint8) if sb_rows else \
+        np.zeros((1, STR_LEN), dtype=np.uint8)
+    dictv = np.stack(dv_rows).astype(np.uint32) if dv_rows else \
+        np.zeros((1, 5), dtype=np.uint32)
+    return PackedBatch(n=B, e=E, cells=cells, bmeta=bmeta,
+                       str_bytes=str_bytes, dictv=dictv)
 
 
 class _Interner:

@@ -13,6 +13,7 @@ from kyverno_tpu_torch.models import CompiledPolicySet, Verdict
 from kyverno_tpu_torch.models.engine import resolve_device
 from kyverno_tpu_torch.ops import _build
 from tests.torch_parity import (
+    one_torch_thread,  # noqa: F401  (autouse)
     both_sets,
     corpus_docs,
     corpus_resources,

@@ -25,6 +25,7 @@ from kyverno_tpu_torch.ops import eval as ev
 from kyverno_tpu_torch.ops import plan as plan_mod
 from kyverno_tpu_torch.api.load import load_policy as torch_load_policy
 from tests.torch_parity import (
+    one_torch_thread,  # noqa: F401  (autouse)
     both_sets,
     corpus_docs,
     corpus_resources,

@@ -8,8 +8,8 @@ of a kind no policy names: equal matrices, no HOST cell left, and each
 corpus had HOST cells to resolve.
 (d) ``resolve_host_cells`` with admission payloads, ``messages_out``,
 ``rule_filter`` and ``copy=True``. Also: the caller's arrays are left
-alone where they must be, an oracle error propagates, and a CPU run
-launches no kernel.
+alone where they must be, an oracle error propagates from the serial
+loop, and a CPU run launches no kernel.
 """
 
 import numpy as np
@@ -19,6 +19,7 @@ from kyverno_tpu_torch.models import Verdict
 from kyverno_tpu_torch.models import engine as torch_engine
 from kyverno_tpu_torch.ops import _build
 from tests.torch_parity import (
+    one_torch_thread,  # noqa: F401  (autouse)
     FUZZ_SEEDS,
     REQUEST_POLICIES,
     UNKNOWN_KIND,
@@ -161,11 +162,16 @@ def test_evaluate_leaves_held_arrays_alone(request_case):
 
 
 def test_oracle_error_propagates(request_case, monkeypatch):
+    """With the host lane's switches off, resolution is the serial loop,
+    and an oracle error leaves it (under fan-out the JAX package leaves
+    the cells HOST instead: tests/test_torch_hostlane.py)."""
     _, tset, resources, _, device = request_case
 
     def broken(_ctx):
         raise RuntimeError("oracle down")
 
+    for switch in ("KTPU_HOST_PREFETCH", "KTPU_HOST_MEMO", "KTPU_HOST_FANOUT"):
+        monkeypatch.setenv(switch, "0")
     monkeypatch.setattr(torch_engine, "oracle_validate", broken)
     with pytest.raises(RuntimeError, match="oracle down"):
         tset.resolve_host_cells(resources, device.copy())

@@ -15,6 +15,7 @@ from kyverno_tpu.ops.eval import _split_blob
 from kyverno_tpu_torch.convert import batch_from_numpy
 from kyverno_tpu_torch.models.flatten import pad_to_buckets, unpack_batch
 from kyverno_tpu_torch.ops.eval import blob_parts, unpack_lanes_plain
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from tests.torch_parity import both_sets, corpus_docs, corpus_resources
 
 CASES = [("library250", 300), ("crosscheck", 120), ("fuzz3", 80),

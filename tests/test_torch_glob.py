@@ -18,6 +18,7 @@ from kyverno_tpu.ops.glob import glob_match_matrix as jax_glob
 from kyverno_tpu_torch.ops import glob as tglob
 from kyverno_tpu_torch.utils.wildcard import wildcard_match
 from tests.ops.test_glob_nfa import PATTERNS, STRINGS
+from tests.torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _compile_wide(pattern: str, states: int = 63):

@@ -1,10 +1,13 @@
 """The port stands alone: importing every module of kyverno_tpu_torch
-loads neither jax nor any module of the JAX package (kyverno_tpu), and the
-package's sources name neither in an import."""
+loads neither jax nor any module of the JAX package (kyverno_tpu), the
+package's sources name neither in an import, and no source of the port
+(Python, CUDA or C++) names a path under the JAX package's ``native/``
+or ``kyverno_tpu/`` directories."""
 
 import json
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -47,3 +50,38 @@ def test_sources_import_nothing_of_the_jax_package():
                     assert "jax" not in words and not any(
                         w == "kyverno_tpu" or w.startswith("kyverno_tpu.")
                         for w in words), (f, s)
+
+
+# a path under native/ or kyverno_tpu/ (kyverno_tpu_torch/ is not one),
+# written with a slash or as a quoted path part ("native" / "x.cpp")
+_JAX_PATH = re.compile(
+    r"(?<![A-Za-z0-9_.-])(?:native|kyverno_tpu)/"
+    r"|[\"'](?:native|kyverno_tpu)[\"']")
+_SOURCE_SUFFIXES = (".py", ".cu", ".cuh", ".cpp", ".h")
+
+
+def _jax_paths(text: str) -> list[str]:
+    return [m.group(0) for m in _JAX_PATH.finditer(text)]
+
+
+def test_sources_name_no_path_of_the_jax_package():
+    # the scan sees what it must: each of these names such a path
+    for bad in ('// built from native/ktpu_flatten.cpp',
+                'ROOT / "native" / "ktpu_flatten.cpp"',
+                "see kyverno_tpu/ops/eval.py:205",
+                "Path('kyverno_tpu') / 'models'"):
+        assert _jax_paths(bad), bad
+    for fine in ("kyverno_tpu_torch/csrc/ktpu_flatten.cpp",
+                 "the JAX package's ops/eval.py", "alternative/path"):
+        assert not _jax_paths(fine), fine
+    pkg = os.path.dirname(kyverno_tpu_torch.__file__)
+    seen = set()
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(_SOURCE_SUFFIXES):
+                continue
+            seen.add(os.path.splitext(f)[1])
+            text = open(os.path.join(dirpath, f), encoding="utf-8").read()
+            for n, line in enumerate(text.splitlines(), 1):
+                assert not _jax_paths(line), (f, n, line)
+    assert {".py", ".cu", ".cuh", ".cpp"} <= seen

@@ -26,6 +26,8 @@ import re
 from dataclasses import fields
 
 import numpy as np
+import pytest
+import torch
 
 import bench
 import chip_smoke
@@ -63,6 +65,20 @@ DENY_ONLY = [
              {"key": "{{ request.object.spec.replicas }}",
               "operator": "GreaterThan", "value": 3}]}}}}]}},
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for the plain versions on the CPU while a
+    module runs. The suite runs in several processes at once, and
+    PyTorch's default of a thread a core then oversubscribes the cores:
+    a plain kernel's many small operations take tens of times longer.
+    The results are integers either way. Import it into a test module to
+    apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def policy_files() -> list[str]:
