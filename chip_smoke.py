@@ -57,10 +57,27 @@ Phases:
                the oracle seconds its prefetch hid in the device's
                shadow (overlap_s, from the chunks' traces); then again
                with KTPU_NATIVE=0 and the KTPU_HOST_* switches off
-  7. scan      every chunk of the 1M scan equal to the plain pipeline's
+  7. admission the admission path at full width, shaped like bench.py's
+               burst_library_250: the library in enforce mode in a
+               PolicyCache on the card (incremental compile, rule
+               buckets), an AdmissionBatcher with the JAX package's
+               defaults and an OraclePool on the host lane (dormant below
+               4 cores); 16 threads x 16 distinct pods with their
+               request payloads, warmed as bench.py warms, then timed
+               with the launch counters set to 0: every device answer
+               equal to the port's oracle on its pod, K1 and eval_rules
+               launched once a device flush, K6 dispatches on reused
+               device blobs, pool cells; again with KTPU_DONATE=0; a
+               lone request routed ORACLE; evaluate_device_async split
+               by phase with K6 and without; a one-policy update's
+               refresh (one segment recompiled) and the first warm flush
+               after it; the library's 250 x 10k resolved matrix through
+               the cache, incremental and with KTPU_INCREMENTAL=0, equal
+               to the pinned sha256
+  8. scan      every chunk of the 1M scan equal to the plain pipeline's
                counts on the card, and its first chunk to the verdict
                matrix's
-  8. times     median of CUDA-event times over warm launches for every
+  9. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
@@ -75,6 +92,7 @@ the exit code is not 0; with no CUDA device it exits 2 before any phase.
 """
 
 import argparse
+import gc
 import hashlib
 import json
 import os
@@ -972,6 +990,572 @@ def pipelined_phase(cps, n: int, chunk: int = 1024) -> dict:
     return out["on"][1]
 
 
+# ------------------------------------------------------------- admission
+# bench.py's burst_library_250: 16 threads x 16 distinct admissions
+ADMISSION_THREADS, ADMISSION_PER_THREAD = 16, 16
+
+
+def admission_request(i: int, salt: str) -> tuple[dict, dict]:
+    """One distinct admission, as bench.py's _admission_body makes it
+    (make_pod(i) under a salted name and uid: images, labels and
+    resources vary with i), and the context payload the webhook's ctx_cb
+    gives the flush for it."""
+    pod = make_pod(i)
+    pod["metadata"]["name"] = f"pod-{salt}{i}"
+    request = {"uid": f"uid-{salt}{i}", "kind": {"kind": "Pod"},
+               "namespace": "default", "operation": "CREATE", "object": pod}
+    return pod, {"request": request, "namespace_labels": {}, "roles": [],
+                 "cluster_roles": [], "exclude_group_role": []}
+
+
+def percentiles(lats: list) -> tuple[float, float]:
+    """(p50, p99), nearest rank, as bench.py reports them."""
+    lats = sorted(lats)
+    p99 = lats[min(len(lats) - 1, -(-99 * len(lats) // 100) - 1)]
+    return statistics.median(lats), p99
+
+
+def library_matrix(cache, library_docs: list, resources: list) -> np.ndarray:
+    """The library's resolved matrix [B, 250] from a policy cache: each
+    kind's enforce population (Pod, Deployment, Service) through
+    ``evaluate()``, its columns placed at the library's rule order (a
+    policy's verdicts do not depend on the other policies, and each
+    library policy has one rule and one kind)."""
+    from kyverno_tpu_torch.runtime.policycache import PolicyType
+
+    col = {d["metadata"]["name"]: j for j, d in enumerate(library_docs)}
+    out = np.zeros((len(resources), len(library_docs)), dtype=np.int8)
+    filled = set()
+    for kind in ("Pod", "Deployment", "Service"):
+        c = cache.compiled(PolicyType.VALIDATE_ENFORCE, kind, "default")
+        m = c.evaluate(resources)
+        for ref in c.rule_refs:
+            out[:, col[ref.policy.name]] = m[:, ref.rule_index]
+            filled.add(ref.policy.name)
+    check(filled == set(col), f"{len(col) - len(filled)} library policies "
+          "in no population")
+    return out
+
+
+def span_summary(traces) -> str:
+    """Spans of the given flush traces by name (and lane, for a row's
+    host resolution): count, mean and largest milliseconds; then the
+    flushes' own p50 and largest."""
+    by = {}
+    for tr in traces:
+        for sp in tr.spans:
+            key = sp.name if sp.name != "host_resolve_row" else \
+                f"host_resolve_row[{sp.labels.get('lane')}]"
+            by.setdefault(key, []).append(sp.duration_s * 1e3)
+    durs = [tr.duration_s * 1e3 for tr in traces]
+    return ("; ".join(f"{k} {len(v)} x {statistics.mean(v):.3f} (max "
+                      f"{max(v):.3f})" for k, v in sorted(by.items()))
+            + (f"; flush p50 {statistics.median(durs):.3f}, max "
+               f"{max(durs):.3f}" if durs else ""))
+
+
+def k6_split(cps, batch, n: int = 50) -> dict:
+    """``evaluate_device_async(batch).get()`` split by phase, K6 (donate)
+    and the plain route, medians of ``n`` calls each. ``wall`` is the
+    call with its ``get()`` on the host clock, untimed inside. Then the
+    same calls with ``engine.PHASE_TIMING`` on time their own steps:
+    ``staging`` (the host copy into pinned memory), ``h2d``,
+    ``launches`` (K1 -> eval_rules; the card waits for their host
+    wrappers) and ``d2h`` between CUDA events on the card, ``read`` (the
+    verdicts out of pinned memory, or the slice of the copied matrix)
+    and ``dispatch`` (until the call returned its handle) on the host.
+    ``timed`` is the host time of such a call with its ``get()`` (the
+    events and clocks make it slower than ``wall``), and ``wrapper``
+    that time less the five steps: packing the blob, the slot, the
+    handle, the locks and the events."""
+    from kyverno_tpu_torch.models import engine
+
+    blob, shp = batch.packed_blob()
+    host = np.ascontiguousarray(blob).view(np.int32)
+    split = {}
+    for key, donate in (("on", True), ("off", False)):
+        for _ in range(3):
+            cps.evaluate_device_async(batch, donate=donate).get()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            cps.evaluate_device_async(batch, donate=donate).get()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        engine.PHASE_TIMING = True
+        runs = []
+        try:
+            for k in range(n + 3):
+                t0 = time.perf_counter()
+                h = cps.evaluate_device_async(batch, donate=donate)
+                h.get()
+                t1 = time.perf_counter()
+                if k >= 3:
+                    runs.append({**h.phases(), "timed": (t1 - t0) * 1e3})
+        finally:
+            engine.PHASE_TIMING = False
+        for r in runs:
+            r["wrapper"] = r["timed"] - sum(r[k] for k in (
+                "staging", "h2d", "launches", "d2h", "read"))
+        d = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+        d["wall"] = statistics.median(ts)
+        split[key] = d
+    # the least time K1 -> eval_rules could take on the card: the blob,
+    # the plan and the NFA rows read once, the verdicts written once
+    plan = cps.plan
+    bound = (host.nbytes + plan.buf.numel() * 4 + shp[0] * plan.R
+             + sum(t.numel() * t.element_size() for t in (
+                 plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q,
+                 plan.nfa_len))) / HBM_BYTES_PER_S * 1e3
+    return {**split, "shape": shp, "blob_bytes": host.nbytes,
+            "bound_ms": bound}
+
+
+def split_line(split: dict) -> str:
+    return "; ".join(
+        f"{'K6 (donate)' if k == 'on' else 'plain route'}: wall "
+        f"{d['wall']:.4f}; timed inside, {d['timed']:.4f} = wrapper "
+        f"{d['wrapper']:.4f} + host staging {d['staging']:.4f} + H2D "
+        f"{d['h2d']:.4f} + launches {d['launches']:.4f} + D2H "
+        f"{d['d2h']:.4f} + read {d['read']:.4f} (returned after "
+        f"{d['dispatch']:.4f})"
+        for k, d in (("on", split["on"]), ("off", split["off"])))
+
+
+def admission_phase(library_docs: list) -> dict:
+    """Phase 7: the admission path at full width, shaped like bench.py's
+    burst_library_250. The 250-policy library in enforce mode goes into a
+    PolicyCache on the card (incremental compile, rule buckets), an
+    AdmissionBatcher with the JAX package's defaults screens 16 threads x
+    16 distinct pods, each wrapped in ``admission_in_flight`` and passing
+    its request payload as ``ctx_cb`` (as the webhook does), with an
+    OraclePool attached to the host lane (ensured before each burst).
+    Warm-up as bench.py's: one sequential pass, one concurrent round per
+    warm pool, then the timed burst, with the launch counters set to 0
+    just before it. Every device answer is held to the port's oracle on
+    that pod; the burst again with KTPU_DONATE=0; a lone request must
+    route ORACLE. Then K6's phase split, a one-policy update's refresh,
+    and the library's 250 x 10k resolved matrix through the cache,
+    incremental and with KTPU_INCREMENTAL=0, against the pinned sha256.
+    Returns the timed burst's launches."""
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.models import Verdict, engine
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane, tracing
+    from kyverno_tpu_torch.runtime.batch import (ATTENTION, CLEAN, ORACLE,
+                                                 AdmissionBatcher)
+    from kyverno_tpu_torch.runtime.oracle_pool import MIN_CORES, OraclePool
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
+
+    enf = PolicyType.VALIDATE_ENFORCE
+    check(os.environ.get("KTPU_INCREMENTAL", "1") not in ("0", "false", ""),
+          "KTPU_INCREMENTAL is off")
+    enforce = [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
+               for d in library_docs]
+    cache = PolicyCache()
+    for d in enforce:
+        cache.add(load_policy(d))
+    t0 = time.perf_counter()
+    cps = cache.compiled(enf, "Pod", "default")
+    compile_s = time.perf_counter() - t0
+    t = cps.tensors
+    check(t.dict_base is not None and t.n_rules > t.n_rules_live,
+          f"the Pod population is not a bucketed incremental set: "
+          f"n_rules {t.n_rules}, live {t.n_rules_live}")
+    log(f"[admission] library 250 in enforce mode, Pod population: "
+        f"{len(cps.policies)} policies, n_rules {t.n_rules} (the rule "
+        f"bucket) of which n_rules_live {t.n_rules_live}, "
+        f"{int(t.rule_host_only[:t.n_rules_live].sum())} host-only; "
+        f"incremental compile {compile_s:.3f} s (plan {cps.plan_s:.3f} s) "
+        f"on {cps.device}")
+
+    batcher = AdmissionBatcher(cache)
+    pool = OraclePool()
+    resolver = hostlane.resolver()
+    resolver.attach_pool(pool, cache)
+    rec = tracing.recorder()
+    cores = os.cpu_count()
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        pool.ensure(*cache.snapshot())
+        if pool.enabled:
+            while not pool.ready(cache.generation) \
+                    and time.perf_counter() - t0 < 120:
+                time.sleep(0.05)
+            check(pool.ready(cache.generation), "the oracle pool did not "
+                  "come up in 120 s")
+            log(f"[admission] os.cpu_count() {cores}: oracle pool of "
+                f"{pool.workers} spawned workers ready in "
+                f"{time.perf_counter() - t0:.3f} s")
+        else:
+            log(f"[admission] os.cpu_count() {cores} < MIN_CORES "
+                f"{MIN_CORES}: the oracle pool stays dormant (not a failure)")
+        a0 = dict(engine.K6_ALLOC)
+        rec.clear()
+        t0 = time.perf_counter()
+        batcher.warmup(enf, "Pod", "default", make_pod(1))
+        cold = [sp.duration_s for tr in rec.traces(256) for sp in tr.spans
+                if sp.name == "cold_dispatch"]
+        log(f"[admission] warmup (the controller's, batch sizes 1 and 16, "
+            f"one shape bucket) {time.perf_counter() - t0:.3f} s; its cold "
+            f"flushes' first dispatch {[round(c * 1e3, 3) for c in cold]} ms")
+
+        def one(pod, payload, answers):
+            """One admission as the webhook handles it: in flight for the
+            router, screened with its payload, and through the inline
+            oracle over every enforce rule when the screen routes it
+            there (ORACLE, or ATTENTION with no cells). Appends (pod,
+            payload, status, row, screen ms, request ms)."""
+            with batcher.admission_in_flight():
+                t1 = time.perf_counter()
+                status, row = batcher.screen(enf, "Pod", "default", pod,
+                                             ctx_cb=lambda: payload)
+                t2 = time.perf_counter()
+                if status == ORACLE or (status == ATTENTION and not row):
+                    cur = cache.compiled(enf, "Pod", "default")
+                    cur._oracle_verdicts(
+                        pod, list(range(cur.tensors.n_rules_live)),
+                        context=payload)
+                t3 = time.perf_counter()
+            answers.append((pod, payload, status, row, (t2 - t1) * 1e3,
+                            (t3 - t1) * 1e3))
+
+        def concurrent_round(reqs, answers):
+            per = -(-len(reqs) // ADMISSION_THREADS)
+            start = threading.Barrier(ADMISSION_THREADS)
+
+            def client(s):
+                start.wait()
+                for p, c in s:
+                    one(p, c, answers)
+
+            ws = [threading.Thread(target=client,
+                                   args=(reqs[w * per:(w + 1) * per],))
+                  for w in range(ADMISSION_THREADS)]
+            t1 = time.perf_counter()
+            for w in ws:
+                w.start()
+            for w in ws:
+                w.join()
+            return time.perf_counter() - t1
+
+        n_req = ADMISSION_THREADS * ADMISSION_PER_THREAD
+
+        def quiesce():
+            """Wait for every submitted flush to end (a cold flush runs on
+            after it released its waiters)."""
+            end = time.perf_counter() + 60
+            while time.perf_counter() < end:
+                with batcher._lock:
+                    if batcher._pending_flushes == 0:
+                        return
+                time.sleep(0.005)
+            raise AssertionError("[admission] flushes still running after 60 s")
+
+        def burst(salt):
+            pool.ensure(*cache.snapshot())
+            for p, c in [admission_request(i, f"{salt}s") for i in range(32)]:
+                one(p, c, [])
+            pre = dict(batcher.stats)
+            for r in range(2):
+                concurrent_round([admission_request(i, f"{salt}w{r}")
+                                  for i in range(n_req)], [])
+            if (batcher.stats.get("circuit_open", 0) > pre.get("circuit_open", 0)
+                    or batcher.stats.get("screen_timeout", 0)
+                    > pre.get("screen_timeout", 0)):
+                time.sleep(batcher.circuit_cooldown_s + 0.2)
+            reqs = [admission_request(i, salt) for i in range(n_req)]
+            answers = []
+            quiesce()
+            rec.clear()
+            s0, d0 = dict(batcher.stats), dict(engine.DONATION_STATS)
+            k0 = dict(engine.K6_ALLOC)
+            pc0 = resolver.stats["pool_cells"]
+            hits0 = pool.hits
+            # the garbage collector's pauses inside the burst, by generation
+            pauses, started = [], {}
+
+            def on_gc(phase, info):
+                if phase == "start":
+                    started["t"] = time.perf_counter()
+                elif "t" in started:
+                    pauses.append((info["generation"], (
+                        time.perf_counter() - started.pop("t")) * 1e3))
+
+            _build.reset_launches()
+            gc.callbacks.append(on_gc)
+            try:
+                burst_s = concurrent_round(reqs, answers)
+            finally:
+                gc.callbacks.remove(on_gc)
+            quiesce()
+            launches = dict(_build.LAUNCHES)
+            flushes = [tr for tr in rec.traces(256) if tr.kind == "flush"
+                       and {"device_dispatch", "cold_dispatch"}
+                       & tr.stage_names()]
+            stats = {k: v - s0.get(k, 0) for k, v in batcher.stats.items()
+                     if isinstance(v, (int, float))}
+            donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+            # the device-answered requests (a device row: CLEAN, or
+            # ATTENTION with its cells) apart from those the screen gave
+            # up on (ATTENTION with no cells: a timeout, a cold release
+            # or a failed flush) and those routed ORACLE
+            by = {"device": [], "gave_up": [], "oracle": []}
+            for _, _, status, row, a, b in answers:
+                by["oracle" if status == ORACLE else "device" if row
+                   else "gave_up"].append((a, b))
+            dev = by["device"] or [(0.0, 0.0)]
+            p50, p99 = percentiles([a for a, _ in dev])
+            r50, r99 = percentiles([b for _, b in dev])
+            gave_up = percentiles([a for a, _ in by["gave_up"]]) \
+                if by["gave_up"] else (0.0, 0.0)
+            every = percentiles([a for *_, a, _ in answers])
+            live = [int(tr.labels.get("batch", 0)) for tr in flushes
+                    if tr.labels.get("probe") != "probe"]
+            return {"answers": answers, "burst_s": burst_s,
+                    "launches": launches, "flushes": len(flushes),
+                    "spans": span_summary(flushes),
+                    "gc": {g: (len([p for q, p in pauses if q == g]),
+                               sum(p for q, p in pauses if q == g),
+                               max([p for q, p in pauses if q == g],
+                                   default=0.0))
+                           for g in sorted({q for q, _ in pauses})},
+                    "mean_batch": statistics.mean(live) if live else 0.0,
+                    "stats": stats, "donated": donated, "p50": p50,
+                    "p99": p99, "request_p50": r50, "request_p99": r99,
+                    "n": {k: len(v) for k, v in by.items()},
+                    "every_p50": every[0], "every_p99": every[1],
+                    "k6_alloc": (engine.K6_ALLOC["slots"] - k0["slots"],
+                                 (engine.K6_ALLOC["seconds"]
+                                  - k0["seconds"]) * 1e3),
+                    "gave_up_p50": gave_up[0], "gave_up_max": max(
+                        [a for a, _ in by["gave_up"]], default=0.0),
+                    "pool_cells": resolver.stats["pool_cells"] - pc0,
+                    "pool_hits": pool.hits - hits0,
+                    "rps": n_req / burst_s,
+                    "device_rps": len(by["device"]) / burst_s}
+
+        def hold_to_oracle(label, res):
+            """Every device answer against the port's oracle on its pod."""
+            cur = cache.compiled(enf, "Pod", "default")
+            rules = list(range(cur.tensors.n_rules_live))
+            idx = {(r.policy.name, r.rule.name): r.rule_index
+                   for r in cur.rule_refs}
+            kinds = {}
+            t1 = time.perf_counter()
+            for pod, payload, status, row, _, _ in res["answers"]:
+                kinds[status] = kinds.get(status, 0) + 1
+                if status == ORACLE or (status == ATTENTION and not row):
+                    continue
+                want = cur._oracle_verdicts(pod, rules, context=payload)
+                cells = {idx[(p, r)]: (v, m) for p, r, v, m in row}
+                for ri, (v, msg) in want.items():
+                    got = cells.get(ri)
+                    if got is None:
+                        check(v == Verdict.NOT_APPLICABLE,
+                              f"[admission] {label}: {pod['metadata']['name']} "
+                              f"rule {ri} left out, the oracle says {v!r}")
+                        continue
+                    check(got[0] == v, f"[admission] {label}: "
+                          f"{pod['metadata']['name']} rule {ri}: screen "
+                          f"{got[0]!r}, oracle {v!r}")
+                    check(not got[1] or got[1] == msg, f"[admission] {label}: "
+                          f"{pod['metadata']['name']} rule {ri}: message "
+                          f"{got[1]!r}, oracle {msg!r}")
+                if status == CLEAN:
+                    check(all(v not in (Verdict.FAIL, Verdict.ERROR)
+                              for v, _ in want.values()),
+                          f"[admission] {label}: CLEAN for "
+                          f"{pod['metadata']['name']}, the oracle fails it")
+            return kinds, time.perf_counter() - t1
+
+        runs = {}
+        # in turns: K6, the plain route, the plain route, K6
+        for n_run, (label, env) in enumerate((
+                ("donate on", {}), ("KTPU_DONATE=0", {"KTPU_DONATE": "0"}),
+                ("KTPU_DONATE=0", {"KTPU_DONATE": "0"}), ("donate on", {}))):
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                res = burst(f"r{n_run}")
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            kinds, check_s = hold_to_oracle(label, res)
+            st = res["stats"]
+            check(st.get("device", 0) > 0 and res["n"]["device"] > 0,
+                  f"[admission] {label}: no request answered by the device "
+                  f"lane: {st}, answers {res['n']}")
+            # every answer without a device row is accounted for: a flush
+            # never fails, and each ATTENTION with no cells is a screen
+            # timeout or a flush's release of its waiter (a cold bucket)
+            check(batcher.stats.get("flush_error", 0) == 0,
+                  f"[admission] {label}: {batcher.stats.get('flush_error')} "
+                  "flushes failed")
+            check(res["n"]["gave_up"] == st.get("screen_timeout", 0)
+                  + st.get("flush_fallback", 0),
+                  f"[admission] {label}: {res['n']['gave_up']} answers "
+                  f"without cells, {st.get('screen_timeout', 0)} screen "
+                  f"timeouts, {st.get('flush_fallback', 0)} released by "
+                  "a flush")
+            for k in EVALUATE_KERNELS:
+                check(res["launches"][k] == res["flushes"],
+                      f"[admission] {label}: {k} launched "
+                      f"{res['launches'][k]} times for {res['flushes']} "
+                      f"device flushes")
+            if env:
+                check(res["donated"] == {"dispatches": 0,
+                                         "donated_buffers": 0},
+                      f"[admission] KTPU_DONATE=0 dispatched through K6: "
+                      f"{res['donated']}")
+            else:
+                check(res["donated"]["dispatches"] > 0
+                      and res["donated"]["donated_buffers"] > 0,
+                      f"[admission] K6 dispatches {res['donated']}")
+            if pool.enabled:
+                check(res["pool_cells"] > 0, f"[admission] {label}: the "
+                      "pool resolved no cell")
+            log(f"[admission] burst {label}, {ADMISSION_THREADS} threads x "
+                f"{ADMISSION_PER_THREAD} distinct pods: {res['n']['device']} "
+                f"answered by the device: screen p50 {res['p50']:.3f} ms, "
+                f"p99 {res['p99']:.3f} ms, {res['device_rps']:.1f} a second; "
+                f"{res['n']['gave_up']} given up on (screen timeout or a "
+                f"flush's release) after p50 {res['gave_up_p50']:.3f} ms, max "
+                f"{res['gave_up_max']:.3f} ms, then the inline oracle; "
+                f"{res['n']['oracle']} routed ORACLE; every answer's screen "
+                f"p50 {res['every_p50']:.3f} ms, p99 {res['every_p99']:.3f} "
+                f"ms; the request (the "
+                f"inline oracle after a screen without cells included) of the "
+                f"device-answered p50 {res['request_p50']:.3f} ms, p99 "
+                f"{res['request_p99']:.3f} ms; all {res['rps']:.1f} "
+                f"requests/s ({res['burst_s']:.3f} s); "
+                f"{res['flushes']} device flushes, mean batch "
+                f"{res['mean_batch']:.2f}; launches {res['launches']}; "
+                f"answers {kinds}, every device answer equal to the oracle "
+                f"({check_s:.3f} s to check); routing " + ", ".join(
+                    f"{k} {st.get(k, 0)}" for k in (
+                        "oracle", "device", "clean", "attention", "cache",
+                        "screen_timeout", "flush_fallback", "cold_release",
+                        "flush_error", "circuit_open"))
+                + f"; row memo hits {st.get('flatten_cache_hit_rows', 0)}, "
+                f"misses {st.get('flatten_cache_miss_rows', 0)}; host cells "
+                f"resolved {st.get('host_cells_resolved', 0)}, prefetched "
+                f"{st.get('host_prefetch_cells', 0)}; pool_cells "
+                f"{res['pool_cells']} ({res['pool_hits']} pool calls); K6 "
+                f"{res['donated']}, slots allocated in the burst "
+                f"{res['k6_alloc'][0]} ({res['k6_alloc'][1]:.3f} ms); "
+                f"{nvidia_smi_line()}")
+            log(f"[admission] burst {label}: flush spans, ms (count x mean): "
+                f"{res['spans']}; garbage-collector pauses in the burst by "
+                f"generation (count, total ms, largest ms): {res['gc']}")
+            runs.setdefault(label, []).append(res)
+        out["burst"] = runs["donate on"][0]
+        log(f"[admission] K6 slots allocated {engine.K6_ALLOC['slots'] - a0['slots']} "
+            f"in {engine.K6_ALLOC['seconds'] - a0['seconds']:.4f} s "
+            f"(the cold cost of a shape bucket's K6 buffers)")
+
+        # a lone request: below the burst threshold, straight to the oracle
+        time.sleep(2 * batcher.rate_window_s)
+        o0 = batcher.stats["oracle"]
+        pod, _ = admission_request(0, "lone")
+        status, row = batcher.screen(enf, "Pod", "default", pod)
+        check(status == ORACLE and row == [] and batcher.stats["oracle"] == o0 + 1,
+              f"[admission] a lone request routed {status}")
+        log(f"[admission] a lone request routes {status}")
+
+        # K6 split at the burst's flush shape, and at 10k (the shape of
+        # the main path's evaluate_device)
+        reqs = [admission_request(i, "split")[0] for i in range(16)]
+        batch, _ = AdmissionBatcher._pad_admission(cps.flatten_packed(reqs))
+        big = cps.flatten_packed([mixed_resource(i) for i in range(10_000)])
+        out["split"] = {}
+        for label, b in (("flush", batch), ("10k", big)):
+            split = k6_split(cps, b)
+            log(f"[admission] evaluate_device_async(batch).get() at the "
+                f"{label} shape {split['shape']} ({split['blob_bytes']} blob "
+                f"bytes), ms, medians: {split_line(split)}; bound of K1 -> "
+                f"eval_rules on the card {split['bound_ms']:.5f} ms by "
+                f"bytes; {nvidia_smi_line()}")
+            out["split"][label] = split
+
+        # a one-policy update: the refresh, then the first warm flush
+        name = next(d["metadata"]["name"] for d in enforce
+                    if d["spec"]["rules"][0]["match"]["resources"]["kinds"]
+                    == ["Pod"])
+        doc = next(d for d in enforce if d["metadata"]["name"] == name)
+        t0 = time.perf_counter()
+        cache.update(load_policy(doc))
+        cps2 = cache.compiled(enf, "Pod", "default")
+        refresh_s = time.perf_counter() - t0
+        cs = cache.compile_stats
+        check(cs["mode"] == "incremental" and cs["segments_recompiled"] == 1,
+              f"[admission] a one-policy update compiled {cs}")
+        deadline = time.perf_counter() + 60
+        while batcher._rewarm_pending and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        pool.ensure(*cache.snapshot())
+        while (pool.enabled and not pool.ready(cache.generation)
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        respawn_s = time.perf_counter() - t0
+        first = None
+        for r in range(3):
+            rec.clear()
+            concurrent_round([admission_request(i, f"upd{r}")
+                              for i in range(4 * ADMISSION_THREADS)], [])
+            warm = sorted((tr.t_start, tr.seq, tr) for tr in rec.traces(256)
+                          if tr.kind == "flush"
+                          and "device_dispatch" in tr.stage_names())
+            if warm:
+                first = warm[0][2]
+                break
+        check(first is not None, "[admission] no warm flush after the update")
+        log(f"[admission] one-policy update ({name}): refresh "
+            f"{refresh_s:.4f} s = host compile {cs['seconds'] - cps2.plan_s:.4f} "
+            f"s (1 segment recompiled, {cs['segments_reused']} reused) + plan "
+            f"and K1 tables {cps2.plan_s:.4f} s; the first warm flush after "
+            f"it {first.duration_s * 1e3:.3f} ms ({first.labels.get('batch')} "
+            f"rows; spans, ms: {span_summary([first])}); the pool's workers "
+            f"for the new generation ready in {respawn_s:.3f} s")
+
+        # the library's 250 x 10k resolved matrix through the cache
+        resources = [mixed_resource(i) for i in range(10_000)]
+        t0 = time.perf_counter()
+        m = library_matrix(cache, library_docs, resources)
+        inc_s = time.perf_counter() - t0
+        sha = hashlib.sha256(np.ascontiguousarray(m).tobytes()).hexdigest()
+        check(sha == EXPECTED_EVAL_SHA, f"[admission] the refreshed cache's "
+              f"250 x 10k matrix sha256 {sha}")
+        os.environ["KTPU_INCREMENTAL"] = "0"
+        try:
+            full = PolicyCache()
+            for d in enforce:
+                full.add(load_policy(d))
+            t0 = time.perf_counter()
+            m0 = library_matrix(full, library_docs, resources)
+            full_s = time.perf_counter() - t0
+            check(full.compile_stats["mode"] == "full",
+                  f"KTPU_INCREMENTAL=0 compiled {full.compile_stats}")
+        finally:
+            os.environ.pop("KTPU_INCREMENTAL", None)
+        sha0 = hashlib.sha256(np.ascontiguousarray(m0).tobytes()).hexdigest()
+        check(sha0 == EXPECTED_EVAL_SHA, f"[admission] KTPU_INCREMENTAL=0: "
+              f"250 x 10k matrix sha256 {sha0}")
+        log(f"[admission] the library's 250 x 10k resolved matrix through the "
+            f"policy cache (Pod, Deployment and Service populations, "
+            f"evaluate()): sha256 {sha} after the update ({inc_s:.3f} s), and "
+            f"{sha0} with KTPU_INCREMENTAL=0 ({full_s:.3f} s)")
+    finally:
+        batcher.stop()
+        resolver.attach_pool(None, None)
+        pool.stop()
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1215,7 +1799,10 @@ def main() -> int:
     check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
           f"native flattener fallbacks {native_flatten.FALLBACKS}")
 
-    # ---- 7. scan: every chunk against the plain pipeline
+    # ---- 7. admission: the policy cache, the batcher, K6 and the pool
+    admission = admission_phase(library_docs)
+
+    # ---- 8. scan: every chunk against the plain pipeline
     t0 = time.perf_counter()
     for c, (sb, (f, p, h)) in enumerate(zip(scan_batches, scan_counts)):
         blob, shp = cps.to_device(sb)
@@ -1237,7 +1824,7 @@ def main() -> int:
         f"first chunk's to the verdict matrix's")
     del scan_batches, scan_counts
 
-    # ---- 8. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 9. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -1305,6 +1892,8 @@ def main() -> int:
         rows[name] = {"name": name, "route": "cuda", "launches": launches.get(name),
                       "evaluate_launches": eval_launches.get(name),
                       "pipelined_launches": pipe_launches.get(name),
+                      "admission_launches":
+                          admission["burst"]["launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

@@ -35,6 +35,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..runtime import featureplane
 from .ir import (
     AUX_EXCLUDE,
     AUX_MATCH,
@@ -52,6 +53,14 @@ from .ir import (
 NFA_STATES = 48
 STR_LEN = 64
 MAX_SEGMENTS = 12
+
+
+def incremental_enabled() -> bool:
+    """KTPU_INCREMENTAL=0 disables segment splicing, epoch-keyed memo
+    survival and rule-axis bucketing everywhere — every policy change
+    then rebuilds its population from scratch. Read dynamically so tests
+    can flip it per-case."""
+    return featureplane.enabled_strict("KTPU_INCREMENTAL")
 
 
 class _Host(Exception):
@@ -237,6 +246,13 @@ class PolicyTensors:
         (verdict NOT_APPLICABLE by construction) and are sliced off
         before any verdict matrix reaches a caller."""
         return self.n_rules if self.n_rules_logical < 0 else self.n_rules_logical
+
+    @property
+    def memo_space(self) -> str:
+        """Key space for flatten-row memos: the dictionary lineage when
+        compiled incrementally (stable across splices — rows revalidate
+        by epoch), else the content fingerprint (exact match only)."""
+        return self.dict_base if self.dict_base is not None else self.fingerprint
 
     @property
     def fingerprint(self) -> str:

@@ -16,12 +16,23 @@ that no HOST cell is left. ``evaluate_pipelined`` does the same chunk by
 chunk, flattening the next chunk on a thread and starting each chunk's
 host prefetch while the card scores it.
 
+``evaluate_device_async(batch, donate=True)`` is K6, the admission
+batcher's stable-shape dispatch: each (B, P, E, V) shape bucket keeps a
+small ring of slots (pinned host staging, a persistent device blob,
+pinned host memory for the verdicts, a CUDA event), so a warm dispatch
+copies the blob into pinned memory, starts the copy to the card, K1 ->
+eval_rules and the copy back, and returns without waiting.
+:class:`IncrementalCompiler` recompiles only the policies that changed
+and splices their segments into the population's tensors (the policy
+cache's route).
+
 The device is ``cuda`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request the constructor raises.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from enum import IntEnum
@@ -36,7 +47,14 @@ from ..engine.response import RuleStatus
 from ..engine.validation import validate as oracle_validate
 from ..ops import eval as ops_eval
 from ..ops.plan import Plan
-from .compiler import PolicyTensors, compile_tensors
+from ..runtime import featureplane
+from .compiler import (
+    PolicyTensors,
+    TensorDictionary,
+    assemble_tensors,
+    compile_segment,
+    compile_tensors,
+)
 from .flatten import FlatBatch
 from .ir import compile_rule_ir
 
@@ -57,6 +75,92 @@ _STATUS_TO_VERDICT = {
     RuleStatus.ERROR: Verdict.ERROR,
     RuleStatus.SKIP: Verdict.SKIP,
 }
+
+
+def donation_enabled() -> bool:
+    """KTPU_DONATE=0 kill switch for K6's slots on the stable-shape
+    device call — dynamic, like every KTPU_* lane flag."""
+    return featureplane.enabled("KTPU_DONATE")
+
+
+# process-wide K6 accounting, with the JAX package's keys: ``dispatches``
+# counts dispatches that took the donating route (on the CPU too, where
+# the plain versions run, as a JAX CPU backend that cannot alias a buffer
+# runs them); ``donated_buffers`` counts those that ran on a reused
+# device blob of their shape bucket, with no allocation and no second
+# device copy — the port's meaning of a consumed (donated) buffer.
+# ``K6_ALLOC`` counts the slots allocated and the seconds spent on them
+# (a cold shape bucket's first cost on the card).
+DONATION_STATS = {"dispatches": 0, "donated_buffers": 0}
+K6_ALLOC = {"slots": 0, "seconds": 0.0}
+_STATS_LOCK = threading.Lock()
+# slots a shape bucket keeps; with every one held, a dispatch takes the
+# oldest and its holder's verdicts are copied out first
+K6_SLOTS = 4
+# a slot's holder between its pick and its handle
+_DISPATCHING = object()
+# the phase split of evaluate_device_async on the card: while true, each
+# call keeps host clocks and CUDA events between its steps on its handle
+# (AsyncVerdicts.phases); while false, a call only tests the flag
+PHASE_TIMING = False
+
+
+class _Phases:
+    """One timed call's host clocks (``time.perf_counter`` seconds) and
+    the CUDA events recorded between its steps on the card: on K6's
+    route H2D start, H2D end (the launches' start), the launches' end
+    and D2H end, all at dispatch; on the plain route the first three at
+    dispatch, and D2H start and end in :meth:`AsyncVerdicts.get`."""
+
+    __slots__ = ("device", "clocks", "events")
+
+    def __init__(self, device):
+        self.device = device
+        self.clocks = {"start": time.perf_counter()}
+        self.events: list = []
+
+    def clock(self, name: str) -> None:
+        self.clocks[name] = time.perf_counter()
+
+    def event(self) -> None:
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(self.device))
+        self.events.append(e)
+
+    def ms(self) -> dict:
+        """Milliseconds of each step: ``staging`` (host copy into pinned
+        memory; 0 on the plain route), ``h2d``, ``launches`` and ``d2h``
+        on the card, ``read`` (host: the verdicts out of pinned memory,
+        or the slice of the copied matrix) and ``dispatch`` (host: the
+        call until it returned its handle)."""
+        c, e = self.clocks, self.events
+        k6 = "staged" in c
+        return {"staging": (c["staged"] - c["staging"]) * 1e3 if k6 else 0.0,
+                "h2d": e[0].elapsed_time(e[1]),
+                "launches": e[1].elapsed_time(e[2]),
+                "d2h": (e[2].elapsed_time(e[3]) if k6
+                        else e[3].elapsed_time(e[4])),
+                "read": (c["read"] - c["copied"]) * 1e3,
+                "dispatch": (c["dispatched"] - c["start"]) * 1e3}
+
+
+class _Slot:
+    """One K6 slot of a shape bucket: pinned staging for the blob, the
+    device blob it is copied into, pinned memory for the verdicts [B, R]
+    and the event recorded after the copy back. ``handle`` is the
+    :class:`AsyncVerdicts` holding the slot (None while free); a slot is
+    free again only after its holder has read the verdicts, so its event
+    has completed and every copy from and to it is done."""
+
+    __slots__ = ("staged", "dblob", "out", "event", "handle", "seq")
+
+    def __init__(self, words: int, B: int, R: int, device):
+        self.staged = torch.empty(words, dtype=torch.int32, pin_memory=True)
+        self.dblob = torch.empty(words, dtype=torch.int32, device=device)
+        self.out = torch.empty((B, R), dtype=torch.int8, pin_memory=True)
+        self.event = torch.cuda.Event()
+        self.handle = None
+        self.seq = 0
 
 
 @dataclass
@@ -83,51 +187,119 @@ def resolve_device(device=None) -> torch.device:
 
 
 class AsyncVerdicts:
-    """Handle on an in-flight device evaluation. :meth:`get` waits on the
-    CUDA event recorded after the launches, copies the matrix to the host
-    once and caches it."""
+    """Handle on an in-flight device evaluation (evaluate_device_async).
+    The card computes while the dispatching thread does other host work;
+    :meth:`get` waits for it, reads the verdicts to the host once, slices
+    them to ``n_live`` columns and caches them. On the plain route ``out``
+    is the verdict tensor (an event is recorded after its launches on the
+    card); on K6's route it is None and ``slot`` holds the verdicts in
+    pinned memory until :meth:`get` copies them out and frees the slot."""
 
-    __slots__ = ("_out", "_event", "_verdicts")
+    __slots__ = ("_out", "_event", "_slot", "_n_live", "_verdicts", "_lock",
+                 "_phases")
 
-    def __init__(self, out: torch.Tensor):
+    def __init__(self, out: torch.Tensor | None, n_live: int | None = None,
+                 slot: _Slot | None = None, phases: _Phases | None = None):
         self._out = out
+        self._n_live = n_live
+        self._slot = slot
+        self._phases = phases
         self._event = None
-        if out.device.type == "cuda":
+        self._lock = threading.Lock()
+        if slot is not None:
+            self._event = slot.event
+        elif out.device.type == "cuda":
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(out.device))
         self._verdicts: np.ndarray | None = None
 
     def get(self) -> np.ndarray:
         if self._verdicts is None:
-            if self._event is not None:
-                self._event.synchronize()
-            self._verdicts = self._out.cpu().numpy()
-            self._out = None
+            with self._lock:
+                if self._verdicts is None:
+                    self._materialize()
         return self._verdicts
+
+    def _materialize(self) -> None:
+        """Wait for the card and read the verdicts (caller holds
+        ``_lock``); a K6 slot is freed after its copy."""
+        phases = self._phases
+        if self._event is not None:
+            self._event.synchronize()
+        slot = self._slot
+        if slot is not None:
+            if phases is not None:
+                phases.clock("copied")
+            v = slot.out.numpy()
+        else:
+            if phases is not None:
+                phases.event()
+            v = self._out.cpu().numpy()
+            if phases is not None:
+                phases.event()
+                phases.clock("copied")
+        if self._n_live is not None and v.shape[1] != self._n_live:
+            v = v[:, :self._n_live]
+        if slot is not None:
+            v = np.array(v)          # the slot's pinned memory is reused
+            self._slot = None
+            slot.handle = None
+        if phases is not None:
+            phases.clock("read")
+        self._verdicts = v
+        self._out = None
+
+    def phases(self) -> dict | None:
+        """The call's phase split in ms (:meth:`_Phases.ms`) after the
+        verdicts are read; None unless it ran on the card with
+        ``PHASE_TIMING`` on."""
+        self.get()
+        return None if self._phases is None else self._phases.ms()
+
+    def done(self) -> bool:
+        """Non-blocking completeness probe: the event's ``query()``."""
+        if self._verdicts is not None:
+            return True
+        event = self._event
+        return True if event is None else bool(event.query())
 
 
 class CompiledPolicySet:
     def __init__(self, policies: list, device=None,
-                 tensors: PolicyTensors | None = None):
+                 tensors: PolicyTensors | None = None,
+                 _parts: tuple | None = None):
         """``tensors`` — an already compiled ``PolicyTensors`` (e.g. carried
-        across with ``convert.tensors_from_numpy``); by default the
-        policies compile here."""
+        across with ``convert.tensors_from_numpy``); ``_parts`` —
+        ``(rule_refs, rule_irs, tensors)`` from an incremental assembly
+        (IncrementalCompiler.refresh); by default the policies compile
+        here. ``plan_s`` is the seconds the device plan took to build."""
         self.device = resolve_device(device)
         self.policies = list(policies)
-        self.rule_refs: list[RuleRef] = []
-        self.rule_irs = []
-        idx = 0
-        for policy in self.policies:
-            for rule in policy.spec.rules:
-                if not rule.has_validate():
-                    continue
-                self.rule_refs.append(RuleRef(policy, rule, idx))
-                if tensors is None:
-                    self.rule_irs.append(compile_rule_ir(policy, rule, idx))
-                idx += 1
-        self.tensors: PolicyTensors = (
-            tensors if tensors is not None else compile_tensors(self.rule_irs))
+        if _parts is not None:
+            self.rule_refs, self.rule_irs, self.tensors = _parts
+        else:
+            self.rule_refs: list[RuleRef] = []
+            self.rule_irs = []
+            idx = 0
+            for policy in self.policies:
+                for rule in policy.spec.rules:
+                    if not rule.has_validate():
+                        continue
+                    self.rule_refs.append(RuleRef(policy, rule, idx))
+                    if tensors is None:
+                        self.rule_irs.append(
+                            compile_rule_ir(policy, rule, idx))
+                    idx += 1
+            self.tensors: PolicyTensors = (
+                tensors if tensors is not None
+                else compile_tensors(self.rule_irs))
+        t0 = time.perf_counter()
         self.plan = Plan(self.tensors, self.device)
+        self.plan_s = time.perf_counter() - t0
+        # K6: shape bucket (B, P, E, V) -> its slots
+        self._k6: dict[tuple, list[_Slot]] = {}
+        self._k6_lock = threading.Condition()
+        self._k6_seq = 0
 
     # ------------------------------------------------------------ host
 
@@ -160,18 +332,129 @@ class CompiledPolicySet:
 
     # ------------------------------------------------------------ device
 
-    def _launch(self, batch) -> torch.Tensor:
+    def _launch(self, batch, phases: _Phases | None = None) -> torch.Tensor:
+        if phases is not None:
+            phases.event()
         dblob, shp = self.to_device(batch)
-        return ops_eval.evaluate_blob(self.plan, dblob, *shp)[
-            :, :self.tensors.n_rules_live]
+        if phases is not None:
+            phases.event()
+        out = ops_eval.evaluate_blob(self.plan, dblob, *shp)
+        if phases is not None:
+            phases.event()
+        return out
 
     def evaluate_device(self, batch) -> np.ndarray:
         """Device verdicts int8 [B, n_rules_live] (host-lane cells HOST)."""
-        return self._launch(batch).cpu().numpy()
+        return self._launch(batch)[:, :self.tensors.n_rules_live].cpu().numpy()
 
-    def evaluate_device_async(self, batch) -> AsyncVerdicts:
-        """Launch the device evaluation without waiting for it."""
-        return AsyncVerdicts(self._launch(batch))
+    def evaluate_device_async(self, batch, donate: bool = False) -> AsyncVerdicts:
+        """Dispatch the device evaluation without waiting for its result;
+        the handle's :meth:`AsyncVerdicts.get` is the join. Callers (the
+        admission flush, ``evaluate_pipelined``) do host work between
+        dispatch and get.
+
+        ``donate=True`` (gated by KTPU_DONATE) is K6: the batch's shape
+        bucket keeps up to ``K6_SLOTS`` slots, and a dispatch copies the
+        blob into a free slot's pinned staging, copies that to the slot's
+        persistent device blob without blocking, launches K1 ->
+        eval_rules on the current stream, copies the verdicts into the
+        slot's pinned memory without blocking and records the slot's
+        event. A warm bucket thus allocates nothing and makes no second
+        device copy of the blob. The caller's numpy blob is only read.
+        A failure (a pinned allocation, a copy, a launch) raises; it
+        never falls back to the plain route. On the CPU the plain
+        versions run and the dispatch is counted, as in the JAX package
+        on a backend that cannot alias a buffer. Otherwise the blob is
+        copied from pageable memory and the launches are queued, as in
+        :meth:`evaluate_device`. With ``PHASE_TIMING`` on, a call on the
+        card times its steps (:meth:`AsyncVerdicts.phases`)."""
+        live = self.tensors.n_rules_live
+        phases = (_Phases(self.device)
+                  if PHASE_TIMING and self.device.type == "cuda" else None)
+        if donate and donation_enabled():
+            if self.device.type == "cuda":
+                return self._dispatch_k6(batch, live, phases)
+            with _STATS_LOCK:
+                DONATION_STATS["dispatches"] += 1
+        handle = AsyncVerdicts(self._launch(batch, phases), n_live=live,
+                               phases=phases)
+        if phases is not None:
+            phases.clock("dispatched")
+        return handle
+
+    def _k6_slot(self, shp: tuple, words: int) -> tuple[_Slot, bool]:
+        """A slot of the shape bucket ``shp`` for one dispatch, and
+        whether it was allocated before (a reused device blob)."""
+        with self._k6_lock:
+            ring = self._k6.setdefault(shp, [])
+            while True:
+                slot = next((s for s in ring if s.handle is None), None)
+                if slot is not None:
+                    reused = True
+                    break
+                if len(ring) < K6_SLOTS:
+                    t0 = time.perf_counter()
+                    slot = _Slot(words, shp[0], self.plan.R, self.device)
+                    with _STATS_LOCK:
+                        K6_ALLOC["slots"] += 1
+                        K6_ALLOC["seconds"] += time.perf_counter() - t0
+                    ring.append(slot)
+                    reused = False
+                    break
+                held = [s for s in ring if isinstance(s.handle, AsyncVerdicts)]
+                if held:
+                    # every slot is held: the oldest holder's verdicts are
+                    # copied out now (it waits on its event), which frees it
+                    slot = min(held, key=lambda s: s.seq)
+                    holder = slot.handle
+                    with holder._lock:
+                        if holder._verdicts is None:
+                            holder._materialize()
+                    reused = True
+                    break
+                # every slot is between its pick and its handle
+                self._k6_lock.wait(0.001)
+            self._k6_seq += 1
+            slot.seq = self._k6_seq
+            slot.handle = _DISPATCHING
+        return slot, reused
+
+    def _dispatch_k6(self, batch, live: int,
+                     phases: _Phases | None = None) -> AsyncVerdicts:
+        blob, shp = batch.packed_blob()
+        host = np.ascontiguousarray(blob).view(np.int32)
+        slot, reused = self._k6_slot(shp, host.size)
+        try:
+            if phases is not None:
+                phases.clock("staging")
+            np.copyto(slot.staged.numpy(), host)
+            if phases is not None:
+                phases.clock("staged")
+                phases.event()
+            slot.dblob.copy_(slot.staged, non_blocking=True)
+            if phases is not None:
+                phases.event()
+            out = ops_eval.evaluate_blob(self.plan, slot.dblob, *shp)
+            if phases is not None:
+                phases.event()
+            slot.out.copy_(out, non_blocking=True)
+            if phases is not None:
+                phases.event()
+            slot.event.record(torch.cuda.current_stream(self.device))
+        except BaseException:
+            # a slot whose copies may still be queued is never reused
+            with self._k6_lock:
+                self._k6[shp].remove(slot)
+            raise
+        handle = AsyncVerdicts(None, n_live=live, slot=slot, phases=phases)
+        slot.handle = handle
+        with _STATS_LOCK:
+            DONATION_STATS["dispatches"] += 1
+            if reused:
+                DONATION_STATS["donated_buffers"] += 1
+        if phases is not None:
+            phases.clock("dispatched")
+        return handle
 
     def scan_counts(self, batch) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Background-scan counts: per-rule FAIL and PASS counts over rows
@@ -404,3 +687,162 @@ class CompiledPolicySet:
                     out[ref.rule_index] = (_STATUS_TO_VERDICT[rr.status],
                                            rr.message)
         return out
+
+
+def _validate_rules(policy) -> list:
+    return [r for r in policy.spec.rules if r.has_validate()]
+
+
+class IncrementalCompiler:
+    """Per-population segmented compiler — the policy-update-storm path.
+
+    Keeps one compiled :class:`~.compiler.PolicySegment` per policy plus
+    the shared append-only :class:`~.compiler.TensorDictionary`; on
+    churn, only segments whose policy *object* changed recompile, and
+    ``assemble_tensors`` splices all segments (rebased offsets) into a
+    fresh PolicyTensors. Because the dictionary only appends, unchanged
+    segments keep their path/NFA/kind ids and flatten-row memos keyed on
+    ``(dict_base, digest)`` revalidate by epoch instead of evicting.
+
+    ``rule_bucket=True`` pads the rule axis to power-of-two buckets so
+    repeated single-policy updates tend to land in an already-seen rule
+    width (verdicts are sliced back to ``n_rules_logical``). Every set it
+    returns is a :class:`CompiledPolicySet` on ``device`` (its plan built
+    there); the JAX package's certification of the spliced segments and
+    its policy-sharded sets are not here.
+
+    Not thread-safe on its own; PolicyCache serializes access under its
+    lock."""
+
+    def __init__(self, rule_bucket: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.dictionary = TensorDictionary(persistent=True)
+        self.rule_bucket = rule_bucket
+        # policy key -> (id(policy object), PolicySegment)
+        self._segments: dict[str, tuple[int, object]] = {}
+        self._last: CompiledPolicySet | None = None
+        self._last_sig: tuple | None = None
+        self.stats = {"refreshes": 0, "segments_reused": 0,
+                      "segments_recompiled": 0, "segments_dropped": 0}
+        self.last_refresh: dict = {}
+
+    @staticmethod
+    def _policy_key(policy) -> str:
+        ns = getattr(policy, "namespace", "") or ""
+        return f"{ns}/{policy.name}" if ns else policy.name
+
+    def _segment(self, policy, key: str, name: str | None = None):
+        rules = _validate_rules(policy)
+        seg_irs = [compile_rule_ir(policy, rule, li)
+                   for li, rule in enumerate(rules)]
+        return compile_segment(seg_irs, self.dictionary, name=name or key)
+
+    def refresh(self, policies: list) -> CompiledPolicySet:
+        """Compiled set for ``policies`` (in order), recompiling only the
+        segments whose policy object is new or replaced. When nothing at
+        all changed, the previous CompiledPolicySet comes back as-is —
+        its plan (and its K6 slots) survive churn in *other*
+        populations."""
+        policies = list(policies)
+        sig = tuple(id(p) for p in policies)
+        self.stats["refreshes"] += 1
+        if self._last is not None and sig == self._last_sig:
+            self.stats["segments_reused"] += len(policies)
+            self.last_refresh = {"reused": len(policies), "recompiled": 0,
+                                 "dropped": 0, "unchanged": True,
+                                 "dict_epoch": self.dictionary.epoch,
+                                 "recompiled_keys": [], "dropped_keys": []}
+            return self._last
+
+        segs = []
+        rule_refs: list[RuleRef] = []
+        rule_irs = []
+        live_keys = set()
+        idx = 0
+        reused = 0
+        recompiled_keys: list[str] = []
+        for policy in policies:
+            key = self._policy_key(policy)
+            live_keys.add(key)
+            cached = self._segments.get(key)
+            if cached is not None and cached[0] == id(policy):
+                seg = cached[1]
+                reused += 1
+            else:
+                seg = self._segment(policy, key)
+                self._segments[key] = (id(policy), seg)
+                recompiled_keys.append(key)
+            segs.append(seg)
+            for rule in _validate_rules(policy):
+                rule_refs.append(RuleRef(policy, rule, idx))
+                idx += 1
+            rule_irs.extend(seg.rule_irs)
+
+        dropped = [k for k in self._segments if k not in live_keys]
+        for k in dropped:
+            del self._segments[k]
+
+        tensors = assemble_tensors(segs, self.dictionary,
+                                   rule_bucket=self.rule_bucket)
+        cps = CompiledPolicySet(policies, device=self.device,
+                                _parts=(rule_refs, rule_irs, tensors))
+        self.stats["segments_reused"] += reused
+        self.stats["segments_recompiled"] += len(recompiled_keys)
+        self.stats["segments_dropped"] += len(dropped)
+        self.last_refresh = {"reused": reused,
+                             "recompiled": len(recompiled_keys),
+                             "dropped": len(dropped), "unchanged": False,
+                             "dict_epoch": tensors.dict_epoch,
+                             "recompiled_keys": recompiled_keys,
+                             "dropped_keys": dropped}
+        self._last = cps
+        self._last_sig = sig
+        return cps
+
+    def compile_candidate(self, policy) -> CompiledPolicySet:
+        """Isolated single-policy compile for the dry-run service: the
+        candidate's segment assembles over the *shared* append-only
+        dictionary (so flatten rows memoized against the live population
+        splice in unchanged), but — unlike :meth:`subset` — nothing is
+        stored in the segment cache. A candidate that shares its key
+        with a live policy therefore cannot evict that policy's cached
+        segment or force a recompile at the next refresh; the dictionary
+        only ever appends, which live consumers revalidate by epoch."""
+        key = self._policy_key(policy)
+        seg = self._segment(policy, key, name=f"candidate:{key}")
+        rule_refs = [RuleRef(policy, rule, i)
+                     for i, rule in enumerate(_validate_rules(policy))]
+        tensors = assemble_tensors([seg], self.dictionary,
+                                   rule_bucket=self.rule_bucket)
+        return CompiledPolicySet([policy], device=self.device,
+                                 _parts=(rule_refs, seg.rule_irs, tensors))
+
+    def subset(self, policies: list) -> CompiledPolicySet:
+        """Compiled set over a *subset* of the population, assembled from
+        the same dictionary and segment cache. Its tensor set snapshots
+        the full path dictionary, so flatten rows memoized against the
+        full population splice into this one unchanged — the delta
+        scanner evaluates only the changed policies' rule columns against
+        already-flattened resources this way. Does not disturb the cached
+        full-set compile."""
+        segs = []
+        rule_refs: list[RuleRef] = []
+        rule_irs = []
+        idx = 0
+        for policy in policies:
+            key = self._policy_key(policy)
+            cached = self._segments.get(key)
+            if cached is not None and cached[0] == id(policy):
+                seg = cached[1]
+            else:
+                seg = self._segment(policy, key)
+                self._segments[key] = (id(policy), seg)
+            segs.append(seg)
+            for rule in _validate_rules(policy):
+                rule_refs.append(RuleRef(policy, rule, idx))
+                idx += 1
+            rule_irs.extend(seg.rule_irs)
+        tensors = assemble_tensors(segs, self.dictionary,
+                                   rule_bucket=self.rule_bucket)
+        return CompiledPolicySet(list(policies), device=self.device,
+                                 _parts=(rule_refs, rule_irs, tensors))

@@ -26,6 +26,7 @@ dedup that makes the string path cheap on device.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -398,7 +399,8 @@ def pad_to_buckets_packed(batch: PackedBatch) -> tuple[PackedBatch, int]:
 def pipeline_enabled() -> bool:
     """KTPU_FLATTEN_PIPELINE=0 kill-switch: read dynamically at every use
     site so an operator (or a test monkeypatching os.environ) can drop the
-    scan path back to the serial dataflow without a restart."""
+    admission flush (its row memo) and the scan pipeline back to the
+    serial dataflow without a restart."""
     return featureplane.enabled("KTPU_FLATTEN_PIPELINE")
 
 
@@ -445,6 +447,342 @@ def merge_packed(chunks: list[PackedBatch]) -> PackedBatch:
         np.zeros((1, 5), dtype=np.uint32)
     return PackedBatch(n=B, e=E, cells=cells, bmeta=bmeta,
                        str_bytes=str_bytes, dictv=dictv)
+
+
+# ------------------------------------------------------------ row memo
+#
+# The flatten-row memo of the admission batcher and the delta scanner:
+# a batch splits into per-resource rows on private string tables, rows
+# are memoized with the dictionary coordinates they were cut at, and a
+# flush splices memo hits with a fresh flatten of the misses. The
+# continuous lane grafts late arrivals into a padded batch's headroom.
+
+
+@dataclass
+class PackedRow:
+    """One resource's slice of a PackedBatch, rebased onto a private
+    string table — the unit of the flatten-row memo (runtime/resourcecache
+    FlattenRowCache). ``cells`` is trimmed to the row's own slot count and
+    ``str_bytes``/``dictv`` keep only the rows this resource references,
+    so a memoized row costs O(own content), not O(original batch)."""
+
+    cells: np.ndarray       # [P, e_row, 2] uint32, w0 rebased to local ids
+    bmeta: int              # uint32 scalar
+    str_bytes: np.ndarray   # [v, STR_LEN] uint8 (may be empty)
+    dictv: np.ndarray       # [v, 5] uint32
+
+    @property
+    def nbytes(self) -> int:
+        return self.cells.nbytes + self.str_bytes.nbytes + self.dictv.nbytes
+
+
+@dataclass
+class MemoRow:
+    """Epoch-keyed flatten-row memo entry: a PackedRow plus the dictionary
+    coordinates it was flattened at. Rows compiled at epoch *e* over
+    ``n_paths`` paths remain spliceable at any epoch *e' >= e* of the same
+    lineage because the dictionary only appends — the row is a valid
+    prefix, and :func:`refresh_packed_row` flattens just the appended
+    paths and concatenates. This is what lets a policy edit keep the
+    flatten work for every cached resource instead of evicting it."""
+
+    row: PackedRow
+    n_paths: int              # path-dictionary length at flatten time
+    epoch: int                # TensorDictionary.epoch at flatten time
+
+
+class _PathSlice:
+    """Minimal tensors view for :func:`flatten_batch`: the appended tail
+    of the path dictionary plus the (full, append-only) kind index."""
+
+    __slots__ = ("paths", "kind_index")
+
+    def __init__(self, paths: list[str], kind_index: dict[str, int]):
+        self.paths = paths
+        self.kind_index = kind_index
+
+    @property
+    def n_paths(self) -> int:
+        return len(self.paths)
+
+
+def _extend_row(row: PackedRow, delta: PackedRow) -> PackedRow:
+    """Concatenate a row's cells with a delta-flattened tail along the
+    path axis, re-interning the delta's private string table into the
+    row's (same (bytes, length) key + OR-merge as splice_packed_rows).
+    The delta's bmeta wins the kind bits (computed against the current
+    kind index) and ORs its host flag — host conditions are per-slot ORs,
+    so the union over path subsets equals the full-flatten flag."""
+    p0, e0 = int(row.cells.shape[0]), int(row.cells.shape[1])
+    p1, e1 = int(delta.cells.shape[0]), int(delta.cells.shape[1])
+    E = max(e0, e1)
+    cells = np.zeros((p0 + p1, E, 2), dtype=np.uint32)
+    cells[:p0, :e0] = row.cells
+
+    index: dict[tuple[bytes, int], int] = {}
+    v0 = int(row.dictv.shape[0])
+    sb_rows = [row.str_bytes[i] for i in range(v0)]
+    dv_rows = [row.dictv[i].copy() for i in range(v0)]
+    for i in range(v0):
+        index[(row.str_bytes[i].tobytes(), int(row.dictv[i, 4] & 0x7F))] = i
+    v1 = int(delta.dictv.shape[0])
+    lut = np.zeros(v1 + 1, dtype=np.uint32)
+    for i in range(v1):
+        key = (delta.str_bytes[i].tobytes(), int(delta.dictv[i, 4] & 0x7F))
+        j = index.get(key)
+        if j is None:
+            j = len(sb_rows)
+            index[key] = j
+            sb_rows.append(delta.str_bytes[i])
+            dv_rows.append(delta.dictv[i].copy())
+        else:
+            dv_rows[j] |= delta.dictv[i]
+        lut[i + 1] = j + 1
+    cells[p0:, :e1, 0] = lut[delta.cells[..., 0]]
+    cells[p0:, :e1, 1] = delta.cells[..., 1]
+
+    old_host = (row.bmeta >> 16) & 1
+    old_live = (row.bmeta >> 17) & 1
+    bmeta = int((delta.bmeta & 0x1FFFF) | ((old_host | old_live << 1) << 16))
+    if sb_rows:
+        str_bytes = np.stack(sb_rows).astype(np.uint8)
+        dictv = np.stack(dv_rows).astype(np.uint32)
+    else:
+        str_bytes = np.zeros((0, STR_LEN), dtype=np.uint8)
+        dictv = np.zeros((0, 5), dtype=np.uint32)
+    return PackedRow(cells=np.ascontiguousarray(cells), bmeta=bmeta,
+                     str_bytes=str_bytes, dictv=dictv)
+
+
+def flatten_one_row(resource: dict, tensors, request: dict | None = None,
+                    max_slots: int = 16) -> PackedRow:
+    """Flatten one resource against ``tensors`` (any object with paths /
+    kind_index / n_paths) straight to a PackedRow — the pure-Python
+    single-row path used by memo refresh and the delta scanner."""
+    fb = flatten_batch([resource], tensors, max_slots=max_slots,
+                       requests=[request] if request is not None else None)
+    cells, bmeta, str_bytes, dictv = pack_batch(fb)
+    return split_packed_rows(PackedBatch(
+        n=1, e=fb.e, cells=cells, bmeta=bmeta,
+        str_bytes=str_bytes, dictv=dictv))[0]
+
+
+def refresh_packed_row(memo: MemoRow, resource: dict,
+                       tensors: PolicyTensors,
+                       request: dict | None = None) -> tuple[MemoRow | None, bool]:
+    """Revalidate a memoized flatten row against the current tensor set
+    of its lineage. Returns ``(memo_row, extended)``:
+
+    - exact epoch/path match -> the memo unchanged, ``extended=False``;
+    - dictionary appended since the row was cut -> flatten only the
+      appended paths, concatenate, recompute the kind bits against the
+      current kind index, return the refreshed entry with
+      ``extended=True`` (still a survival — the per-path work for the old
+      prefix was not redone);
+    - the memo is from a *longer* dictionary (foreign lineage, or a
+      lineage reset) -> ``(None, False)``: caller re-flattens."""
+    n_new = tensors.n_paths
+    if memo.epoch == tensors.dict_epoch and memo.n_paths == n_new:
+        return memo, False
+    if memo.n_paths > n_new:
+        return None, False
+    row = memo.row
+    if n_new > memo.n_paths:
+        delta = flatten_one_row(
+            resource,
+            _PathSlice(tensors.paths[memo.n_paths:], tensors.kind_index),
+            request=request)
+        row = _extend_row(row, delta)
+    else:
+        # only the kind index appended: recompute the kind bits (the id
+        # of a previously-unknown kind may exist now); host/live keep
+        kind = (resource.get("kind") or "") if isinstance(resource, dict) else ""
+        kid = tensors.kind_index.get(kind, -1)
+        bmeta = int((row.bmeta & ~np.uint32(0xFFFF)) | np.uint32(kid + 1))
+        row = PackedRow(cells=row.cells, bmeta=bmeta,
+                        str_bytes=row.str_bytes, dictv=row.dictv)
+    return MemoRow(row=row, n_paths=n_new, epoch=tensors.dict_epoch), True
+
+
+def split_packed_rows(batch: PackedBatch) -> list[PackedRow]:
+    """Decompose a freshly-flattened PackedBatch into per-resource rows.
+
+    Per row the trailing all-zero slot columns are trimmed (zero fill is
+    the dead encoding, so they are pure padding) and word0 string ids are
+    rebased through a per-row LUT onto a compact private table. The
+    inverse is splice_packed_rows; split→splice of every row reproduces
+    the batch's verdicts exactly (dictionary value lanes are pure
+    functions of the interned string and class-gated on read, so the
+    re-merged table can only differ in lanes the kernels never read)."""
+    from ..runtime import tracing
+
+    _t0 = time.perf_counter()
+    cells, bmeta = np.asarray(batch.cells), np.asarray(batch.bmeta)
+    str_bytes, dictv = np.asarray(batch.str_bytes), np.asarray(batch.dictv)
+    rows: list[PackedRow] = []
+    for b in range(int(batch.n)):
+        rc = cells[b]                             # [P, E, 2]
+        used = rc.any(axis=2).any(axis=0)         # [E] slot columns in use
+        e_row = int(np.max(np.nonzero(used)[0]) + 1) if used.any() else 0
+        rc = rc[:, :e_row, :]
+        w0 = rc[..., 0]
+        ids = np.unique(w0)
+        ids = (ids[ids > 0] - 1).astype(np.int64)
+        lut = np.zeros(int(dictv.shape[0]) + 1, dtype=np.uint32)
+        lut[ids + 1] = np.arange(1, len(ids) + 1, dtype=np.uint32)
+        rc = np.stack([lut[w0], rc[..., 1]], axis=-1)
+        rows.append(PackedRow(
+            cells=np.ascontiguousarray(rc),
+            bmeta=int(bmeta[b]),
+            str_bytes=np.ascontiguousarray(str_bytes[ids]),
+            dictv=np.ascontiguousarray(dictv[ids]),
+        ))
+    tracing.recorder().add_span(
+        tracing.current(), "row_split", _t0, time.perf_counter(),
+        rows=len(rows))
+    return rows
+
+
+def splice_packed_rows(rows: list[PackedRow]) -> PackedBatch:
+    """Reassemble memoized PackedRows into one PackedBatch: re-intern each
+    row's private string table into a shared batch table and remap word0
+    through the resulting LUT. Strings are keyed by (padded bytes, length)
+    — the length disambiguates texts whose UTF-8 ends in NUL bytes —
+    and duplicate dictionary rows merge by elementwise OR, which is exact
+    because value lanes are pure functions of the string (lanes set by two
+    rows agree; lanes set by neither stay zero)."""
+    from ..runtime import tracing
+
+    _t0 = time.perf_counter()
+    B = len(rows)
+    P = int(rows[0].cells.shape[0]) if B else 0
+    E = max([int(r.cells.shape[1]) for r in rows], default=0)
+    E = max(E, 1)
+    index: dict[tuple[bytes, int], int] = {}
+    sb_rows: list[np.ndarray] = []
+    dv_rows: list[np.ndarray] = []
+    cells = np.zeros((B, P, E, 2), dtype=np.uint32)
+    bmeta = np.zeros(B, dtype=np.uint32)
+    for b, row in enumerate(rows):
+        v = int(row.dictv.shape[0])
+        lut = np.zeros(v + 1, dtype=np.uint32)
+        for i in range(v):
+            key = (row.str_bytes[i].tobytes(), int(row.dictv[i, 4] & 0x7F))
+            j = index.get(key)
+            if j is None:
+                j = len(sb_rows)
+                index[key] = j
+                sb_rows.append(row.str_bytes[i])
+                dv_rows.append(row.dictv[i].copy())
+            else:
+                dv_rows[j] |= row.dictv[i]
+            lut[i + 1] = j + 1
+        e_row = int(row.cells.shape[1])
+        cells[b, :, :e_row, 0] = lut[row.cells[..., 0]]
+        cells[b, :, :e_row, 1] = row.cells[..., 1]
+        bmeta[b] = row.bmeta
+    V = len(sb_rows)
+    if V:
+        str_bytes = np.stack(sb_rows).astype(np.uint8)
+        dictv = np.stack(dv_rows).astype(np.uint32)
+    else:
+        str_bytes = np.zeros((1, STR_LEN), dtype=np.uint8)
+        dictv = np.zeros((1, 5), dtype=np.uint32)
+    tracing.recorder().add_span(
+        tracing.current(), "row_splice", _t0, time.perf_counter(), rows=B)
+    return PackedBatch(n=B, e=E, cells=cells, bmeta=bmeta,
+                       str_bytes=str_bytes, dictv=dictv)
+
+
+def grow_dict_headroom(batch: PackedBatch,
+                       min_free: int = 1) -> PackedBatch:
+    """Pad the string table to the next power of two that leaves at
+    least ``min_free`` unused rows past the current table size — the
+    headroom continuous batching needs so a late-joining row whose
+    strings aren't all interned yet can still graft. Zero rows are the
+    natural dead encoding (same fill pad_to_buckets_packed uses), so
+    the extra slots are invisible to the kernels."""
+    from dataclasses import replace
+
+    v = int(batch.dictv.shape[0])
+    target = _next_pow2(v + max(1, min_free))
+    if target == v:
+        return batch
+    return replace(
+        batch,
+        dictv=np.pad(batch.dictv, [(0, target - v), (0, 0)]),
+        str_bytes=np.pad(batch.str_bytes, [(0, target - v), (0, 0)]))
+
+
+def graft_packed_rows(batch: PackedBatch, rows: list[PackedRow],
+                      at: int, v_used: int) -> int:
+    """Continuous-batching late-join: write ``rows`` into the padding
+    slots of an already-padded batch, in place, starting at row ``at``.
+
+    Safe only because padded row slots are fresh zero fill (np.pad always
+    copies) and the batch is flush-private. Each row's private string
+    table re-interns into the batch dictionary with the same
+    (bytes, length) key + elementwise OR-merge as splice_packed_rows
+    (exact: value lanes are pure functions of the interned string);
+    strings the batch doesn't know yet take free dictionary rows above
+    ``v_used`` — the live table size before bucket padding.
+
+    Returns how many leading rows were grafted; stops at the first row
+    that doesn't fit (slot width, path count, or dictionary capacity) so
+    the caller re-queues the rest in arrival order. Must be called
+    before the batch's blob/flat caches materialize."""
+    cells = batch.cells
+    B, P, E = int(cells.shape[0]), int(cells.shape[1]), int(cells.shape[2])
+    V = int(batch.dictv.shape[0])
+    index = getattr(batch, "_graft_index", None)
+    if index is None:
+        index = {}
+        for i in range(v_used):
+            index[(batch.str_bytes[i].tobytes(),
+                   int(batch.dictv[i, 4] & 0x7F))] = i
+        object.__setattr__(batch, "_graft_index", index)
+    else:
+        v_used = getattr(batch, "_graft_vused", v_used)
+    grafted = 0
+    for row in rows:
+        b = at + grafted
+        if b >= B:
+            break
+        p, e_row = int(row.cells.shape[0]), int(row.cells.shape[1])
+        if p != P or e_row > E:
+            break
+        # two-phase intern: count the new strings first so a row that
+        # overflows the dictionary leaves the batch untouched
+        v = int(row.dictv.shape[0])
+        keys = [(row.str_bytes[i].tobytes(), int(row.dictv[i, 4] & 0x7F))
+                for i in range(v)]
+        fresh = [k for k in keys if k not in index]
+        # dict.fromkeys: a row may reference the same new string twice
+        fresh = list(dict.fromkeys(fresh))
+        if v_used + len(fresh) > V:
+            break
+        lut = np.zeros(v + 1, dtype=np.uint32)
+        for i, key in enumerate(keys):
+            j = index.get(key)
+            if j is None:
+                j = v_used
+                index[key] = j
+                batch.str_bytes[j] = row.str_bytes[i]
+                batch.dictv[j] = row.dictv[i]
+                v_used += 1
+            else:
+                batch.dictv[j] |= row.dictv[i]
+            lut[i + 1] = j + 1
+        cells[b, :, :e_row, 0] = lut[row.cells[..., 0]]
+        cells[b, :, :e_row, 1] = row.cells[..., 1]
+        batch.bmeta[b] = np.uint32(int(row.bmeta) & 0xFFFFFFFF)
+        grafted += 1
+    object.__setattr__(batch, "_graft_vused", v_used)
+    # any lazily-built views of the pre-graft content are now stale
+    for attr in ("_blob", "_flat", "_strings", "_packed"):
+        if getattr(batch, attr, None) is not None:
+            object.__delattr__(batch, attr)
+    return grafted
 
 
 class _Interner:

@@ -11,7 +11,8 @@ its library, and :func:`build_all` builds every library at once, one
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts, per kernel
 (a source may hold more than one: ``eval_rules`` and its scan form
-``eval_rules_scan``), the wrapper calls that launched it on the card.
+``eval_rules_scan``), the wrapper calls that launched it on the card;
+wrappers count through :func:`note_launch`.
 """
 
 from __future__ import annotations
@@ -41,11 +42,21 @@ LAUNCHES = {name: 0 for name in ("glob_nfa", "eval_rules", "eval_rules_scan",
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
+# the admission batcher launches from several flush threads at once, and
+# ``LAUNCHES[name] += 1`` is a read and a write a thread switch can split
+_launch_lock = threading.Lock()
+
+
+def note_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` (exact under threads)."""
+    with _launch_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launch_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def nvcc() -> str:

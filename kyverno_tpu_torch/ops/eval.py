@@ -749,7 +749,7 @@ def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
             match_nv.data_ptr(), plan.tile_ptr, plan.n_tiles,
             _LAST_LAUNCH_PTR, out.data_ptr(), _build.stream_handle(dev))
     _build.check("eval_rules", err)
-    _build.LAUNCHES["eval_rules"] += 1
+    _build.note_launch("eval_rules")
     return out
 
 
@@ -844,7 +844,7 @@ def eval_rules_scan(plan: Plan, blob, B: int, P: int, E: int, V: int,
             match_nv.data_ptr(), plan.tile_ptr, T, _LAST_LAUNCH_PTR,
             buf.data_ptr(), _build.stream_handle(dev))
     _build.check("eval_rules_scan", err)
-    _build.LAUNCHES["eval_rules_scan"] += 1
+    _build.note_launch("eval_rules_scan")
     return masks
 
 
@@ -875,7 +875,7 @@ def scan_reduce(fail_m, pass_m, host_m, B: int):
             host_m.shape[0], G, R, B, counts.data_ptr(),
             host_rows.data_ptr(), _build.stream_handle(dev))
     _build.check("scan_counts", err)
-    _build.LAUNCHES["scan_counts"] += 1
+    _build.note_launch("scan_counts")
     return counts[0], counts[1], host_rows
 
 

@@ -175,5 +175,5 @@ def glob_match_matrix(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
             str_bytes.data_ptr(), str_len.data_ptr(), str_len.stride(0), v,
             out.data_ptr(), _build.stream_handle(dev))
     _build.check("glob_nfa", err)
-    _build.LAUNCHES["glob_nfa"] += 1
+    _build.note_launch("glob_nfa")
     return out

@@ -28,6 +28,10 @@ class Switch:
 _S = Switch
 
 REGISTRY: dict[str, Switch] = {s.name: s for s in (
+    # -- compile plane
+    _S("KTPU_INCREMENTAL", "kyverno_tpu_torch.models.compiler",
+       "tests/test_torch_incremental.py", "1",
+       "segment splicing, epoch-keyed memo survival, rule bucketing"),
     # -- flatten plane
     _S("KTPU_NATIVE", "kyverno_tpu_torch.models.native_flatten",
        "tests/test_torch_native_flatten.py", "1",
@@ -48,6 +52,14 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
     _S("KTPU_HOST_FANOUT", "kyverno_tpu_torch.runtime.hostlane",
        "tests/test_torch_hostlane.py", "1",
        "thread fan-out for multi-resource host resolution"),
+    # -- streaming plane
+    _S("KTPU_STREAM", "kyverno_tpu_torch.runtime.batch",
+       "tests/test_torch_admission.py", "1",
+       "continuous batching admission lane"),
+    _S("KTPU_DONATE", "kyverno_tpu_torch.models.engine",
+       "tests/test_torch_admission.py", "1",
+       "K6: pinned staging and a persistent device blob per shape bucket "
+       "on the stable-shape device call"),
     # -- observability plane
     _S("KTPU_TRACE", "kyverno_tpu_torch.runtime.tracing",
        "tests/test_torch_pipeline.py", "1",
@@ -68,6 +80,12 @@ def raw(name: str) -> str:
 def enabled(name: str) -> bool:
     """The kill-switch convention: anything but "0" is on."""
     return raw(name) != "0"
+
+
+def enabled_strict(name: str) -> bool:
+    """The stricter convention (KTPU_INCREMENTAL): "0", "false" and the
+    empty string all disable."""
+    return raw(name) not in ("0", "false", "")
 
 
 def int_value(name: str) -> int:

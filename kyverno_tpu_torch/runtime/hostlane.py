@@ -22,10 +22,14 @@ mechanisms, each behind its own kill switch:
 3. **Fan-out** (``KTPU_HOST_FANOUT``) — multi-resource resolution
    batches fan out over a small thread pool. The oracle holds the GIL,
    so the threads overlap its work with the caller's own (the device
-   dispatch, the next chunk's flatten) more than with each other.
+   dispatch, the next chunk's flatten) more than with each other. Under
+   the same switch, request-faithful, pool-safe resolutions route
+   through an attached ``OraclePool`` (spawned worker processes, which
+   do run in parallel) when it is warm for the current policy
+   generation; a pool miss resolves inline, with equal verdicts.
 
-The executor threads run the oracle only: no thread but the caller's
-launches a kernel or copies a tensor.
+The executor threads run the oracle only: none of them launches a
+kernel or copies a tensor.
 
 With all three switches off, :func:`HostLaneResolver.resolve_rows`
 degenerates to exactly the serial per-resource loop — same iteration
@@ -41,7 +45,7 @@ import os
 import threading
 import time
 
-from ..models.engine import Verdict
+from ..models.engine import _STATUS_TO_VERDICT, Verdict
 from . import featureplane, tracing
 from .resourcecache import HostVerdictCache
 
@@ -56,6 +60,11 @@ def memo_enabled() -> bool:
 
 def fanout_enabled() -> bool:
     return featureplane.enabled("KTPU_HOST_FANOUT")
+
+
+# a pool resolution's timeout: the JAX package's default, the one its
+# host lane passes with the SLO actions plane off
+POOL_TIMEOUT_S = 3.0
 
 
 _cache: HostVerdictCache | None = None
@@ -128,14 +137,19 @@ class HostPrefetch:
 
 class HostLaneResolver:
     """Singleton engine behind resolve_host_cells: owns the fan-out
-    executor and the memoized per-resource oracle core."""
+    executor, the optional OraclePool attachment, and the memoized
+    per-resource oracle core."""
 
     def __init__(self, max_workers: int | None = None):
         self._lock = threading.Lock()
         self._executor = None
         self._max_workers = max_workers or max(
             2, min(8, (os.cpu_count() or 1)))
-        self.stats = {"prefetch_submitted": 0, "fanout_batches": 0}
+        self._pool = None                  # OraclePool
+        self._pool_cache = None            # PolicyCache (generation source)
+        self._gen_ids: tuple = (None, frozenset())
+        self.stats = {"prefetch_submitted": 0, "prefetch_applied": 0,
+                      "fanout_batches": 0, "pool_cells": 0}
 
     # ------------------------------------------------------------ wiring
 
@@ -149,6 +163,35 @@ class HostLaneResolver:
                         max_workers=self._max_workers,
                         thread_name_prefix="ktpu-hostlane")
         return self._executor
+
+    def attach_pool(self, pool, policy_cache) -> None:
+        """Give the resolver an OraclePool plus the PolicyCache whose
+        generation counter vouches for the pool's worker policy sets.
+        Routing stays generation-safe: a batch only goes to the pool
+        when the pool is warm for the cache's *current* generation and
+        every policy in the batch is an object of that generation —
+        verdicts from one generation's workers can never scatter into
+        another generation's matrix."""
+        with self._lock:
+            self._pool = pool
+            self._pool_cache = policy_cache
+            self._gen_ids = (None, frozenset())
+
+    def _generation_ids(self):
+        """(generation, frozenset of live policy ids) snapshot, cached
+        per generation (PolicyCache.snapshot copies under its lock)."""
+        cache = self._pool_cache
+        if cache is None:
+            return None, frozenset()
+        gen = cache.generation
+        with self._lock:
+            if self._gen_ids[0] == gen:
+                return self._gen_ids
+        gen2, policies = cache.snapshot()
+        ids = frozenset(id(p) for p in policies)
+        with self._lock:
+            self._gen_ids = (gen2, ids)
+        return gen2, ids
 
     # ------------------------------------------------- static candidates
 
@@ -194,11 +237,13 @@ class HostLaneResolver:
 
     def prefetch(self, cps, resources: list[dict],
                  contexts: list | None = None,
-                 rule_filter=None) -> HostPrefetch | None:
+                 rule_filter=None,
+                 context_for=None) -> HostPrefetch | None:
         """Start resolving the statically-known HOST cells on the
         executor; returns a join handle (or None when disabled / no
         candidates). Call at device-dispatch time; ``apply`` at scatter
-        time."""
+        time. ``context_for(row)`` lazily builds the admission payload
+        for rows that actually have candidates (the batcher's ctx_cb)."""
         if not prefetch_enabled():
             return None
         candidates = self.candidate_rows(cps, resources, rule_filter)
@@ -224,11 +269,20 @@ class HostLaneResolver:
         cells = 0
         for b, rows in candidates.items():
             context = contexts[b] if contexts is not None else None
+            if context is None and context_for is not None:
+                try:
+                    context = context_for(b)
+                except Exception:
+                    context = None
             futs[b] = ex.submit(run, resources[b], rows, context)
             cells += len(rows)
         with self._lock:
             self.stats["prefetch_submitted"] += cells
         return HostPrefetch(futs, cells)
+
+    def note_applied(self, cells: int) -> None:
+        with self._lock:
+            self.stats["prefetch_applied"] += cells
 
     # -------------------------------------------------------- resolution
 
@@ -271,8 +325,8 @@ class HostLaneResolver:
     def resolve_resource(self, cps, resource: dict, rule_rows: list[int],
                          context: dict | None, trace=None) -> dict:
         """{rule_index: (Verdict, message)} for one resource's HOST
-        cells — memo lookups first, then one inline oracle pass for the
-        misses (the JAX package may route them to its oracle pool).
+        cells — memo lookups first, then one oracle pass for the misses
+        (pool workers when eligible, inline otherwise).
         ``trace`` carries the caller's trace onto executor threads
         (defaults to the thread-local current trace)."""
         if trace is None:
@@ -304,8 +358,8 @@ class HostLaneResolver:
             misses = still
         n_memo_hits = len(rule_rows) - len(misses)
         if misses:
-            fresh = cps._oracle_verdicts(resource, misses, context=context)
-            lane = "inline"
+            fresh, lane = self._oracle_misses(cps, resource, misses,
+                                              context)
             if memo is not None:
                 for r, cell in fresh.items():
                     key = keys.get(r)
@@ -322,6 +376,59 @@ class HostLaneResolver:
             misses=len(misses), lane=lane)
         return out
 
+    def _oracle_misses(self, cps, resource: dict, rule_rows: list[int],
+                       context: dict | None) -> tuple[dict, str]:
+        """Returns (verdicts, lane) — lane names which oracle served the
+        misses ("pool" workers vs the "inline" engine)."""
+        if fanout_enabled() and self._pool is not None:
+            routed = self._pool_resolve(cps, resource, rule_rows, context)
+            if routed is not None:
+                return routed, "pool"
+        return cps._oracle_verdicts(resource, rule_rows,
+                                    context=context), "inline"
+
+    def _pool_resolve(self, cps, resource: dict, rule_rows: list[int],
+                      context: dict | None):
+        """Route one resource's miss batch through OraclePool workers,
+        or None to resolve inline. Only request-faithful resolutions
+        (context carries a real admission request — the worker recipe
+        mirrors _request_policy_context exactly for those) of pool-safe
+        policies belonging to the pool's current generation qualify."""
+        pool = self._pool
+        if pool is None or not getattr(pool, "enabled", False):
+            return None
+        if not context or not context.get("request"):
+            return None
+        gen, live_ids = self._generation_ids()
+        if gen is None or not pool.ready(gen):
+            return None
+        policies = {}
+        for r in rule_rows:
+            policy = cps.rule_refs[r].policy
+            if id(policy) not in live_ids or not _policy_pure(policy):
+                return None
+            policies[policy.name] = policy
+        results = pool.evaluate_payload(list(policies), resource, context,
+                                        timeout_s=POOL_TIMEOUT_S)
+        if results is None:
+            return None
+        rows = {(pname, rname): (status, msg)
+                for pname, rules in results
+                for rname, status, msg in rules}
+        from ..engine.response import RuleStatus
+
+        out: dict[int, tuple] = {}
+        for r in rule_rows:
+            ref = cps.rule_refs[r]
+            cell = rows.get((ref.policy.name, ref.rule.name))
+            if cell is None:
+                out[r] = (Verdict.NOT_APPLICABLE, "")
+            else:
+                out[r] = (_STATUS_TO_VERDICT[RuleStatus(cell[0])], cell[1])
+        with self._lock:
+            self.stats["pool_cells"] += len(rule_rows)
+        return out
+
 
 def _scatter(verdicts, b: int, oracle: dict,
              messages_out: dict | None) -> int:
@@ -335,8 +442,9 @@ def _scatter(verdicts, b: int, oracle: dict,
 def _policy_pure(policy) -> bool:
     """Pure = verdict is a function of (policy, body) alone — the
     oracle_pool.pool_safe predicate (no cluster-state context entries),
-    cached on the policy object. Pure rules memoize with the long TTL;
-    context-dependent ones with the short TTL."""
+    cached on the policy object. Pure rules memoize with the long TTL
+    and may go to pool workers; context-dependent ones stay inline with
+    the short TTL."""
     ok = getattr(policy, "_ktpu_pool_safe", None)
     if ok is None:
         from .oracle_pool import pool_safe

@@ -1,10 +1,11 @@
-"""Content-addressed caches of the host lane.
+"""Content-addressed caches of the host side.
 
-:class:`HostVerdictCache` memoizes the CPU oracle's verdicts for HOST
-cells; :meth:`FlattenRowCache.digest` is the canonical body digest it
-keys on. The rest of the JAX package's module (the watch-maintained
-``ResourceCache`` and the flatten-row memo of ``FlattenRowCache``)
-comes with the flattener's row memo.
+:class:`FlattenRowCache` is the admission batcher's flatten-row memo
+(its :meth:`~FlattenRowCache.digest` is the canonical body digest both
+caches key on), and :class:`HostVerdictCache` memoizes the CPU oracle's
+verdicts for HOST cells. The JAX package's watch-maintained
+``ResourceCache`` (the cluster informer cache) comes with the client and
+the webhook.
 """
 
 from __future__ import annotations
@@ -14,8 +15,37 @@ import time
 
 
 class FlattenRowCache:
-    """The canonical digest of the flatten-row memo. Only the digest is
-    here so far: the host-verdict memo keys on it."""
+    """Content-addressed memo of per-resource flattened rows
+    (models/flatten.py PackedRow), keyed by (PolicyTensors fingerprint,
+    canonical resource digest).
+
+    The fingerprint covers exactly what flattening consumes — the path
+    dictionary and kind index — so a policy recompile that moves the
+    dictionary gets a different key space and stale rows can never splice
+    into a new tensor set's batch (no explicit invalidation protocol to
+    get wrong); recompiles that leave the dictionary untouched keep their
+    hits. The digest is the blake2b of the sorted-key JSON of the
+    (resource, request-envelope) pair — flattening never depends on dict
+    key order, so the canonicalization is sound, and resources that JSON
+    can't serialize simply skip the memo. LRU-bounded by row count.
+
+    With incremental compilation the key space is the dictionary lineage
+    (PolicyTensors.memo_space = dict_base) rather than the fingerprint,
+    and entries are MemoRow (models/flatten.py) carrying their epoch:
+    ``get_row``/``put_row`` revalidate rows across policy updates by
+    delta-flattening only the appended paths, so a policy-update storm
+    keeps the memo warm instead of flushing it. The JAX package's
+    cross-replica read-through (its fleet fabric) is not here."""
+
+    def __init__(self, max_rows: int = 4096):
+        from collections import OrderedDict
+
+        self.max_rows = max_rows
+        self._lock = threading.Lock()
+        self._rows: "OrderedDict[tuple[str, bytes], object]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.extended = 0         # epoch-refreshed survivals within hits
 
     @staticmethod
     def digest(resource: dict, request: dict | None = None) -> bytes | None:
@@ -29,6 +59,103 @@ class FlattenRowCache:
         except (TypeError, ValueError):
             return None
         return hashlib.blake2b(blob, digest_size=16).digest()
+
+    def get(self, fingerprint: str, digest: bytes | None):
+        if digest is None:
+            with self._lock:
+                self.misses += 1
+            return None
+        with self._lock:
+            row = self._rows.get((fingerprint, digest))
+            if row is None:
+                self.misses += 1
+                return None
+            self._rows.move_to_end((fingerprint, digest))
+            self.hits += 1
+            return row
+
+    def put(self, fingerprint: str, digest: bytes | None, row) -> None:
+        if digest is None:
+            return
+        with self._lock:
+            self._rows[(fingerprint, digest)] = row
+            self._rows.move_to_end((fingerprint, digest))
+            while len(self._rows) > self.max_rows:
+                self._rows.popitem(last=False)
+
+    def get_row(self, space: str, digest: bytes | None, resource: dict,
+                tensors, request: dict | None = None):
+        """Epoch-aware lookup for incremental tensor sets: returns the
+        memoized PackedRow revalidated against ``tensors`` (models/flatten
+        refresh_packed_row), or None on miss / foreign lineage. An
+        epoch-extended row counts as a hit — the prefix flatten work
+        survived the policy update."""
+        from ..models.flatten import MemoRow, refresh_packed_row
+
+        if digest is None:
+            with self._lock:
+                self.misses += 1
+            return None
+        key = (space, digest)
+        with self._lock:
+            memo = self._rows.get(key)
+            if isinstance(memo, MemoRow):
+                self._rows.move_to_end(key)
+            else:
+                memo = None
+        if memo is None:
+            with self._lock:
+                self.misses += 1
+            return None
+        refreshed, ext = refresh_packed_row(memo, resource, tensors,
+                                            request=request)
+        if refreshed is None:
+            with self._lock:
+                self._rows.pop(key, None)
+                self.misses += 1
+            return None
+        with self._lock:
+            self.hits += 1
+            if ext:
+                self.extended += 1
+                # a concurrent put may have stored a fresher entry; only
+                # upgrade our own stale one
+                if self._rows.get(key) is memo:
+                    self._rows[key] = refreshed
+        return refreshed.row
+
+    def put_row(self, space: str, digest: bytes | None, row,
+                n_paths: int, epoch: int,
+                fingerprint: str | None = None) -> None:
+        """Store a freshly-split PackedRow with its dictionary coordinates
+        so later epochs can revalidate instead of re-flattening.
+        ``fingerprint`` keys the JAX package's cross-replica tier, which
+        the port does not have; it is accepted and unused."""
+        from ..models.flatten import MemoRow
+
+        self.put(space, digest, MemoRow(row=row, n_paths=n_paths,
+                                        epoch=epoch))
+
+    def survival_ratio(self) -> float:
+        with self._lock:
+            total = self.hits + self.misses
+            return self.hits / total if total else 0.0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    def stats(self) -> dict:
+        with self._lock:
+            total = self.hits + self.misses
+            return {"rows": len(self._rows), "hits": self.hits,
+                    "misses": self.misses, "extended": self.extended,
+                    "survival_ratio": (self.hits / total if total
+                                       else 0.0)}
+
+    def clear(self) -> None:
+        with self._lock:
+            self._rows.clear()
 
 
 class HostVerdictCache:

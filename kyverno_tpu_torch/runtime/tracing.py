@@ -1,7 +1,8 @@
 """Span recorder + flight recorder for scan chunks and host-lane work.
 
-Every scan chunk gets a trace; the stages it passes through (flatten,
-device dispatch, host-lane prefetch / memo / join, host resolve) record
+Every scan chunk and admission flush gets a trace; the stages it passes
+through (flatten, device dispatch, host-lane prefetch / memo / join, host
+resolve, scatter) record
 spans with *lane provenance* — which KTPU_* kill-switch path served the
 stage — so "where did this chunk spend its time" is answerable from the
 runtime.
@@ -20,7 +21,9 @@ Design constraints, in order:
    by duration). Traces cap their span count (``max_spans``) with an
    explicit ``spans_dropped`` counter instead of silent truncation.
 3. **Cross-thread attribution.** The thread that owns a trace binds it
-   with :func:`active` (a ``contextvars.ContextVar``); work handed to
+   with :func:`active` or :func:`bind` (a ``contextvars.ContextVar``);
+   a flush's spans are adopted by every waiter's trace
+   (:meth:`Trace.adopt_spans`); work handed to
    executor threads carries the trace explicitly. Spans carry a ``tid``
    (thread lane).
 
@@ -126,8 +129,54 @@ class Trace:
             return
         self.spans.append(span)
 
+    def adopt_spans(self, spans: list[Span]) -> None:
+        """Attach another trace's (finished, immutable) spans — how a
+        shared flush's work is attributed to every waiter's trace."""
+        for s in spans:
+            self.add_span(s)
+
     def stage_names(self) -> set:
         return {s.name for s in self.spans}
+
+
+class _NoOpSpan:
+    """Shared no-op context manager: the disabled/no-trace fast path."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOOP = _NoOpSpan()
+
+
+class _LiveSpan:
+    __slots__ = ("_trace", "_name", "_labels", "_t0")
+
+    def __init__(self, trace: Trace, name: str, labels: dict | None):
+        self._trace = trace
+        self._name = name
+        self._labels = labels
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def label(self, **kv) -> None:
+        """Stamp labels discovered mid-stage (memo hit counts, lanes)."""
+        if self._labels is None:
+            self._labels = {}
+        self._labels.update(kv)
+
+    def __exit__(self, *exc):
+        self._trace.add_span(Span(
+            self._name, self._t0, time.perf_counter(),
+            threading.current_thread().name, self._labels))
+        return False
 
 
 class TraceRecorder:
@@ -164,10 +213,17 @@ class TraceRecorder:
         self.stats["started"] += 1
         return t
 
+    def span(self, trace: Trace | None, name: str, **labels):
+        """Context manager recording one stage span onto ``trace``."""
+        if trace is None:
+            return _NOOP
+        return _LiveSpan(trace, name, labels or None)
+
     def add_span(self, trace: Trace | None, name: str, t0: float,
                  t1: float, tid: str | None = None, **labels) -> Span | None:
         """Explicit-timestamp span (perf_counter seconds) — for stages
-        measured on threads that can't hold a context manager open."""
+        measured on threads that can't hold a context manager open.
+        Returns the Span (callers share it with sibling traces)."""
         if trace is None:
             return None
         span = Span(name, t0, t1,
@@ -262,3 +318,13 @@ def active(trace: Trace | None):
         yield trace
     finally:
         _current.reset(token)
+
+
+def bind(trace: Trace | None):
+    """Imperative form of :func:`active` for frames whose try/finally
+    structure can't nest a with-block; pair with :func:`unbind`."""
+    return _current.set(trace)
+
+
+def unbind(token) -> None:
+    _current.reset(token)

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of kyverno_tpu_torch
-loads neither jax nor any module of the JAX package (kyverno_tpu), the
-package's sources name neither in an import, and no source of the port
-(Python, CUDA or C++) names a path under the JAX package's ``native/``
-or ``kyverno_tpu/`` directories."""
+(the admission path's too) loads neither jax nor any module of the JAX
+package (kyverno_tpu), the package's sources name neither in an import,
+no source of the port (Python, CUDA or C++) names a path under the JAX
+package's ``native/`` or ``kyverno_tpu/`` directories, and what an
+oracle-pool worker imports loads no torch."""
 
 import json
 import os
@@ -31,6 +32,29 @@ def test_port_imports_no_jax_and_no_jax_package():
         " or m == 'jaxlib' or m.startswith('jaxlib.')"
         " or m == 'kyverno_tpu' or m.startswith('kyverno_tpu.')]\n"
         "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_admission_modules_are_checked():
+    mods = _port_modules()
+    for m in ("runtime.batch", "runtime.policycache", "runtime.oracle_pool",
+              "runtime.resourcecache", "runtime.hostlane"):
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def test_oracle_pool_worker_modules_load_no_torch():
+    """What an oracle-pool worker imports (the pool module, the loader
+    and the CPU oracle) loads neither torch nor jax."""
+    code = (
+        "import json, sys\n"
+        "import kyverno_tpu_torch.runtime.oracle_pool as op\n"
+        "op._worker_init([])\n"
+        "op._worker_evaluate([], {}, {}, {}, [], [], [])\n"
+        "print(json.dumps([m for m in ('torch', 'jax', 'numpy') "
+        "if m in sys.modules]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
