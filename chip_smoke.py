@@ -4,6 +4,8 @@ its plain PyTorch version.
     python3 chip_smoke.py            # all phases (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs,
                                      # flatten parity, evaluate() at 1,000
+    python3 chip_smoke.py --all-cards  # build + the mesh scan over every card
+                                       # (two or more) against one card's
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -12,7 +14,9 @@ Phases:
                code) beside them, at the same time
   2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch), its
                scan form (FAIL / PASS / HOST bit masks instead of the
-               verdicts) and K5 (the counts from the masks) against
+               verdicts), K5 (the counts from the masks) and K7's
+               rule_counts (per-rule FAIL / PASS counts over every row,
+               of the matrix and of a column slice of it) against
                their plain versions, on the card, with zero tolerance
                (the outputs are integers and booleans), and scan_blob
                (K1 -> scan form -> K5) against the counts of the
@@ -74,17 +78,44 @@ Phases:
                after it; the library's 250 x 10k resolved matrix through
                the cache, incremental and with KTPU_INCREMENTAL=0, equal
                to the pinned sha256
-  8. scan      every chunk of the 1M scan equal to the plain pipeline's
+  8. background the background scan path, each run with the launch
+               counters set to 0 just before and read just after.
+               [background]: BackgroundScanner over the library with a
+               ReportGenerator, 10,000 resources, through the single
+               lane (KTPU_INCREMENTAL=0), the incremental lane, the 1D
+               mesh of the card and the 2D (4, 1) mesh of it: each
+               lane's responses (and the incremental lane's
+               verdict_matrix()) state the pinned resolved matrix;
+               violations, rule results, responses and aggregate()'s
+               per-policy totals equal across lanes; the launches each
+               lane must make; then a one-policy update, 90 MODIFIED and
+               10 DELETED watch events and delta_scan(), whose
+               verdict_matrix() equals a fresh scanner's full scan.
+               [mesh2d]: sharded_scan of a ShardedPolicySet of the
+               library on the (4, 1) mesh over the same 10,000: K1,
+               eval_rules and rule_counts once a shard, matrix and counts
+               equal to the 1D scan's. [mesh]: sharded_scan on the 1D
+               mesh over 131,072 resources (two chunks of 65,536 through
+               the worker pool): K1, eval_rules and rule_counts once a
+               chunk, every chunk's rule_counts equal to its plain
+               version on the same device matrix, no HOST cell, the
+               counts equal to the matrix's column sums, the first
+               10,000 rows equal to the 2D scan's and the pinned sha256
+  9. scan      every chunk of the 1M scan equal to the plain pipeline's
                counts on the card, and its first chunk to the verdict
                matrix's
-  9. times     median of CUDA-event times over warm launches for every
+ 10. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
                eval_rules, its scan form, K5 and scan_blob also at
                B = 100,000, where scan_blob is held to launch exactly K1,
                the scan form and K5 and to allocate no [B, R] matrix;
-               eval_rules at two smaller tile budgets
+               eval_rules at two smaller tile budgets; rule_counts at
+               the mesh scan's chunk (65,536 rows) and at 10,000, beside
+               the two-call torch expression that computes the same
+               counts (its yardstick; the port never calls it on the
+               card)
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure raises and
@@ -518,6 +549,15 @@ EXPECTED_EVAL_HIST_1K = [116000, 107800, 26200, 0, 0, 0]
 EXPECTED_EVAL_SHA_1K = "be4ff425ca5e5835c24af4485f5d6a5f4cd64517b4ea505ec41c85574c0b9da5"
 # the kernels of the evaluate() path
 EVALUATE_KERNELS = ("glob_nfa", "eval_rules")
+# the kernels of the main path (evaluate_device and the 1M scan)
+MAIN_KERNELS = ("glob_nfa", "eval_rules", "eval_rules_scan", "scan_counts")
+# the kernels of K7's program, the mesh scan's: each launched once a chunk
+# and a data shard (a policy shard row, on a 2D mesh)
+MESH_KERNELS = ("glob_nfa", "eval_rules", "rule_counts")
+# the background scan of BASELINE config 5 on a mesh, cut to two full
+# chunks of DEFAULT_CHUNK so that the worker pool runs (the oracle's cost
+# of a fresh 1M snapshot is the limit)
+MESH_RESOURCES = 131_072
 # H100 SXM memory rate (data sheet). Every kernel here is bytes-bound: per
 # element the function needs a few dozen integer operations (one NFA step
 # per string byte, one compare per slot, one list entry per reduction),
@@ -533,6 +573,8 @@ KERNEL_SOURCES = {
                         "kyverno_tpu/ops/eval.py:966"),
     "scan_counts": ("kyverno_tpu_torch/csrc/scan_counts.cu",
                     "kyverno_tpu/ops/eval.py:967"),
+    "rule_counts": ("kyverno_tpu_torch/csrc/rule_counts.cu",
+                    "kyverno_tpu/parallel/mesh.py:173"),
 }
 
 
@@ -623,6 +665,13 @@ class Stages:
         n3 = same(f"{label} eval_rules scan form", s_k,
                   self.ev.scan_masks_plain(plan, v_k))
         n5 = same(f"{label} K5", self.k5(s_k), self.k5(s_k, plain=True))
+        # K7's counts over the matrix and over its live-column slice
+        live = v_k[:, :max(1, v_k.shape[1] - 7)]
+        n7 = (same(f"{label} rule_counts", self.ev.rule_counts(v_k),
+                   self.ev.rule_counts_plain(v_k))
+              + same(f"{label} rule_counts of a column slice",
+                     self.ev.rule_counts(live),
+                     self.ev.rule_counts_plain(live.contiguous())))
         counts = self.ev.scan_counts_plain(v_k)
         same(f"{label} scan_blob", self.scan(plan), counts)
         # and the whole plain pipeline from the blob alone
@@ -637,7 +686,7 @@ class Stages:
                 "dropped": int(((in_host == 1) | (in_host == 2)).sum())}
         torch.cuda.synchronize()
         return {"glob_nfa": n1, "eval_rules": n2, "eval_rules_scan": n3,
-                "scan_counts": n5}, seen
+                "scan_counts": n5, "rule_counts": n7}, seen
 
     def launch(self, plan=None) -> tuple:
         """The block size and shared memory of the last eval_rules launch
@@ -951,7 +1000,7 @@ def pipelined_phase(cps, n: int, chunk: int = 1024) -> dict:
                 else:
                     os.environ[k] = v
         want = {"glob_nfa": n_chunks, "eval_rules": n_chunks,
-                "eval_rules_scan": 0, "scan_counts": 0}
+                "eval_rules_scan": 0, "scan_counts": 0, "rule_counts": 0}
         check(launches == want, f"evaluate_pipelined ({mode}) launched "
               f"{launches}, not {want}")
         check(not (got == 5).any(), f"evaluate_pipelined ({mode}) left "
@@ -1556,6 +1605,488 @@ def admission_phase(library_docs: list) -> dict:
     return out
 
 
+def matrix_sha(m: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(m).tobytes()).hexdigest()
+
+
+def scan_spans(lane: str, n: int) -> dict:
+    """Seconds of each span of the last ``n`` scan_chunk traces of
+    ``lane``, summed over the chunks."""
+    from kyverno_tpu_torch.runtime import tracing
+
+    traces = [t for t in tracing.recorder().traces(n=64)
+              if t.kind == "scan_chunk" and t.labels.get("lane") == lane][:n]
+    check(len(traces) == n, f"{len(traces)} {lane} chunk traces, not {n}")
+    out = {}
+    for tr in traces:
+        check(tr.spans_dropped == 0, f"a {lane} chunk trace dropped "
+              f"{tr.spans_dropped} spans")
+        for sp in tr.spans:
+            out[sp.name] = out.get(sp.name, 0.0) + sp.duration_s
+    return out
+
+
+class AllSpans:
+    """While entered, a new trace keeps every span: the host lane adds
+    two a row, and a chunk of the mesh scan has 65,536 rows."""
+
+    def __enter__(self):
+        from kyverno_tpu_torch.runtime import tracing
+
+        self.rec = tracing.recorder()
+        self.saved = self.rec.max_spans
+        self.rec.max_spans = 1 << 20
+        return self
+
+    def __exit__(self, *exc):
+        self.rec.max_spans = self.saved
+
+
+class CheckedRuleCounts:
+    """While entered, every ``rule_counts`` launch of the port (through
+    ``ops.eval.rule_counts``, which parallel/mesh.py calls) is held to
+    ``rule_counts_plain`` on the same device matrix, exactly. The plain
+    version counts no launch."""
+
+    def __init__(self):
+        from kyverno_tpu_torch.ops import eval as ev
+
+        self.ev, self.real, self.calls, self.cells = ev, ev.rule_counts, 0, 0
+        self._lock = threading.Lock()
+
+    def __call__(self, verdict):
+        out = self.real(verdict)
+        n = same(f"rule_counts of a {tuple(verdict.shape)} mesh chunk", out,
+                 self.ev.rule_counts_plain(verdict))
+        with self._lock:
+            self.calls += 1
+            self.cells += n
+        return out
+
+    def __enter__(self):
+        self.ev.rule_counts = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ev.rule_counts = self.real
+
+
+def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
+    """[mesh]: ``sharded_scan`` of MESH_RESOURCES mixed resources on the
+    1D one-card mesh, with the launch counters set to 0 just before and
+    read just after: no HOST cell left, the first 10,000 rows equal to
+    ``first`` (the 2D scan's matrix of them) and to the pinned sha256,
+    the counts equal to the matrix's column sums, every chunk's
+    rule_counts equal to its plain version, each of K1, eval_rules and
+    rule_counts launched once a chunk. Returns the launches."""
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.parallel import mesh as mesh_mod
+    from kyverno_tpu_torch.runtime import hostlane
+
+    t0 = time.perf_counter()
+    resources = [mixed_resource(i) for i in range(MESH_RESOURCES)]
+    make_s = time.perf_counter() - t0
+    chunks = -(-MESH_RESOURCES // mesh_mod.DEFAULT_CHUNK)
+    m0 = hostlane.host_cache().stats()
+    _build.reset_launches()
+    with CheckedRuleCounts() as checked, AllSpans():
+        t0 = time.perf_counter()
+        v, fails, passes = mesh_mod.sharded_scan(
+            cps, resources, mesh_1d, chunk_size=mesh_mod.DEFAULT_CHUNK)
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    hits, misses = memo_delta(m0, hostlane.host_cache().stats())
+    spans = scan_spans("mesh", chunks)
+    log(f"[mesh] launches of sharded_scan at {MESH_RESOURCES} in {chunks} "
+        f"chunks on {mesh_1d}: {launches}")
+    shards = mesh_mod.data_axis_size(mesh_1d)
+    for name in MESH_KERNELS:
+        check(launches[name] == chunks * shards,
+              f"sharded_scan launched {name} {launches[name]} times, not "
+              f"once a chunk and a data shard ({chunks * shards})")
+    check(checked.calls == chunks * shards,
+          f"{checked.calls} rule_counts launches held to the plain version")
+    check(v.shape == (MESH_RESOURCES, cps.tensors.n_rules_live)
+          and v.dtype == np.int8, f"sharded_scan gave {v.dtype}{v.shape}")
+    check(not (v == 5).any(), f"sharded_scan left {int((v == 5).sum())} "
+          "HOST cells")
+    check(fails.dtype == passes.dtype == np.int64, "counts are not int64")
+    check(np.array_equal(fails, (v == 2).sum(axis=0))
+          and np.array_equal(passes, (v == 1).sum(axis=0)),
+          "sharded_scan's counts differ from the matrix's column sums")
+    head = v[:first.shape[0]]
+    check(matrix_sha(head) == EXPECTED_EVAL_SHA,
+          f"sharded_scan's first {first.shape[0]} rows: sha256 "
+          f"{matrix_sha(head)} != {EXPECTED_EVAL_SHA}")
+    check(np.array_equal(head, first), "the 1D scan's first rows differ "
+          "from the 2D scan's")
+    log(f"[mesh] sharded_scan of {MESH_RESOURCES} resources: {wall:.3f} s "
+        f"wall (making them {make_s:.3f} s apart); spans summed over the "
+        f"chunks' worker threads: flatten {spans.get('flatten', 0):.3f} s, "
+        f"device_dispatch {spans.get('device_dispatch', 0):.3f} s, "
+        f"host_resolve {spans.get('host_resolve', 0):.3f} s (memo {hits} "
+        f"hits, {misses} misses); no HOST cell; "
+        f"first {first.shape[0]} rows sha256 {EXPECTED_EVAL_SHA[:8]}… and equal to "
+        f"the 2D scan's; fails {int(fails.sum())}, passes "
+        f"{int(passes.sum())} = the column sums; rule_counts equal to its "
+        f"plain version on {checked.calls} chunk matrices "
+        f"({checked.cells} counts)")
+    return {"launches": launches, "wall_s": wall, "spans": spans}
+
+
+def mesh2d_phase(cps, mesh_1d, n: int = 10_000) -> tuple[dict, np.ndarray]:
+    """[mesh2d]: the library as a ShardedPolicySet on the 2D (4, 1) mesh
+    of one card over mixed_resource(0..n-1), with the launch counters set
+    to 0 just before and read just after: every shard's eval_rules, K1
+    and rule_counts launched once; the matrix and counts equal to the 1D
+    scan's of the same resources, the matrix to the pinned sha256.
+    Returns (launches, the matrix)."""
+    import torch
+
+    from kyverno_tpu_torch.models.engine import ShardedPolicySet
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.parallel import mesh as mesh_mod
+
+    resources = [mixed_resource(i) for i in range(n)]
+    t0 = time.perf_counter()
+    v1, f1, p1 = mesh_mod.sharded_scan(cps, resources, mesh_1d)
+    one_s = time.perf_counter() - t0
+    mesh = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4, shape=(4, 1))
+    t0 = time.perf_counter()
+    sps = ShardedPolicySet(4, device="cuda").refresh(cps.policies)
+    shard_s = time.perf_counter() - t0
+    _build.reset_launches()
+    with CheckedRuleCounts() as checked, AllSpans():
+        t0 = time.perf_counter()
+        v2, f2, p2 = mesh_mod.sharded_scan(sps, resources, mesh)
+        wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    spans = scan_spans("mesh2d", 1)
+    log(f"[mesh2d] launches of sharded_scan at {n} on {mesh}: {launches}")
+    for name in MESH_KERNELS:
+        check(launches[name] == len(sps.shards) == 4,
+              f"the 2D scan launched {name} {launches[name]} times, not "
+              f"once a shard ({len(sps.shards)} shards)")
+    check(checked.calls == 4, f"{checked.calls} rule_counts launches held "
+          "to the plain version")
+    check(not (v2 == 5).any(), "the 2D scan left HOST cells")
+    check(v2.dtype == v1.dtype and np.array_equal(v2, v1),
+          "the 2D scan's matrix differs from the 1D scan's")
+    check(np.array_equal(f2, f1) and np.array_equal(p2, p1),
+          "the 2D scan's counts differ from the 1D scan's")
+    check(matrix_sha(v2) == EXPECTED_EVAL_SHA,
+          f"the 2D scan's sha256 {matrix_sha(v2)} != {EXPECTED_EVAL_SHA}")
+    log(f"[mesh2d] {sps.n_shards} policy shards built in {shard_s:.3f} s: "
+        f"rules {sps.shard_rule_counts()}, tensor bytes "
+        f"{sps.shard_tensor_bytes()}; 2D scan {wall:.3f} s (flatten "
+        f"{spans.get('flatten', 0):.3f}, device_dispatch "
+        f"{spans.get('device_dispatch', 0):.3f}, host_resolve "
+        f"{spans.get('host_resolve', 0):.3f}); the 1D scan of the same "
+        f"{n} {one_s:.3f} s; matrix and counts equal bit for bit, sha256 "
+        f"{EXPECTED_EVAL_SHA[:8]}…")
+    return launches, v2
+
+
+def scan_split() -> dict:
+    """Seconds of the newest scan trace's own spans: ``scan_evaluate``
+    (the lane's verdicts, host lane included) and ``scan_responses``
+    (the responses built from them)."""
+    from kyverno_tpu_torch.runtime import tracing
+
+    tr = next(t for t in tracing.recorder().traces(n=64) if t.kind == "scan")
+    check(tr.spans_dropped == 0, f"the scan trace dropped {tr.spans_dropped} "
+          "spans")
+    out = {"scan_evaluate": 0.0, "scan_responses": 0.0}
+    for sp in tr.spans:
+        if sp.name in out:
+            out[sp.name] += sp.duration_s
+    return out
+
+
+def response_matrix(result, rule_refs, resources) -> np.ndarray:
+    """The verdict matrix [B, R] (rule order) that a scan's responses
+    state: each response's rule statuses at its resource's row and its
+    rule's column, NOT_APPLICABLE where no response names the cell."""
+    code = {"pass": 1, "fail": 2, "skip": 3, "error": 4}
+    row = {(r.get("kind", ""), (r.get("metadata") or {}).get("namespace", ""),
+            (r.get("metadata") or {}).get("name", "")): b
+           for b, r in enumerate(resources)}
+    col = {(ref.policy.name, ref.rule.name): ref.rule_index
+           for ref in rule_refs}
+    out = np.zeros((len(resources), len(col)), dtype=np.int8)
+    for resp in result.responses:
+        pr = resp.policy_response
+        b = row[(pr.resource.kind, pr.resource.namespace, pr.resource.name)]
+        for rr in pr.rules:
+            out[b, col[(pr.policy.name, rr.name)]] = code[rr.status.value]
+    return out
+
+
+def state_matrix(scanner) -> tuple[list, np.ndarray]:
+    """The scanner's persisted verdict_matrix() with its columns in rule
+    order (it keeps them sorted by (policy, rule))."""
+    keys, ckeys, m = scanner.verdict_matrix()
+    at = {c: j for j, c in enumerate(ckeys)}
+    order = [at[(ref.policy.name, ref.rule.name)]
+             for ref in scanner.cps.rule_refs]
+    return keys, np.ascontiguousarray(m[:, order])
+
+
+def report_totals(reports: list) -> dict:
+    """Per-policy pass and fail totals of aggregate()'s reports."""
+    out = {}
+    for rep in reports:
+        for r in rep["results"]:
+            t = out.setdefault(r["policy"], [0, 0])
+            if r["result"] == "pass":
+                t[0] += 1
+            elif r["result"] == "fail":
+                t[1] += 1
+    return out
+
+
+def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
+    """[background]: BackgroundScanner over the library with a
+    ReportGenerator, n resources, through each lane of scan() with the
+    launch counters set to 0 just before and read just after; then a
+    one-policy update, 90 MODIFIED and 10 DELETED watch events and
+    delta_scan(), against a fresh scanner's full scan of the same state.
+    Returns each lane's launches."""
+    import torch
+
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.parallel import mesh as mesh_mod
+    from kyverno_tpu_torch.runtime.background import BackgroundScanner
+    from kyverno_tpu_torch.runtime.reports import ReportGenerator
+
+    resources = [mixed_resource(i) for i in range(n)]
+    mesh_2d = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4, shape=(4, 1))
+    # lane: (environment, mesh, expected launches of K1, eval_rules and
+    # rule_counts)
+    lanes = [("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0)),
+             ("incremental", {}, None, (1, 1, 0)),
+             ("mesh 1D", {}, mesh_1d, (1, 1, 1)),
+             ("mesh 2D (4, 1)", {}, mesh_2d, (4, 4, 4))]
+    seen, out = None, {}
+    for name, env, mesh, want in lanes:
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            reports = ReportGenerator()
+            t0 = time.perf_counter()
+            sc = BackgroundScanner([load_policy(d) for d in library_docs],
+                                   report_gen=reports, mesh=mesh)
+            compile_s = time.perf_counter() - t0
+            _build.reset_launches()
+            with AllSpans():
+                t0 = time.perf_counter()
+                result = sc.scan(resources)
+                scan_s = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            split = scan_split()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        got = tuple(launches[k] for k in MESH_KERNELS)
+        check(got == want, f"[background] {name}: launches {launches}, "
+              f"expected {dict(zip(MESH_KERNELS, want))}")
+        m = response_matrix(result, sc.cps.rule_refs, resources)
+        check(matrix_sha(m) == EXPECTED_EVAL_SHA,
+              f"[background] {name}: the responses' matrix sha256 "
+              f"{matrix_sha(m)} != {EXPECTED_EVAL_SHA}")
+        state = sc.verdict_matrix()
+        check((state is not None) == (name == "incremental"),
+              f"[background] {name}: verdict_matrix() {state is not None}")
+        if state is not None:
+            keys, sm = state_matrix(sc)
+            check(keys == [sc._res_key(r) for r in resources]
+                  and matrix_sha(sm) == EXPECTED_EVAL_SHA,
+                  f"[background] {name}: verdict_matrix() sha256 "
+                  f"{matrix_sha(sm)} != {EXPECTED_EVAL_SHA}")
+        t0 = time.perf_counter()
+        totals = report_totals(reports.aggregate())
+        aggregate_s = time.perf_counter() - t0
+        key = (result.violations, result.rules_evaluated,
+               len(result.responses), totals)
+        if seen is None:
+            seen = key
+        check(key == seen, f"[background] {name}: violations, rules, "
+              f"responses or report totals differ from the first lane's")
+        log(f"[background] {name}: scan {scan_s:.3f} s = evaluate "
+            f"{split['scan_evaluate']:.3f} + responses "
+            f"{split['scan_responses']:.3f} + report requests (the rest) "
+            f"{scan_s - split['scan_evaluate'] - split['scan_responses']:.3f} "
+            f"(compile {compile_s:.3f} s apart), aggregate() "
+            f"{aggregate_s:.3f} s; "
+            f"{result.violations} violations, {result.rules_evaluated} rule "
+            f"results, {len(result.responses)} responses, report totals of "
+            f"{len(totals)} policies equal across lanes; launches {launches}; "
+            f"sha256 {EXPECTED_EVAL_SHA[:8]}…")
+        out[name] = {"launches": launches, "scan_s": scan_s}
+        if name == "incremental":
+            inc = (sc, reports)
+        del sc, reports, result
+        gc.collect()
+
+    # delta: a one-policy update and 100 watch events on the incremental
+    # scanner
+    sc, reports = inc
+    docs = [dict(d) for d in library_docs]
+    j = next(i for i, d in enumerate(docs)
+             if "pattern" in d["spec"]["rules"][0]["validate"]
+             and "Pod" in d["spec"]["rules"][0]["match"]["resources"]["kinds"])
+    changed = json.loads(json.dumps(docs[j]))
+    changed["spec"]["rules"][0]["validate"]["pattern"] = {
+        "spec": {"containers": [{"image": "!*:1.21"}]}}
+    policies = list(sc.policies)
+    policies[j] = load_policy(changed)
+    current = {sc._res_key(r): r for r in resources}
+    modified = [i for i in range(n) if i % 10 < 9][:90]
+    deleted = [i for i in range(n) if i % 10 < 9][90:100]
+    for i in modified:
+        body = json.loads(json.dumps(resources[i]))
+        spec = body["spec"] if body["kind"] == "Pod" else \
+            body["spec"]["template"]["spec"]
+        spec["containers"][0]["image"] = f"registry.io/rebuilt/{i}:v9"
+        sc.note_resource("MODIFIED", body)
+        current[sc._res_key(body)] = body
+    for i in deleted:
+        sc.note_resource("DELETED", resources[i])
+        current.pop(sc._res_key(resources[i]))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    delta = sc.delta_scan(policies)
+    delta_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(delta.delta and delta.cols_evaluated == 1
+          and delta.rows_evaluated == len(modified),
+          f"delta_scan evaluated {delta.cols_evaluated} columns and "
+          f"{delta.rows_evaluated} rows")
+    check(launches["glob_nfa"] == 2 and launches["eval_rules"] == 2,
+          f"delta_scan launched {launches}")
+    after = list(current.values())
+    ref = BackgroundScanner(list(policies))
+    t0 = time.perf_counter()
+    ref.scan(after)
+    ref_s = time.perf_counter() - t0
+    k_a, m_a = state_matrix(sc)
+    k_b, m_b = state_matrix(ref)
+    check(k_a == k_b and np.array_equal(m_a, m_b),
+          "delta_scan's verdict_matrix() differs from a fresh full scan's")
+    check(not (m_a == 5).any() and m_a.shape == (n - len(deleted), len(docs)),
+          f"delta matrix {m_a.shape}")
+    totals = report_totals(reports.aggregate())
+    log(f"[background] delta_scan after a one-policy update "
+        f"({docs[j]['metadata']['name']}), {len(modified)} MODIFIED and "
+        f"{len(deleted)} DELETED: {delta_s:.3f} s, cols_evaluated "
+        f"{delta.cols_evaluated}, rows_evaluated {delta.rows_evaluated}, "
+        f"{len(delta.responses)} responses, launches {launches}; its "
+        f"verdict_matrix() equal to a fresh scanner's full scan "
+        f"({ref_s:.3f} s) of the same state; reports now hold "
+        f"{sum(sum(t) for t in totals.values())} pass and fail results")
+    out["delta"] = {"launches": launches, "scan_s": delta_s}
+    return out
+
+
+def rule_counts_times(cps, sizes=(65_536, 10_000)) -> dict:
+    """[times] for K7's counts: ``rule_counts`` on the card's verdict
+    matrix of the library at each size (evaluate_live over the first
+    mixed resources, the matrix the mesh scan counts), against its plain
+    version — the two-call torch expression, which is also its library
+    yardstick — and the bytes bound. Returns the row of the first size,
+    with the others under ``at``."""
+    import torch
+
+    from kyverno_tpu_torch.ops import eval as ev
+
+    smi = nvidia_smi_line()
+    row = None
+    for B in sizes:
+        batch = cps.flatten_packed([mixed_resource(i) for i in range(B)])
+        blob, shp = cps.to_device(batch)
+        live = cps.tensors.n_rules_live
+        v = ev.evaluate_live(cps.plan, blob, *shp, live)
+        torch.cuda.synchronize()
+        got, want = ev.rule_counts(v), ev.rule_counts_plain(v)
+        same(f"rule_counts at ({B}, {live})", got, want)
+        max_err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                      for a, b in zip(got, want))
+        ms = cuda_ms(lambda: ev.rule_counts(v), 50)
+        back = device_ms(lambda: ev.rule_counts(v))
+        plain_ms = cuda_ms(lambda: ev.rule_counts_plain(v), 50)
+        plain_back = device_ms(lambda: ev.rule_counts_plain(v))
+        nbytes = B * live + 8 * live
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"[times] rule_counts at B={B} R={live} (rows {v.stride(0)} bytes "
+            f"apart): {ms:.4f} ms a call between events, {back:.4f} ms on the "
+            f"card back to back; plain, the two-call torch yardstick, "
+            f"{plain_ms:.4f} ms between events, {plain_back:.4f} ms back to "
+            f"back; bound {bound:.5f} ms by bytes ({nbytes} bytes); "
+            f"{100 * bound / back:.2f}% of the bound back to back; {smi}")
+        entry = {"ms": ms, "device_ms": back, "plain_ms": plain_ms,
+                 "library_ms": plain_ms, "library_device_ms": plain_back,
+                 "bound_ms": bound, "bytes": nbytes, "max_abs_err": max_err,
+                 "shape": [B, live]}
+        if row is None:
+            row = {"name": "rule_counts", "route": "cuda", **entry,
+                   "bound_by": "bytes", "at": {}}
+        else:
+            row["at"][str(B)] = entry
+        del v, blob, batch
+    return row
+
+
+def all_cards_phase(policies: list, n: int = 10_000) -> None:
+    """[cards] ``--all-cards``: sharded_scan of the library over
+    mixed_resource(0..n-1) on the 1D mesh of every card and on the 2D
+    (2, cards / 2) mesh of them, each equal to the one-card scan and to
+    the pinned sha256, with K1, eval_rules and rule_counts launched once
+    a data shard (and shard row)."""
+    import torch
+
+    from kyverno_tpu_torch.models import CompiledPolicySet
+    from kyverno_tpu_torch.models.engine import ShardedPolicySet
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.parallel import mesh as mesh_mod
+
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"--all-cards needs 2 or more cards, {cards} visible")
+    cps = CompiledPolicySet(policies, device="cuda:0")
+    resources = [mixed_resource(i) for i in range(n)]
+    want = mesh_mod.sharded_scan(cps, resources, mesh_mod.make_mesh(
+        [torch.device("cuda", 0)]))
+    check(matrix_sha(want[0]) == EXPECTED_EVAL_SHA, "the one-card scan's "
+          f"sha256 {matrix_sha(want[0])} != {EXPECTED_EVAL_SHA}")
+    meshes = [("1D", cps, mesh_mod.make_mesh(shape=None), cards)]
+    if cards % 2 == 0:
+        meshes.append(("2D", ShardedPolicySet(2, device="cuda:0").refresh(
+            policies), mesh_mod.make_mesh(shape=(2, cards // 2)), cards))
+    for label, src, mesh, launches_each in meshes:
+        _build.reset_launches()
+        with CheckedRuleCounts() as checked:
+            t0 = time.perf_counter()
+            got = mesh_mod.sharded_scan(src, resources, mesh)
+            wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        for name in MESH_KERNELS:
+            check(launches[name] == launches_each, f"[cards] {label}: "
+                  f"{name} launched {launches[name]} times, not "
+                  f"{launches_each}")
+        check(checked.calls == launches_each, f"[cards] {label}: "
+              f"{checked.calls} rule_counts calls checked")
+        for name, a, b in zip(("matrix", "fails", "passes"), got, want):
+            check(a.dtype == b.dtype and np.array_equal(a, b),
+                  f"[cards] {label}: the {name} differ from the one-card scan's")
+        log(f"[cards] {label} mesh {mesh}: sharded_scan of {n} {wall:.3f} s; "
+            f"matrix, fails and passes equal to the one-card scan's, sha256 "
+            f"{EXPECTED_EVAL_SHA[:8]}…; launches {launches}; rule_counts "
+            f"equal to its plain version on each card")
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1570,6 +2101,9 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and hold the kernels to their plain versions "
                          "on small inputs, run evaluate() at 1,000, then stop")
+    ap.add_argument("--all-cards", action="store_true",
+                    help="build, then only the mesh scan over every card of "
+                         "the host against the one-card scan (needs 2 or more)")
     args = ap.parse_args()
 
     import torch
@@ -1620,6 +2154,13 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if args.all_cards:
+        all_cards_phase([load_policy(d) for d in _synth_policy_docs(250)])
+        log(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. kernels against their plain versions
     anchor = CompiledPolicySet([load_policy(d) for d in anchor_policy_docs(7)])
@@ -1764,7 +2305,7 @@ def main() -> int:
     scan_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     log(f"[main] launches on the main path: {launches}")
-    for name in _build.LAUNCHES:
+    for name in MAIN_KERNELS:
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched on the main path")
     check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
@@ -1802,7 +2343,20 @@ def main() -> int:
     # ---- 7. admission: the policy cache, the batcher, K6 and the pool
     admission = admission_phase(library_docs)
 
-    # ---- 8. scan: every chunk against the plain pipeline
+    # ---- 8. the background scan path: the scanner's lanes with reports
+    # and a delta pass; K7 on the 2D (4, 1) mesh of the card, then on the
+    # 1D mesh at two chunks (the host memo holds the first 10,000 until
+    # the 1D scan's fresh resources push them out)
+    from kyverno_tpu_torch.parallel import make_mesh
+
+    mesh_1d = make_mesh([torch.device("cuda", 0)])
+    background = background_phase(library_docs, mesh_1d)
+    mesh2d_launches, mesh2d_matrix = mesh2d_phase(cps, mesh_1d)
+    mesh = mesh_phase(cps, mesh_1d, mesh2d_matrix)
+    del mesh2d_matrix
+    gc.collect()
+
+    # ---- 9. scan: every chunk against the plain pipeline
     t0 = time.perf_counter()
     for c, (sb, (f, p, h)) in enumerate(zip(scan_batches, scan_counts)):
         blob, shp = cps.to_device(sb)
@@ -1824,7 +2378,7 @@ def main() -> int:
         f"first chunk's to the verdict matrix's")
     del scan_batches, scan_counts
 
-    # ---- 9. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 10. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -1878,7 +2432,7 @@ def main() -> int:
                   plain_pipeline(plan, st.blob, st.shape))}
     smi = nvidia_smi_line()
     rows = {}
-    for name in list(_build.LAUNCHES) + ["scan_blob"]:
+    for name in list(MAIN_KERNELS) + ["scan_blob"]:
         a, b = calls[name](), plains[name]()
         a = a if isinstance(a, tuple) else (a,)
         b = b if isinstance(b, tuple) else (b,)
@@ -1962,7 +2516,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() - base
     scan_launches = dict(_build.LAUNCHES)
     check(scan_launches == {"glob_nfa": 1, "eval_rules": 0, "eval_rules_scan": 1,
-                            "scan_counts": 1},
+                            "scan_counts": 1, "rule_counts": 0},
           f"scan_blob launched {scan_launches}")
     check(peak < st100.B * R, f"scan_blob took {peak} bytes at its peak, "
           f"the [B, R] matrix is {st100.B * R}")
@@ -1971,7 +2525,7 @@ def main() -> int:
         f"[B, R] matrix")
     bytes100 = bytes_for(st100)
     calls100 = calls_for(st100, m100, masks100)
-    for name in list(_build.LAUNCHES) + ["scan_blob"]:
+    for name in list(MAIN_KERNELS) + ["scan_blob"]:
         ms100 = cuda_ms(calls100[name], 30)
         dev100 = device_ms(calls100[name], 30)
         bound100 = bytes100[name] / HBM_BYTES_PER_S * 1e3
@@ -1986,6 +2540,12 @@ def main() -> int:
     log(f"[times] at B={st100.B}: making, flattening and copying the resources "
         f"{flat100_s:.3f} s; eval_rules {tb100} resources and {smem100} bytes a "
         f"block, its scan form {tb_s} and {smem_s}")
+    # K7's counts at the mesh scan's chunk and at 10k
+    rows["rule_counts"] = {
+        **rule_counts_times(cps), "launches": mesh["launches"]["rule_counts"],
+        "mesh2d_launches": mesh2d_launches["rule_counts"],
+        "background_launches": {k: v["launches"]["rule_counts"]
+                                for k, v in background.items()}}
     kernels = []
     for name, row in rows.items():
         if name in KERNEL_SOURCES:

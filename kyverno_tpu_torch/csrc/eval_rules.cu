@@ -1000,12 +1000,15 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
     }
 }
 
-// Device limits, read once: the dynamic shared memory a block may take and
-// the number of SMs.
+// Device limits, read once on the first device that launches: the dynamic
+// shared memory a block may take and the number of SMs (a mesh's cards are
+// one model).
 int g_smem_room = -1;
 int g_sms = 0;
-// each form's dynamic shared memory limit, as set
-template <bool kScan> int g_smem_set = 0;
+// each form's dynamic shared memory limit, as set on each device (a
+// function attribute belongs to the device that was current when it was set)
+constexpr int kMaxDevices = 64;
+template <bool kScan> int g_smem_set[kMaxDevices] = {};
 
 int device_limits() {
   if (g_smem_room < 0) {
@@ -1028,12 +1031,16 @@ int device_limits() {
 
 template <bool kScan>
 int set_smem(int bytes) {
-  if (bytes > g_smem_set<kScan>) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rules_kernel<kScan>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (bytes > g_smem_set<kScan>[dev]) {
+    err = cudaFuncSetAttribute(rules_kernel<kScan>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
     if (err != cudaSuccess) return (int)err;
-    g_smem_set<kScan> = bytes;
+    g_smem_set<kScan>[dev] = bytes;
   }
   return 0;
 }

@@ -31,7 +31,7 @@ its segment maps into the device plan the CUDA kernels walk.
 from __future__ import annotations
 
 import uuid
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 
@@ -836,6 +836,19 @@ def assemble_tensors(segments: list[PolicySegment],
         n_rules_logical=n_rules_logical,
         segments=spans,
     )
+
+
+def tensor_nbytes(t: PolicyTensors) -> int:
+    """Footprint of one PolicyTensors: the sum of its numpy arrays (the
+    dictionary's paths and Python metadata excluded). A policy shard's
+    bytes over the full set's are about 1 / policy shards, plus the rule
+    bucket's padding."""
+    total = 0
+    for f in fields(t):
+        v = getattr(t, f.name)
+        if isinstance(v, np.ndarray):
+            total += v.nbytes
+    return total
 
 
 def compile_tensors(rule_irs: list[RuleIR]) -> PolicyTensors:

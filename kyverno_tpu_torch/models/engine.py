@@ -24,7 +24,10 @@ copies the blob into pinned memory, starts the copy to the card, K1 ->
 eval_rules and the copy back, and returns without waiting.
 :class:`IncrementalCompiler` recompiles only the policies that changed
 and splices their segments into the population's tensors (the policy
-cache's route).
+cache's route). :class:`ShardedPolicySet` cuts a population into policy
+shards (:class:`PolicyPartitioner`: sticky, balanced by rule count), each
+a set of its own over the shared dictionary with the column map back to
+the full layout: the 2D mesh scan's rule axis (``parallel/mesh.py``).
 
 The device is ``cuda`` unless the caller passes ``device="cpu"``; with no
 card and no explicit CPU request the constructor raises.
@@ -186,6 +189,16 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current card)."""
+    def index(d):
+        if d.index is None and d.type == "cuda":
+            return torch.cuda.current_device()
+        return d.index
+
+    return a.type == b.type and index(a) == index(b)
+
+
 class AsyncVerdicts:
     """Handle on an in-flight device evaluation (evaluate_device_async).
     The card computes while the dispatching thread does other host work;
@@ -296,6 +309,9 @@ class CompiledPolicySet:
         t0 = time.perf_counter()
         self.plan = Plan(self.tensors, self.device)
         self.plan_s = time.perf_counter() - t0
+        # plans on the other devices of a mesh row (plan_on)
+        self._plans: dict[str, Plan] = {}
+        self._plans_lock = threading.Lock()
         # K6: shape bucket (B, P, E, V) -> its slots
         self._k6: dict[tuple, list[_Slot]] = {}
         self._k6_lock = threading.Condition()
@@ -329,6 +345,20 @@ class CompiledPolicySet:
         blob, shp = batch.packed_blob()
         host = torch.from_numpy(np.ascontiguousarray(blob).view(np.int32))
         return host.to(self.device, non_blocking=False), shp
+
+    def plan_on(self, device) -> Plan:
+        """The device plan on ``device``: the set's own plan on its own
+        device, else one built there at first use and kept (a mesh row of
+        other devices)."""
+        dev = torch.device(device)
+        if same_device(dev, self.device):
+            return self.plan
+        key = str(dev)
+        with self._plans_lock:
+            plan = self._plans.get(key)
+            if plan is None:
+                plan = self._plans[key] = Plan(self.tensors, dev)
+        return plan
 
     # ------------------------------------------------------------ device
 
@@ -708,8 +738,9 @@ class IncrementalCompiler:
     repeated single-policy updates tend to land in an already-seen rule
     width (verdicts are sliced back to ``n_rules_logical``). Every set it
     returns is a :class:`CompiledPolicySet` on ``device`` (its plan built
-    there); the JAX package's certification of the spliced segments and
-    its policy-sharded sets are not here.
+    there); :meth:`refresh_sharded` also cuts the population into policy
+    shards (:class:`ShardedPolicySet`). The JAX package's certification
+    of the spliced segments is not here.
 
     Not thread-safe on its own; PolicyCache serializes access under its
     lock."""
@@ -817,6 +848,17 @@ class IncrementalCompiler:
         return CompiledPolicySet([policy], device=self.device,
                                  _parts=(rule_refs, seg.rule_irs, tensors))
 
+    def refresh_sharded(self, policies: list, n_shards: int,
+                        sharded: "ShardedPolicySet | None" = None
+                        ) -> "ShardedPolicySet":
+        """Refresh the full set AND its policy-axis decomposition in one
+        pass. Pass the previous :class:`ShardedPolicySet` back in so its
+        sticky shard assignment and per-shard caches survive — that is
+        what keeps churn local to the owning shard."""
+        if sharded is None or sharded.n_shards != n_shards:
+            sharded = ShardedPolicySet(n_shards, compiler=self)
+        return sharded.refresh(policies)
+
     def subset(self, policies: list) -> CompiledPolicySet:
         """Compiled set over a *subset* of the population, assembled from
         the same dictionary and segment cache. Its tensor set snapshots
@@ -846,3 +888,224 @@ class IncrementalCompiler:
                                    rule_bucket=self.rule_bucket)
         return CompiledPolicySet(list(policies), device=self.device,
                                  _parts=(rule_refs, rule_irs, tensors))
+
+
+class PolicyPartitioner:
+    """Sticky, balance-aware assignment of policy segments to shards.
+
+    The 2D mesh's ``policy`` axis partitions the rule space along the
+    `IncrementalCompiler`'s natural unit — one segment per policy — so
+    the assignment must satisfy two pulls at once: shards balanced by
+    rule count (each shard's rule bucket pads to a power of two, so
+    imbalance costs device memory), and stability across churn (a
+    reassigned segment forces that shard's tensors to reassemble and its
+    plan to rebuild). The resolution is *sticky greedy*: a key keeps its
+    shard for as long as it lives, new keys land on the currently
+    lightest shard in input order, and removed keys simply free their
+    weight. Replacing a policy in place (same key) therefore touches
+    exactly one shard; adds and removals touch one shard each; only a
+    full repartition (``reset``) moves survivors."""
+
+    def __init__(self, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.n_shards = int(n_shards)
+        self._assign: dict[str, int] = {}
+
+    def reset(self) -> None:
+        self._assign.clear()
+
+    def plan(self, items: list[tuple[str, int]]) -> list[int]:
+        """Shard index per item. ``items`` is ``(key, rule_count)`` in
+        population order; dead keys are forgotten, live keys keep their
+        shard, new keys go to the lightest shard by live rule count
+        (ties -> lowest shard index)."""
+        live = {k for k, _ in items}
+        for k in [k for k in self._assign if k not in live]:
+            del self._assign[k]
+        load = [0] * self.n_shards
+        for key, weight in items:
+            s = self._assign.get(key)
+            if s is not None:
+                load[s] += weight
+        for key, weight in items:
+            if key not in self._assign:
+                s = min(range(self.n_shards), key=lambda i: (load[i], i))
+                self._assign[key] = s
+                load[s] += weight
+        return [self._assign[k] for k, _ in items]
+
+
+class PolicyShard:
+    """One policy-axis shard: the member policies' segments assembled
+    into their own (pow2 rule-bucketed) PolicyTensors over the shared
+    dictionary, plus the column map that scatters this shard's local
+    verdict columns back into the full host rule layout."""
+
+    __slots__ = ("index", "policies", "cps", "col_map", "reused",
+                 "_mesh_fn_cache")
+
+    def __init__(self, index: int, policies: list,
+                 cps: CompiledPolicySet, col_map: np.ndarray,
+                 reused: bool):
+        self.index = index
+        self.policies = policies
+        self.cps = cps
+        self.col_map = col_map
+        self.reused = reused
+        # per-mesh-row program cache, keyed by the row's devices
+        # (parallel/mesh.py::shard_eval_fns): an unchanged shard keeps its
+        # programs, and the plans behind them, across scans and refreshes
+        self._mesh_fn_cache: dict = {}
+
+    @property
+    def n_rules_live(self) -> int:
+        return self.cps.tensors.n_rules_live
+
+
+class ShardedPolicySet:
+    """Policy-axis decomposition of one compiled population.
+
+    Holds the full :class:`CompiledPolicySet` (host layout: rule_refs,
+    host-lane resolution, flattening — the shared dictionary means every
+    shard consumes the same flattened batch) plus one
+    :class:`PolicyShard` per non-empty partition bucket. Each shard's
+    tensors assemble from the same segment cache via
+    ``IncrementalCompiler.subset``, so a refresh recompiles only shards
+    whose membership or member objects changed; untouched shards keep
+    their CompiledPolicySet *instance* — tensors byte-identical, plan
+    alive. Every set lives on the compiler's device."""
+
+    def __init__(self, n_shards: int, rule_bucket: bool = True,
+                 compiler: IncrementalCompiler | None = None, device=None):
+        self.n_shards = int(n_shards)
+        self._inc = (compiler if compiler is not None
+                     else IncrementalCompiler(rule_bucket=rule_bucket,
+                                              device=device))
+        self.partitioner = PolicyPartitioner(self.n_shards)
+        # bucket index -> (membership signature, PolicyShard)
+        self._cache: dict[int, tuple[tuple, PolicyShard]] = {}
+        self.full: CompiledPolicySet | None = None
+        self.shards: list[PolicyShard] = []
+        self.last_refresh: dict = {}
+
+    @property
+    def compiler(self) -> IncrementalCompiler:
+        return self._inc
+
+    def refresh(self, policies: list) -> "ShardedPolicySet":
+        policies = list(policies)
+        self.full = self._inc.refresh(policies)
+        keys = [IncrementalCompiler._policy_key(p) for p in policies]
+        weights = [len(_validate_rules(p)) for p in policies]
+        assign = self.partitioner.plan(list(zip(keys, weights)))
+        # global column base per segment, from the full assembly's
+        # splice receipts (keyed by policy key == segment name)
+        span = {s.name: s for s in self.full.tensors.segments}
+        shards: list[PolicyShard] = []
+        reassembled: list[int] = []
+        for b in range(self.n_shards):
+            members = [p for p, a in zip(policies, assign) if a == b]
+            if not members:
+                self._cache.pop(b, None)
+                continue
+            sig = tuple((IncrementalCompiler._policy_key(p), id(p))
+                        for p in members)
+            cached = self._cache.get(b)
+            if cached is not None and cached[0] == sig:
+                shard = cached[1]
+                shard.reused = True
+            else:
+                cps = self._inc.subset(members)
+                shard = PolicyShard(b, members, cps,
+                                    np.zeros(0, np.int64), reused=False)
+                self._cache[b] = (sig, shard)
+                reassembled.append(b)
+            # the column map depends on OTHER shards' rule counts (global
+            # bases move under churn), so it refreshes even on reuse
+            cols = []
+            for p in members:
+                sp = span[IncrementalCompiler._policy_key(p)]
+                cols.append(np.arange(sp.rule_base,
+                                      sp.rule_base + sp.n_rules,
+                                      dtype=np.int64))
+            shard.col_map = (np.concatenate(cols) if cols
+                             else np.zeros(0, np.int64))
+            shards.append(shard)
+        self.shards = shards
+        self.last_refresh = {
+            "n_shards": self.n_shards,
+            "shards_live": len(shards),
+            "shards_reassembled": len(reassembled),
+            "reassembled": reassembled,
+            "shard_rules": {sh.index: sh.n_rules_live for sh in shards},
+        }
+        return self
+
+    # -- convenience delegation to the full (host-layout) set ----------
+
+    @property
+    def policies(self) -> list:
+        return self.full.policies
+
+    @property
+    def rule_refs(self) -> list:
+        return self.full.rule_refs
+
+    @property
+    def tensors(self) -> PolicyTensors:
+        return self.full.tensors
+
+    def flatten(self, resources: list[dict]):
+        return self.full.flatten(resources)
+
+    def flatten_packed(self, *a, **kw):
+        return self.full.flatten_packed(*a, **kw)
+
+    def resolve_host_cells(self, *a, **kw):
+        return self.full.resolve_host_cells(*a, **kw)
+
+    def shard_rule_counts(self) -> dict[int, int]:
+        return {sh.index: sh.n_rules_live for sh in self.shards}
+
+    def shard_tensor_bytes(self) -> dict[int, int]:
+        from .compiler import tensor_nbytes
+
+        return {sh.index: tensor_nbytes(sh.cps.tensors)
+                for sh in self.shards}
+
+    def evaluate_device(self, batch) -> np.ndarray:
+        """Full-layout device verdicts [B, R_live] assembled from the
+        shards — bit-compatible with ``CompiledPolicySet.evaluate_device``
+        on the same batch (each shard scores the same rows with the same
+        kernels; columns scatter back through ``col_map``). Dispatches
+        every shard before reading any back."""
+        handles = [(sh, sh.cps.evaluate_device_async(batch))
+                   for sh in self.shards]
+        n_live = self.full.tensors.n_rules_live
+        b = getattr(batch, "n", None)
+        if b is None:
+            b = int(batch.cells.shape[0])
+        # int8 like the single-set device lane; uncovered columns cannot
+        # exist — the partition's col_maps tile the live rule axis exactly
+        out = np.full((b, n_live), int(Verdict.NOT_APPLICABLE),
+                      dtype=np.int8)
+        for sh, handle in handles:
+            out[:, sh.col_map] = handle.get()
+        return out
+
+    def evaluate(self, resources: list[dict]) -> np.ndarray:
+        """Verdict matrix [B, R]: the sharded device lane, then the full
+        set's CPU oracle for HOST cells."""
+        batch = self.full.flatten(resources)
+        verdicts = self.evaluate_device(batch)
+        return self.full.resolve_host_cells(resources, verdicts)
+
+
+def shard_policies(policies: list, n_shards: int, rule_bucket: bool = True,
+                   device=None) -> ShardedPolicySet:
+    """One-shot policy-axis decomposition (fresh compiler). Long-lived
+    callers (BackgroundScanner) should instead keep a ShardedPolicySet
+    and ``refresh`` it so segment and shard caches survive churn."""
+    return ShardedPolicySet(n_shards, rule_bucket=rule_bucket,
+                            device=device).refresh(policies)

@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("glob_nfa", "eval_rules", "scan_counts")
+KERNELS = ("glob_nfa", "eval_rules", "scan_counts", "rule_counts")
 HEADERS = ("plan.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
 
 # eval_rules.cu holds two kernels: eval_rules and its scan form
 LAUNCHES = {name: 0 for name in ("glob_nfa", "eval_rules", "eval_rules_scan",
-                                 "scan_counts")}
+                                 "scan_counts", "rule_counts")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

@@ -16,12 +16,15 @@ compiled check rows:
   *  scan form: eval_rules writes, instead of the verdicts, FAIL, PASS
      and HOST bit masks over 32 resources a word; K5 reduces them to
      per-rule FAIL/PASS counts over non-HOST rows and the HOST rows
+  *  K7, the mesh scan's program: the verdicts sliced to the live rule
+     columns on the device (:func:`evaluate_live`), then per-rule FAIL
+     and PASS counts over every row (:func:`rule_counts`)
 
 Each of K1 (``ops/glob.py``), :func:`eval_rules` and
-:func:`eval_rules_scan` (stages 2-6, one kernel source) and K5
-(:func:`scan_reduce`) is a wrapper that launches a CUDA kernel from
-``csrc/`` for tensors on the card and runs its plain PyTorch version for
-tensors on the CPU. The plain versions mirror the JAX code stage by
+:func:`eval_rules_scan` (stages 2-6, one kernel source), K5
+(:func:`scan_reduce`) and K7's counts (:func:`rule_counts`) is a wrapper
+that launches a CUDA kernel from ``csrc/`` for tensors on the card and
+runs its plain PyTorch version for tensors on the CPU. The plain versions mirror the JAX code stage by
 stage, segment reductions included: :func:`eval_checks_plain` (stages
 2-3, returning the per-row flags) and :func:`eval_verdict_plain` (stages
 4-6, from those flags) compose to what ``eval_rules`` computes. The
@@ -907,3 +910,53 @@ def scan_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
     masks = eval_rules_scan(plan, blob, B, P, E, V,
                             match_matrix(plan, blob, B, P, E, V))
     return scan_reduce(*masks, B)
+
+
+# ------------------------------------------------------------------ K7
+
+def evaluate_live(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                  live: int):
+    """K7's verdicts: K1 -> eval_rules, sliced on the device to the first
+    ``live`` rule columns, int8 [B, live] (a view whose rows are plan.R
+    bytes apart). A policy shard's rule axis pads to a power-of-two
+    bucket; the slice keeps its inert columns off the copy back."""
+    if not 0 <= live <= plan.R:
+        raise ValueError(f"evaluate_live: live={live} outside the plan's "
+                         f"{plan.R} rules")
+    return evaluate_blob(plan, blob, B, P, E, V)[:, :live]
+
+
+def rule_counts_plain(verdict):
+    """K7's counts, plain: (fails int32 [R], passes int32 [R]) over every
+    row of the verdicts int8 [B, R], HOST rows included."""
+    return ((verdict == V_FAIL).sum(dim=0, dtype=torch.int32),
+            (verdict == V_PASS).sum(dim=0, dtype=torch.int32))
+
+
+def rule_counts(verdict):
+    """K7's counts: per-rule FAIL and PASS counts over every row of the
+    verdicts int8 [B, R] (rows may be a column slice of a wider matrix).
+    CUDA kernel ``csrc/rule_counts.cu`` on the card (one launch; its entry
+    zeroes the counts), :func:`rule_counts_plain` on the CPU."""
+    dev = verdict.device
+    if dev.type == "cpu":
+        return rule_counts_plain(verdict)
+    if dev.type != "cuda":
+        raise ValueError(f"rule_counts: unsupported device {dev}")
+    if (verdict.dtype != torch.int8 or verdict.dim() != 2
+            or (verdict.shape[1] > 1 and verdict.stride(1) != 1)
+            or verdict.stride(0) < verdict.shape[1]):
+        raise ValueError(f"rule_counts: verdicts must be int8 [B, R] with "
+                         f"rows of contiguous bytes, got {verdict.dtype} "
+                         f"{tuple(verdict.shape)} strides {verdict.stride()}")
+    B, R = verdict.shape
+    counts = torch.empty((2, R), dtype=torch.int32, device=dev)
+    if B == 0 or R == 0:
+        counts.zero_()
+        return counts[0], counts[1]
+    f = _build.fn("rule_counts", "ktpu_rule_counts", 6)
+    err = f(verdict.data_ptr(), B, R, verdict.stride(0), counts.data_ptr(),
+            _build.stream_handle(dev))
+    _build.check("rule_counts", err)
+    _build.note_launch("rule_counts")
+    return counts[0], counts[1]

@@ -60,6 +60,11 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
        "tests/test_torch_admission.py", "1",
        "K6: pinned staging and a persistent device blob per shape bucket "
        "on the stable-shape device call"),
+    # -- mesh plane (2D policy x data sharding)
+    _S("KTPU_MESH_SHAPE", "kyverno_tpu_torch.parallel.mesh",
+       "tests/test_torch_mesh.py", "",
+       "mesh geometry: unset = 1D data mesh, 'PxD' = 2D policy x data, "
+       "'auto' = factor the device count, '1d' = force 1D"),
     # -- observability plane
     _S("KTPU_TRACE", "kyverno_tpu_torch.runtime.tracing",
        "tests/test_torch_pipeline.py", "1",

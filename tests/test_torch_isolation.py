@@ -41,7 +41,8 @@ def test_port_imports_no_jax_and_no_jax_package():
 def test_admission_modules_are_checked():
     mods = _port_modules()
     for m in ("runtime.batch", "runtime.policycache", "runtime.oracle_pool",
-              "runtime.resourcecache", "runtime.hostlane"):
+              "runtime.resourcecache", "runtime.hostlane", "parallel.mesh",
+              "runtime.background", "runtime.reports"):
         assert f"kyverno_tpu_torch.{m}" in mods
 
 
