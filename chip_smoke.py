@@ -14,9 +14,10 @@ Phases:
                code) beside them, at the same time
   2. kernels   K1 glob NFA, eval_rules (stages 2-6 in one launch), its
                scan form (FAIL / PASS / HOST bit masks instead of the
-               verdicts), K5 (the counts from the masks) and K7's
-               rule_counts (per-rule FAIL / PASS counts over every row,
-               of the matrix and of a column slice of it) against
+               verdicts), K5 (the counts from the masks) and its counts
+               form (K7's: the verdicts and, as their epilogue, per-rule
+               FAIL / PASS counts over every row of the first live rule
+               columns, at live = R and R - 7) against
                their plain versions, on the card, with zero tolerance
                (the outputs are integers and booleans), and scan_blob
                (K1 -> scan form -> K5) against the counts of the
@@ -91,16 +92,20 @@ Phases:
                lane must make; then a one-policy update, 90 MODIFIED and
                10 DELETED watch events and delta_scan(), whose
                verdict_matrix() equals a fresh scanner's full scan.
+               The mesh lanes' K7 programs (K1 -> the counts form) are
+               checked as in [mesh2d] and [mesh].
                [mesh2d]: sharded_scan of a ShardedPolicySet of the
-               library on the (4, 1) mesh over the same 10,000: K1,
-               eval_rules and rule_counts once a shard, matrix and counts
-               equal to the 1D scan's. [mesh]: sharded_scan on the 1D
-               mesh over 131,072 resources (two chunks of 65,536 through
-               the worker pool): K1, eval_rules and rule_counts once a
-               chunk, every chunk's rule_counts equal to its plain
-               version on the same device matrix, no HOST cell, the
-               counts equal to the matrix's column sums, the first
-               10,000 rows equal to the 2D scan's and the pinned sha256
+               library on the (4, 1) mesh over the same 10,000: K1 and
+               the counts form once a shard and nothing else, matrix and
+               counts equal to the 1D scan's. [mesh]: sharded_scan on the
+               1D mesh over 131,072 resources (two chunks of 65,536
+               through the worker pool): K1 and the counts form once a
+               chunk and nothing else, every chunk's counts equal to
+               rule_counts_plain over that launch's own verdicts and the
+               K7 program's device time a chunk between CUDA events, no
+               HOST cell, the counts equal to the matrix's column sums,
+               the first 10,000 rows equal to the 2D scan's and the
+               pinned sha256
   9. scan      every chunk of the 1M scan equal to the plain pipeline's
                counts on the card, and its first chunk to the verdict
                matrix's
@@ -111,10 +116,11 @@ Phases:
                eval_rules, its scan form, K5 and scan_blob also at
                B = 100,000, where scan_blob is held to launch exactly K1,
                the scan form and K5 and to allocate no [B, R] matrix;
-               eval_rules at two smaller tile budgets; rule_counts at
-               the mesh scan's chunk (65,536 rows) and at 10,000, beside
-               the two-call torch expression that computes the same
-               counts (its yardstick; the port never calls it on the
+               eval_rules at two smaller tile budgets; the counts form
+               at the mesh scan's chunk (65,536 rows) and at 10,000,
+               beside the matrix form alone on the same blob and the
+               two-call torch expression that counts the same verdicts
+               (the counts' yardstick; the port never calls it on the
                card)
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
@@ -552,8 +558,8 @@ EVALUATE_KERNELS = ("glob_nfa", "eval_rules")
 # the kernels of the main path (evaluate_device and the 1M scan)
 MAIN_KERNELS = ("glob_nfa", "eval_rules", "eval_rules_scan", "scan_counts")
 # the kernels of K7's program, the mesh scan's: each launched once a chunk
-# and a data shard (a policy shard row, on a 2D mesh)
-MESH_KERNELS = ("glob_nfa", "eval_rules", "rule_counts")
+# and a data shard (a policy shard row, on a 2D mesh), and no other kernel
+MESH_KERNELS = ("glob_nfa", "eval_rules_counts")
 # the background scan of BASELINE config 5 on a mesh, cut to two full
 # chunks of DEFAULT_CHUNK so that the worker pool runs (the oracle's cost
 # of a fresh 1M snapshot is the limit)
@@ -573,8 +579,8 @@ KERNEL_SOURCES = {
                         "kyverno_tpu/ops/eval.py:966"),
     "scan_counts": ("kyverno_tpu_torch/csrc/scan_counts.cu",
                     "kyverno_tpu/ops/eval.py:967"),
-    "rule_counts": ("kyverno_tpu_torch/csrc/rule_counts.cu",
-                    "kyverno_tpu/parallel/mesh.py:173"),
+    "eval_rules_counts": ("kyverno_tpu_torch/csrc/eval_rules.cu",
+                          "kyverno_tpu/parallel/mesh.py:173"),
 }
 
 
@@ -660,18 +666,22 @@ class Stages:
         m_k, m_p = self.k1(), self.k1(plain=True)
         n1 = same(f"{label} K1", m_k, m_p)
         v_k = self.rules(m_k, plan=plan)
-        n2 = same(f"{label} eval_rules", v_k, self.rules(m_k, plain=True, plan=plan))
+        v_p = self.rules(m_k, plain=True, plan=plan)
+        n2 = same(f"{label} eval_rules", v_k, v_p)
         s_k = self.scan_form(m_k, plan=plan)
         n3 = same(f"{label} eval_rules scan form", s_k,
                   self.ev.scan_masks_plain(plan, v_k))
         n5 = same(f"{label} K5", self.k5(s_k), self.k5(s_k, plain=True))
-        # K7's counts over the matrix and over its live-column slice
-        live = v_k[:, :max(1, v_k.shape[1] - 7)]
-        n7 = (same(f"{label} rule_counts", self.ev.rule_counts(v_k),
-                   self.ev.rule_counts_plain(v_k))
-              + same(f"{label} rule_counts of a column slice",
-                     self.ev.rule_counts(live),
-                     self.ev.rule_counts_plain(live.contiguous())))
+        # the counts form: the verdicts, and K7's counts over every row of
+        # all the rule columns and of the first R - 7
+        n7 = 0
+        for live in (plan.R, max(0, plan.R - 7)):
+            c_v, c_f, c_p = self.ev.eval_rules_counts(
+                plan, self.blob, *self.shape, m_k, live)
+            n7 += same(f"{label} counts form's verdicts (live={live})", c_v,
+                       v_p)
+            n7 += same(f"{label} counts form's counts (live={live})",
+                       (c_f, c_p), self.ev.rule_counts_plain(c_v[:, :live]))
         counts = self.ev.scan_counts_plain(v_k)
         same(f"{label} scan_blob", self.scan(plan), counts)
         # and the whole plain pipeline from the blob alone
@@ -686,7 +696,7 @@ class Stages:
                 "dropped": int(((in_host == 1) | (in_host == 2)).sum())}
         torch.cuda.synchronize()
         return {"glob_nfa": n1, "eval_rules": n2, "eval_rules_scan": n3,
-                "scan_counts": n5, "rule_counts": n7}, seen
+                "scan_counts": n5, "eval_rules_counts": n7}, seen
 
     def launch(self, plan=None) -> tuple:
         """The block size and shared memory of the last eval_rules launch
@@ -1000,7 +1010,8 @@ def pipelined_phase(cps, n: int, chunk: int = 1024) -> dict:
                 else:
                     os.environ[k] = v
         want = {"glob_nfa": n_chunks, "eval_rules": n_chunks,
-                "eval_rules_scan": 0, "scan_counts": 0, "rule_counts": 0}
+                "eval_rules_scan": 0, "eval_rules_counts": 0,
+                "scan_counts": 0}
         check(launches == want, f"evaluate_pipelined ({mode}) launched "
               f"{launches}, not {want}")
         check(not (got == 5).any(), f"evaluate_pipelined ({mode}) left "
@@ -1642,33 +1653,83 @@ class AllSpans:
         self.rec.max_spans = self.saved
 
 
-class CheckedRuleCounts:
-    """While entered, every ``rule_counts`` launch of the port (through
-    ``ops.eval.rule_counts``, which parallel/mesh.py calls) is held to
-    ``rule_counts_plain`` on the same device matrix, exactly. The plain
-    version counts no launch."""
+class CheckedCounts:
+    """While entered, every run of K7's program on a data shard (through
+    ``ops.eval.evaluate_live_counts``, which parallel/mesh.py calls: K1,
+    then the counts form) is timed between two CUDA events and its counts
+    are held to ``rule_counts_plain`` over that launch's own verdicts,
+    exactly. The plain version counts no launch. Runs take turns, each on
+    a stream of its own that waits for the caller's (its blob's copy), so
+    that the events hold that one program and no other thread's copy or
+    launch. A sleep kernel holds the stream while the host enqueues the
+    program: during a scan other threads hold the interpreter lock for
+    milliseconds, and without the hold the events would time the host's
+    enqueue. A run whose enqueue outlasted the hold is marked."""
+
+    HOLD_CYCLES = 200_000_000      # about 0.1 s of the card's clock
 
     def __init__(self):
         from kyverno_tpu_torch.ops import eval as ev
 
-        self.ev, self.real, self.calls, self.cells = ev, ev.rule_counts, 0, 0
+        self.ev, self.real = ev, ev.evaluate_live_counts
+        self.calls, self.cells, self.ms, self.held = 0, 0, [], []
         self._lock = threading.Lock()
+        self._streams = {}
 
-    def __call__(self, verdict):
-        out = self.real(verdict)
-        n = same(f"rule_counts of a {tuple(verdict.shape)} mesh chunk", out,
-                 self.ev.rule_counts_plain(verdict))
+    def __call__(self, plan, blob, B, P, E, V, live):
+        import torch
+
         with self._lock:
+            main = torch.cuda.current_stream()
+            side = self._streams.get(main.device)
+            if side is None:
+                side = self._streams[main.device] = torch.cuda.Stream(
+                    main.device)
+            side.wait_stream(main)
+            h, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            with torch.cuda.stream(side):
+                t0 = time.perf_counter()
+                h.record()
+                torch.cuda._sleep(self.HOLD_CYCLES)
+                a.record()
+                v, f, p = self.real(plan, blob, B, P, E, V, live)
+                b.record()
+                enqueue_ms = (time.perf_counter() - t0) * 1e3
+            b.synchronize()
+            for t in (v, f, p):
+                t.record_stream(main)
+            main.wait_stream(side)
+            n = same(f"K7's counts of a {tuple(v.shape)} mesh shard", (f, p),
+                     self.ev.rule_counts_plain(v))
             self.calls += 1
             self.cells += n
-        return out
+            self.ms.append(a.elapsed_time(b))
+            self.held.append(enqueue_ms < h.elapsed_time(a))
+        return v, f, p
+
+    def times(self) -> str:
+        """The runs' device times; a run whose enqueue outlasted the hold
+        is marked (its time holds part of the enqueue)."""
+        return ", ".join(f"{ms:.4f}" + ("" if held else " (enqueue not held)")
+                         for ms, held in zip(self.ms, self.held)) + " ms"
 
     def __enter__(self):
-        self.ev.rule_counts = self
+        self.ev.evaluate_live_counts = self
         return self
 
     def __exit__(self, *exc):
-        self.ev.rule_counts = self.real
+        self.ev.evaluate_live_counts = self.real
+
+
+def check_mesh_launches(label: str, launches: dict, each: int,
+                        checked: CheckedCounts) -> None:
+    """K1 and the counts form launched ``each`` times, every other
+    kernel never, and every counts form launch held to its plain
+    version."""
+    want = {k: each if k in MESH_KERNELS else 0 for k in launches}
+    check(launches == want, f"{label}: launches {launches}, not {want}")
+    check(checked.calls == each, f"{label}: {checked.calls} runs of K7's "
+          f"program held to the plain counts, not {each}")
 
 
 def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
@@ -1676,9 +1737,10 @@ def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
     1D one-card mesh, with the launch counters set to 0 just before and
     read just after: no HOST cell left, the first 10,000 rows equal to
     ``first`` (the 2D scan's matrix of them) and to the pinned sha256,
-    the counts equal to the matrix's column sums, every chunk's
-    rule_counts equal to its plain version, each of K1, eval_rules and
-    rule_counts launched once a chunk. Returns the launches."""
+    the counts equal to the matrix's column sums, every chunk's counts
+    equal to rule_counts_plain over its own verdicts, K1 and the counts
+    form launched once a chunk and nothing else, and the K7 program's
+    device time a chunk. Returns the launches."""
     from kyverno_tpu_torch.ops import _build
     from kyverno_tpu_torch.parallel import mesh as mesh_mod
     from kyverno_tpu_torch.runtime import hostlane
@@ -1689,7 +1751,7 @@ def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
     chunks = -(-MESH_RESOURCES // mesh_mod.DEFAULT_CHUNK)
     m0 = hostlane.host_cache().stats()
     _build.reset_launches()
-    with CheckedRuleCounts() as checked, AllSpans():
+    with CheckedCounts() as checked, AllSpans():
         t0 = time.perf_counter()
         v, fails, passes = mesh_mod.sharded_scan(
             cps, resources, mesh_1d, chunk_size=mesh_mod.DEFAULT_CHUNK)
@@ -1700,12 +1762,8 @@ def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
     log(f"[mesh] launches of sharded_scan at {MESH_RESOURCES} in {chunks} "
         f"chunks on {mesh_1d}: {launches}")
     shards = mesh_mod.data_axis_size(mesh_1d)
-    for name in MESH_KERNELS:
-        check(launches[name] == chunks * shards,
-              f"sharded_scan launched {name} {launches[name]} times, not "
-              f"once a chunk and a data shard ({chunks * shards})")
-    check(checked.calls == chunks * shards,
-          f"{checked.calls} rule_counts launches held to the plain version")
+    check_mesh_launches("[mesh] sharded_scan", launches, chunks * shards,
+                        checked)
     check(v.shape == (MESH_RESOURCES, cps.tensors.n_rules_live)
           and v.dtype == np.int8, f"sharded_scan gave {v.dtype}{v.shape}")
     check(not (v == 5).any(), f"sharded_scan left {int((v == 5).sum())} "
@@ -1728,19 +1786,23 @@ def mesh_phase(cps, mesh_1d, first: np.ndarray) -> dict:
         f"hits, {misses} misses); no HOST cell; "
         f"first {first.shape[0]} rows sha256 {EXPECTED_EVAL_SHA[:8]}… and equal to "
         f"the 2D scan's; fails {int(fails.sum())}, passes "
-        f"{int(passes.sum())} = the column sums; rule_counts equal to its "
-        f"plain version on {checked.calls} chunk matrices "
-        f"({checked.cells} counts)")
-    return {"launches": launches, "wall_s": wall, "spans": spans}
+        f"{int(passes.sum())} = the column sums; the counts form's counts "
+        f"equal to the plain version's over its own verdicts in "
+        f"{checked.calls} chunks ({checked.cells} counts); K7's program "
+        f"(K1 -> counts form) on the card a chunk, between events: "
+        f"{checked.times()}; {nvidia_smi_line()}")
+    return {"launches": launches, "wall_s": wall, "spans": spans,
+            "k7_ms": checked.ms}
 
 
 def mesh2d_phase(cps, mesh_1d, n: int = 10_000) -> tuple[dict, np.ndarray]:
     """[mesh2d]: the library as a ShardedPolicySet on the 2D (4, 1) mesh
     of one card over mixed_resource(0..n-1), with the launch counters set
-    to 0 just before and read just after: every shard's eval_rules, K1
-    and rule_counts launched once; the matrix and counts equal to the 1D
-    scan's of the same resources, the matrix to the pinned sha256.
-    Returns (launches, the matrix)."""
+    to 0 just before and read just after: every shard's K1 and counts
+    form launched once and nothing else, its counts equal to the plain
+    version's over its own verdicts and its device time taken; the
+    matrix and counts equal to the 1D scan's of the same resources, the
+    matrix to the pinned sha256. Returns (launches, the matrix)."""
     import torch
 
     from kyverno_tpu_torch.models.engine import ShardedPolicySet
@@ -1756,19 +1818,15 @@ def mesh2d_phase(cps, mesh_1d, n: int = 10_000) -> tuple[dict, np.ndarray]:
     sps = ShardedPolicySet(4, device="cuda").refresh(cps.policies)
     shard_s = time.perf_counter() - t0
     _build.reset_launches()
-    with CheckedRuleCounts() as checked, AllSpans():
+    with CheckedCounts() as checked, AllSpans():
         t0 = time.perf_counter()
         v2, f2, p2 = mesh_mod.sharded_scan(sps, resources, mesh)
         wall = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     spans = scan_spans("mesh2d", 1)
     log(f"[mesh2d] launches of sharded_scan at {n} on {mesh}: {launches}")
-    for name in MESH_KERNELS:
-        check(launches[name] == len(sps.shards) == 4,
-              f"the 2D scan launched {name} {launches[name]} times, not "
-              f"once a shard ({len(sps.shards)} shards)")
-    check(checked.calls == 4, f"{checked.calls} rule_counts launches held "
-          "to the plain version")
+    check(len(sps.shards) == 4, f"{len(sps.shards)} policy shards")
+    check_mesh_launches("[mesh2d] the 2D scan", launches, 4, checked)
     check(not (v2 == 5).any(), "the 2D scan left HOST cells")
     check(v2.dtype == v1.dtype and np.array_equal(v2, v1),
           "the 2D scan's matrix differs from the 1D scan's")
@@ -1783,7 +1841,9 @@ def mesh2d_phase(cps, mesh_1d, n: int = 10_000) -> tuple[dict, np.ndarray]:
         f"{spans.get('device_dispatch', 0):.3f}, host_resolve "
         f"{spans.get('host_resolve', 0):.3f}); the 1D scan of the same "
         f"{n} {one_s:.3f} s; matrix and counts equal bit for bit, sha256 "
-        f"{EXPECTED_EVAL_SHA[:8]}…")
+        f"{EXPECTED_EVAL_SHA[:8]}…; the counts form's counts equal to the "
+        f"plain version's in each shard; K7's program (K1 -> counts form) "
+        f"on the card a shard, between events: {checked.times()}")
     return launches, v2
 
 
@@ -1863,11 +1923,13 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
     resources = [mixed_resource(i) for i in range(n)]
     mesh_2d = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4, shape=(4, 1))
     # lane: (environment, mesh, expected launches of K1, eval_rules and
-    # rule_counts)
+    # its counts form); a mesh lane's counts forms are held to the plain
+    # counts as in [mesh]
+    kernels = ("glob_nfa", "eval_rules", "eval_rules_counts")
     lanes = [("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0)),
              ("incremental", {}, None, (1, 1, 0)),
-             ("mesh 1D", {}, mesh_1d, (1, 1, 1)),
-             ("mesh 2D (4, 1)", {}, mesh_2d, (4, 4, 4))]
+             ("mesh 1D", {}, mesh_1d, (1, 0, 1)),
+             ("mesh 2D (4, 1)", {}, mesh_2d, (4, 0, 4))]
     seen, out = None, {}
     for name, env, mesh, want in lanes:
         saved = {k: os.environ.get(k) for k in env}
@@ -1879,7 +1941,7 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
                                    report_gen=reports, mesh=mesh)
             compile_s = time.perf_counter() - t0
             _build.reset_launches()
-            with AllSpans():
+            with CheckedCounts() as checked, AllSpans():
                 t0 = time.perf_counter()
                 result = sc.scan(resources)
                 scan_s = time.perf_counter() - t0
@@ -1891,9 +1953,12 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
                     os.environ.pop(k, None)
                 else:
                     os.environ[k] = v
-        got = tuple(launches[k] for k in MESH_KERNELS)
+        got = tuple(launches[k] for k in kernels)
         check(got == want, f"[background] {name}: launches {launches}, "
-              f"expected {dict(zip(MESH_KERNELS, want))}")
+              f"expected {dict(zip(kernels, want))}")
+        if mesh is not None:
+            check_mesh_launches(f"[background] {name}", launches, want[0],
+                                checked)
         m = response_matrix(result, sc.cps.rule_refs, resources)
         check(matrix_sha(m) == EXPECTED_EVAL_SHA,
               f"[background] {name}: the responses' matrix sha256 "
@@ -1925,7 +1990,10 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
             f"{result.violations} violations, {result.rules_evaluated} rule "
             f"results, {len(result.responses)} responses, report totals of "
             f"{len(totals)} policies equal across lanes; launches {launches}; "
-            f"sha256 {EXPECTED_EVAL_SHA[:8]}…")
+            f"sha256 {EXPECTED_EVAL_SHA[:8]}…"
+            + (f"; K7's program a shard, counts equal to the plain "
+               f"version's, between events: {checked.times()}"
+               if mesh is not None else ""))
         out[name] = {"launches": launches, "scan_s": scan_s}
         if name == "incremental":
             inc = (sc, reports)
@@ -1992,51 +2060,79 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
     return out
 
 
-def rule_counts_times(cps, sizes=(65_536, 10_000)) -> dict:
-    """[times] for K7's counts: ``rule_counts`` on the card's verdict
-    matrix of the library at each size (evaluate_live over the first
-    mixed resources, the matrix the mesh scan counts), against its plain
-    version — the two-call torch expression, which is also its library
-    yardstick — and the bytes bound. Returns the row of the first size,
-    with the others under ``at``."""
+def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
+    """[times] for K7's counts form: ``eval_rules_counts`` on the
+    library's blob of the first mixed resources at each size (the mesh
+    scan's chunk, then 10k), back to back and between events, held to
+    its plain version (``eval_rules_plain`` then ``rule_counts_plain``);
+    beside it, on the same blob and K1 matrix, the matrix form alone, the
+    two-call torch expression that counts the same verdicts (the counts'
+    yardstick; no single PyTorch call computes the verdicts), K7's whole
+    program on a shard (K1 -> counts form), and the bytes bound: the
+    matrix form's bytes and 8 bytes a live rule for the counts. Returns
+    the row of the first size, with the others under ``at``."""
     import torch
 
     from kyverno_tpu_torch.ops import eval as ev
 
     smi = nvidia_smi_line()
+    plan = cps.plan
+    R, N = plan.R, int(plan.nfa_char.shape[0])
+    plan_bytes = plan.buf.numel() * 4
     row = None
     for B in sizes:
         batch = cps.flatten_packed([mixed_resource(i) for i in range(B)])
         blob, shp = cps.to_device(batch)
+        _, P, E, V = shp
         live = cps.tensors.n_rules_live
-        v = ev.evaluate_live(cps.plan, blob, *shp, live)
+        m = ev.match_matrix(plan, blob, *shp)
         torch.cuda.synchronize()
-        got, want = ev.rule_counts(v), ev.rule_counts_plain(v)
-        same(f"rule_counts at ({B}, {live})", got, want)
+
+        def counts_form():
+            return ev.eval_rules_counts(plan, blob, *shp, m, live)
+
+        def plain():
+            v_ = ev.eval_rules_plain(plan, blob, *shp, m)
+            return (v_, *ev.rule_counts_plain(v_[:, :live]))
+
+        got, want = counts_form(), plain()
+        same(f"eval_rules_counts at ({B}, {live})", got, want)
         max_err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                       for a, b in zip(got, want))
-        ms = cuda_ms(lambda: ev.rule_counts(v), 50)
-        back = device_ms(lambda: ev.rule_counts(v))
-        plain_ms = cuda_ms(lambda: ev.rule_counts_plain(v), 50)
-        plain_back = device_ms(lambda: ev.rule_counts_plain(v))
-        nbytes = B * live + 8 * live
+        vl = got[0][:, :live]
+        ms = cuda_ms(counts_form, 50)
+        back = device_ms(counts_form)
+        alone_ms = cuda_ms(lambda: ev.eval_rules(plan, blob, *shp, m), 50)
+        alone_back = device_ms(lambda: ev.eval_rules(plan, blob, *shp, m))
+        yard_ms = cuda_ms(lambda: ev.rule_counts_plain(vl), 50)
+        yard_back = device_ms(lambda: ev.rule_counts_plain(vl))
+        k7_back = device_ms(
+            lambda: ev.evaluate_live_counts(plan, blob, *shp, live))
+        plain_ms = cuda_ms(plain, 5, warm=1)
+        nbytes = (B * P * E * 8 + 4 * B + 20 * V + N * V + plan_bytes
+                  + B * R + 8 * live)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"[times] rule_counts at B={B} R={live} (rows {v.stride(0)} bytes "
-            f"apart): {ms:.4f} ms a call between events, {back:.4f} ms on the "
-            f"card back to back; plain, the two-call torch yardstick, "
-            f"{plain_ms:.4f} ms between events, {plain_back:.4f} ms back to "
-            f"back; bound {bound:.5f} ms by bytes ({nbytes} bytes); "
-            f"{100 * bound / back:.2f}% of the bound back to back; {smi}")
+        log(f"[times] eval_rules_counts at B={B} R={R} live={live}: {ms:.4f} "
+            f"ms a call between events, {back:.4f} ms on the card back to "
+            f"back; eval_rules (matrix form) alone on the same blob "
+            f"{alone_ms:.4f} ms between events, {alone_back:.4f} ms back to "
+            f"back; the two-call torch yardstick over the same verdicts "
+            f"{yard_ms:.4f} ms between events, {yard_back:.4f} ms back to "
+            f"back; K7's program (K1 -> counts form) {k7_back:.4f} ms back "
+            f"to back; plain {plain_ms:.4f} ms; bound {bound:.5f} ms by bytes "
+            f"({nbytes} bytes); {100 * bound / back:.2f}% of the bound back "
+            f"to back; {smi}")
         entry = {"ms": ms, "device_ms": back, "plain_ms": plain_ms,
-                 "library_ms": plain_ms, "library_device_ms": plain_back,
-                 "bound_ms": bound, "bytes": nbytes, "max_abs_err": max_err,
-                 "shape": [B, live]}
+                 "eval_rules_ms": alone_ms, "eval_rules_device_ms": alone_back,
+                 "yardstick_ms": yard_ms, "yardstick_device_ms": yard_back,
+                 "k7_device_ms": k7_back, "bound_ms": bound, "bytes": nbytes,
+                 "max_abs_err": max_err, "shape": [B, live]}
         if row is None:
-            row = {"name": "rule_counts", "route": "cuda", **entry,
-                   "bound_by": "bytes", "at": {}}
+            row = {"name": "eval_rules_counts", "route": "cuda", **entry,
+                   "library_ms": None, "bound_by": "bytes", "at": {}}
         else:
             row["at"][str(B)] = entry
-        del v, blob, batch
+        del got, want, vl, m, blob, batch
     return row
 
 
@@ -2044,8 +2140,9 @@ def all_cards_phase(policies: list, n: int = 10_000) -> None:
     """[cards] ``--all-cards``: sharded_scan of the library over
     mixed_resource(0..n-1) on the 1D mesh of every card and on the 2D
     (2, cards / 2) mesh of them, each equal to the one-card scan and to
-    the pinned sha256, with K1, eval_rules and rule_counts launched once
-    a data shard (and shard row)."""
+    the pinned sha256, with K1 and the counts form launched once a data
+    shard (and shard row) and nothing else, and each counts form's counts
+    equal to the plain version's over its own verdicts."""
     import torch
 
     from kyverno_tpu_torch.models import CompiledPolicySet
@@ -2067,24 +2164,20 @@ def all_cards_phase(policies: list, n: int = 10_000) -> None:
             policies), mesh_mod.make_mesh(shape=(2, cards // 2)), cards))
     for label, src, mesh, launches_each in meshes:
         _build.reset_launches()
-        with CheckedRuleCounts() as checked:
+        with CheckedCounts() as checked:
             t0 = time.perf_counter()
             got = mesh_mod.sharded_scan(src, resources, mesh)
             wall = time.perf_counter() - t0
         launches = dict(_build.LAUNCHES)
-        for name in MESH_KERNELS:
-            check(launches[name] == launches_each, f"[cards] {label}: "
-                  f"{name} launched {launches[name]} times, not "
-                  f"{launches_each}")
-        check(checked.calls == launches_each, f"[cards] {label}: "
-              f"{checked.calls} rule_counts calls checked")
+        check_mesh_launches(f"[cards] {label}", launches, launches_each,
+                            checked)
         for name, a, b in zip(("matrix", "fails", "passes"), got, want):
             check(a.dtype == b.dtype and np.array_equal(a, b),
                   f"[cards] {label}: the {name} differ from the one-card scan's")
         log(f"[cards] {label} mesh {mesh}: sharded_scan of {n} {wall:.3f} s; "
             f"matrix, fails and passes equal to the one-card scan's, sha256 "
-            f"{EXPECTED_EVAL_SHA[:8]}…; launches {launches}; rule_counts "
-            f"equal to its plain version on each card")
+            f"{EXPECTED_EVAL_SHA[:8]}…; launches {launches}; the counts "
+            f"form's counts equal to the plain version's on each card")
 
 
 def nvidia_smi_line() -> str:
@@ -2516,7 +2609,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() - base
     scan_launches = dict(_build.LAUNCHES)
     check(scan_launches == {"glob_nfa": 1, "eval_rules": 0, "eval_rules_scan": 1,
-                            "scan_counts": 1, "rule_counts": 0},
+                            "eval_rules_counts": 0, "scan_counts": 1},
           f"scan_blob launched {scan_launches}")
     check(peak < st100.B * R, f"scan_blob took {peak} bytes at its peak, "
           f"the [B, R] matrix is {st100.B * R}")
@@ -2540,12 +2633,14 @@ def main() -> int:
     log(f"[times] at B={st100.B}: making, flattening and copying the resources "
         f"{flat100_s:.3f} s; eval_rules {tb100} resources and {smem100} bytes a "
         f"block, its scan form {tb_s} and {smem_s}")
-    # K7's counts at the mesh scan's chunk and at 10k
-    rows["rule_counts"] = {
-        **rule_counts_times(cps), "launches": mesh["launches"]["rule_counts"],
-        "mesh2d_launches": mesh2d_launches["rule_counts"],
-        "background_launches": {k: v["launches"]["rule_counts"]
-                                for k, v in background.items()}}
+    # K7's counts form at the mesh scan's chunk and at 10k
+    rows["eval_rules_counts"] = {
+        **counts_times(cps),
+        "launches": mesh["launches"]["eval_rules_counts"],
+        "mesh2d_launches": mesh2d_launches["eval_rules_counts"],
+        "background_launches": {k: v["launches"]["eval_rules_counts"]
+                                for k, v in background.items()},
+        "mesh_k7_ms": mesh["k7_ms"]}
     kernels = []
     for name, row in rows.items():
         if name in KERNEL_SOURCES:

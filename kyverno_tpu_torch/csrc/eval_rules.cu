@@ -75,6 +75,23 @@
 // batch's end); below 8, blocks share a byte, so the entry zeroes the
 // masks with one memset and blocks atomicOr their bits in. K5
 // (scan_counts.cu) reduces the masks to the counts.
+//
+// The counts form (the matrix form with a counts buffer, entry
+// ktpu_eval_rules_counts) is K7's program, the mesh scan's: it writes the
+// verdicts as the matrix form does and, from the same planes in registers,
+// per-rule FAIL and PASS counts over every resource of the batch, HOST
+// rows included, for the rules below `live`. It replaces the count tail
+// of the JAX package's parallel/mesh.py::sharded_eval_fn (mesh.py:197-198)
+// and of shard_eval_fns' programs (mesh.py:247-248), jnp.sum(verdict ==
+// V_FAIL, axis=0) and the same for V_PASS, which XLA fused behind the
+// verdict program. In phase 4 the thread that owns a rule counts its
+// block's FAIL (code 2) and PASS (code 1) bits, cut to the nb live
+// resources (the planes hold bits past nb, which phase 5 never writes
+// out), and adds each nonzero count to the output with one integer
+// atomicAdd a (block, rule), exact in any order. The counts cost no
+// second read of the [B, live] matrix and no launch; padded rows read
+// NOT_APPLICABLE and count as nothing, as in the JAX sum. The entry zeroes
+// the [2, live] counts with one memset before the launch.
 // TB (resources per block, a power of two up to 32, the bits of a mask) is
 // chosen at launch: the largest of 32, 16 and 8 whose grid fills the card
 // one and a half times over, within the shared memory a block may take.
@@ -823,6 +840,13 @@ struct ScanOut {
   size_t words;    // of the buffer, from fail: 2 G R + n_tiles G
 };
 
+// The counts form's output: fails [live] then passes [live] in one int32
+// buffer; c is null in the plain matrix form and in the scan form.
+struct Counts {
+  int* c;
+  int live;
+};
+
 // Store bits 0 .. TB-1 of m at bit sh of *word (sh a multiple of TB). A
 // block of 8 or more resources owns whole bytes and stores them; the
 // last block of the grid also stores the bytes after its own, up to the
@@ -845,7 +869,7 @@ template <bool kScan>
 __global__ void __launch_bounds__(kThreads, 3)
 rules_kernel(const int32_t* __restrict__ plan, Blob bl,
              const uint8_t* __restrict__ match_nv, int tb_shift,
-             int8_t* __restrict__ out, ScanOut so) {
+             int8_t* __restrict__ out, ScanOut so, Counts cn) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
   __shared__ uint32_t host_or;     // scan form: the tile's HOST resources
@@ -957,9 +981,9 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
   const int kmax = plan[H_KMAX];
   const long long R = plan[H_R];
   const int r0 = tt[TT_R0];
+  const uint32_t cut = nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
   if (kScan) {
     // ---- 4-5, scan form: masks from each rule's planes, in registers
-    const uint32_t cut = nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
     const int g = b0 >> 5, sh = b0 & 31;
     const bool last = b0 + TB >= bl.B;
     uint32_t hm = 0;
@@ -985,6 +1009,13 @@ rules_kernel(const int32_t* __restrict__ plan, Blob bl,
     svp[r * 3 + 0] = v.p0;
     svp[r * 3 + 1] = v.p1;
     svp[r * 3 + 2] = v.p2;
+    // counts form: the block's FAIL and PASS cells of a live rule
+    if (cn.c != nullptr && r0 + r < cn.live) {
+      const int nf = __popc(v.p1 & ~v.p0 & ~v.p2 & cut);
+      const int np = __popc(v.p0 & ~v.p1 & ~v.p2 & cut);
+      if (nf) atomicAdd(cn.c + r0 + r, nf);
+      if (np) atomicAdd(cn.c + cn.live + r0 + r, np);
+    }
   }
   __syncthreads();
 
@@ -1081,7 +1112,8 @@ int choose_tb(const int32_t* tiles, int64_t n_tiles, int E, int64_t B) {
 template <bool kScan>
 int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
            int64_t V, int64_t match_nv, int64_t tiles, int64_t n_tiles,
-           int64_t info, int8_t* out, ScanOut so, cudaStream_t stream) {
+           int64_t info, int8_t* out, ScanOut so, Counts cn,
+           cudaStream_t stream) {
   int err = device_limits();
   if (err != 0) return err;
   const int32_t* tt = (const int32_t*)tiles;
@@ -1098,11 +1130,18 @@ int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
     const cudaError_t e = cudaMemsetAsync(so.fail, 0, so.words * 4, stream);
     if (e != cudaSuccess) return (int)e;
   }
+  if (cn.c != nullptr && cn.live > 0) {
+    // blocks add into the counts
+    const cudaError_t e =
+        cudaMemsetAsync(cn.c, 0, (size_t)cn.live * 2 * 4, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   const Blob bl = make_blob((const uint32_t*)blob, (int)B, (int)P, (int)E,
                             (int)V);
   const dim3 grid((unsigned)((B + tb - 1) / tb), (unsigned)n_tiles);
   rules_kernel<kScan><<<grid, kThreads, bytes, stream>>>(
-      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift, out, so);
+      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift, out, so,
+      cn);
   return (int)cudaGetLastError();
 }
 
@@ -1118,7 +1157,21 @@ extern "C" int ktpu_eval_rules(int64_t plan, int64_t blob, int64_t B,
                                int64_t stream) {
   return launch<false>(plan, blob, B, P, E, V, match_nv, tiles, n_tiles,
                        info, (int8_t*)out, ScanOut{nullptr, nullptr, nullptr, 0, 0},
-                       (cudaStream_t)stream);
+                       Counts{nullptr, 0}, (cudaStream_t)stream);
+}
+
+// The counts form: the verdicts into out as ktpu_eval_rules writes them,
+// and counts (int32 [2, live], fails then passes, 0 <= live <= R) zeroed,
+// then the FAIL and PASS cells of each rule r < live over every resource.
+extern "C" int ktpu_eval_rules_counts(int64_t plan, int64_t blob, int64_t B,
+                                      int64_t P, int64_t E, int64_t V,
+                                      int64_t match_nv, int64_t tiles,
+                                      int64_t n_tiles, int64_t info,
+                                      int64_t out, int64_t live,
+                                      int64_t counts, int64_t stream) {
+  return launch<false>(plan, blob, B, P, E, V, match_nv, tiles, n_tiles,
+                       info, (int8_t*)out, ScanOut{nullptr, nullptr, nullptr, 0, 0},
+                       Counts{(int*)counts, (int)live}, (cudaStream_t)stream);
 }
 
 // The scan form: masks (uint32) is one buffer of fail_m [G, R], pass_m
@@ -1136,5 +1189,5 @@ extern "C" int ktpu_eval_rules_scan(int64_t plan, int64_t blob, int64_t B,
   const ScanOut so{m, m + G * R, m + 2 * G * R, (int)G,
                    (size_t)(2 * G * R + n_tiles * G)};
   return launch<true>(plan, blob, B, P, E, V, match_nv, tiles, n_tiles, info,
-                      nullptr, so, (cudaStream_t)stream);
+                      nullptr, so, Counts{nullptr, 0}, (cudaStream_t)stream);
 }

@@ -10,8 +10,9 @@ its library, and :func:`build_all` builds every library at once, one
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts, per kernel
-(a source may hold more than one: ``eval_rules`` and its scan form
-``eval_rules_scan``), the wrapper calls that launched it on the card;
+(a source may hold more than one: ``eval_rules``, its scan form
+``eval_rules_scan`` and its counts form ``eval_rules_counts``), the
+wrapper calls that launched it on the card;
 wrappers count through :func:`note_launch`.
 """
 
@@ -28,16 +29,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("glob_nfa", "eval_rules", "scan_counts", "rule_counts")
+KERNELS = ("glob_nfa", "eval_rules", "scan_counts")
 HEADERS = ("plan.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# eval_rules.cu holds two kernels: eval_rules and its scan form
+# eval_rules.cu holds three forms: the matrix, the scan and the counts form
 LAUNCHES = {name: 0 for name in ("glob_nfa", "eval_rules", "eval_rules_scan",
-                                 "scan_counts", "rule_counts")}
+                                 "eval_rules_counts", "scan_counts")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

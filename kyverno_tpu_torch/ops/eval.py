@@ -16,15 +16,17 @@ compiled check rows:
   *  scan form: eval_rules writes, instead of the verdicts, FAIL, PASS
      and HOST bit masks over 32 resources a word; K5 reduces them to
      per-rule FAIL/PASS counts over non-HOST rows and the HOST rows
-  *  K7, the mesh scan's program: the verdicts sliced to the live rule
-     columns on the device (:func:`evaluate_live`), then per-rule FAIL
-     and PASS counts over every row (:func:`rule_counts`)
+  *  K7, the mesh scan's program (:func:`evaluate_live_counts`): K1,
+     then eval_rules' counts form, which writes the verdicts and, as
+     its epilogue, per-rule FAIL and PASS counts over every row of the
+     live rule columns; the verdicts are sliced to those columns on the
+     device
 
-Each of K1 (``ops/glob.py``), :func:`eval_rules` and
-:func:`eval_rules_scan` (stages 2-6, one kernel source), K5
-(:func:`scan_reduce`) and K7's counts (:func:`rule_counts`) is a wrapper
-that launches a CUDA kernel from ``csrc/`` for tensors on the card and
-runs its plain PyTorch version for tensors on the CPU. The plain versions mirror the JAX code stage by
+Each of K1 (``ops/glob.py``), :func:`eval_rules`, :func:`eval_rules_scan`
+and :func:`eval_rules_counts` (stages 2-6, one kernel source) and K5
+(:func:`scan_reduce`) is a wrapper that launches a CUDA kernel from
+``csrc/`` for tensors on the card and runs its plain PyTorch version for
+tensors on the CPU. The plain versions mirror the JAX code stage by
 stage, segment reductions included: :func:`eval_checks_plain` (stages
 2-3, returning the per-row flags) and :func:`eval_verdict_plain` (stages
 4-6, from those flags) compose to what ``eval_rules`` computes. The
@@ -914,16 +916,10 @@ def scan_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
 
 # ------------------------------------------------------------------ K7
 
-def evaluate_live(plan: Plan, blob, B: int, P: int, E: int, V: int,
-                  live: int):
-    """K7's verdicts: K1 -> eval_rules, sliced on the device to the first
-    ``live`` rule columns, int8 [B, live] (a view whose rows are plan.R
-    bytes apart). A policy shard's rule axis pads to a power-of-two
-    bucket; the slice keeps its inert columns off the copy back."""
+def _check_live(plan: Plan, live: int, name: str) -> None:
     if not 0 <= live <= plan.R:
-        raise ValueError(f"evaluate_live: live={live} outside the plan's "
+        raise ValueError(f"{name}: live={live} outside the plan's "
                          f"{plan.R} rules")
-    return evaluate_blob(plan, blob, B, P, E, V)[:, :live]
 
 
 def rule_counts_plain(verdict):
@@ -933,30 +929,46 @@ def rule_counts_plain(verdict):
             (verdict == V_PASS).sum(dim=0, dtype=torch.int32))
 
 
-def rule_counts(verdict):
-    """K7's counts: per-rule FAIL and PASS counts over every row of the
-    verdicts int8 [B, R] (rows may be a column slice of a wider matrix).
-    CUDA kernel ``csrc/rule_counts.cu`` on the card (one launch; its entry
-    zeroes the counts), :func:`rule_counts_plain` on the CPU."""
-    dev = verdict.device
+def eval_rules_counts(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                      match_nv, live: int):
+    """Stages 2-6 with K7's counts as their epilogue: (verdicts int8
+    [B, R], fails int32 [live], passes int32 [live]), the counts over
+    every row of the first ``live`` rule columns. The counts form of
+    ``csrc/eval_rules.cu`` on the card (the matrix form's blocks, which
+    also count each rule's FAIL and PASS cells; its entry zeroes the
+    counts), :func:`eval_rules_plain` then :func:`rule_counts_plain` on
+    the CPU."""
+    dev = _rules_device(blob, E, "eval_rules_counts")
+    _check_live(plan, live, "eval_rules_counts")
     if dev.type == "cpu":
-        return rule_counts_plain(verdict)
-    if dev.type != "cuda":
-        raise ValueError(f"rule_counts: unsupported device {dev}")
-    if (verdict.dtype != torch.int8 or verdict.dim() != 2
-            or (verdict.shape[1] > 1 and verdict.stride(1) != 1)
-            or verdict.stride(0) < verdict.shape[1]):
-        raise ValueError(f"rule_counts: verdicts must be int8 [B, R] with "
-                         f"rows of contiguous bytes, got {verdict.dtype} "
-                         f"{tuple(verdict.shape)} strides {verdict.stride()}")
-    B, R = verdict.shape
-    counts = torch.empty((2, R), dtype=torch.int32, device=dev)
+        v = eval_rules_plain(plan, blob, B, P, E, V, match_nv)
+        return (v, *rule_counts_plain(v[:, :live]))
+    _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules_counts")
+    R = plan.R
+    out = torch.empty((B, R), dtype=torch.int8, device=dev)
+    counts = torch.empty((2, live), dtype=torch.int32, device=dev)
     if B == 0 or R == 0:
         counts.zero_()
-        return counts[0], counts[1]
-    f = _build.fn("rule_counts", "ktpu_rule_counts", 6)
-    err = f(verdict.data_ptr(), B, R, verdict.stride(0), counts.data_ptr(),
+        return out, counts[0], counts[1]
+    f = _build.fn("eval_rules", "ktpu_eval_rules_counts", 14)
+    err = f(plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V,
+            match_nv.data_ptr(), plan.tile_ptr, plan.n_tiles,
+            _LAST_LAUNCH_PTR, out.data_ptr(), live, counts.data_ptr(),
             _build.stream_handle(dev))
-    _build.check("rule_counts", err)
-    _build.note_launch("rule_counts")
-    return counts[0], counts[1]
+    _build.check("eval_rules_counts", err)
+    _build.note_launch("eval_rules_counts")
+    return out, counts[0], counts[1]
+
+
+def evaluate_live_counts(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                         live: int):
+    """K7's program on one data shard: K1 -> :func:`eval_rules_counts`.
+    Returns (verdicts int8 [B, live], a view whose rows are plan.R bytes
+    apart, sliced on the device; fails int32 [live]; passes int32
+    [live]). A policy shard's rule axis pads to a power-of-two bucket;
+    the slice keeps its inert columns off the copy back and out of the
+    counts."""
+    _check_live(plan, live, "evaluate_live_counts")
+    v, fails, passes = eval_rules_counts(
+        plan, blob, B, P, E, V, match_matrix(plan, blob, B, P, E, V), live)
+    return v[:, :live], fails, passes

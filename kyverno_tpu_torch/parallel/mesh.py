@@ -19,12 +19,12 @@ the tests. The verdicts and counts do not depend on it. A program
 (:func:`sharded_eval_fn`, one per shard row in :func:`shard_eval_fns`)
 pads nothing itself: the caller pads the packed batch to a multiple of D
 (``pad_packed``; padded rows score NOT_APPLICABLE), the program cuts it
-into D row ranges, runs K1 -> eval_rules -> the live slice
-(ops/eval.evaluate_live) and K7's counts (ops/eval.rule_counts) on each
-range's device, gathers the verdicts onto the row's first device and
-sums the count vectors there — the all-reduce, an add on the device when
-the row is one card. Counts are int32 on the device and int64 on the
-host.
+into D row ranges, runs K1 -> eval_rules' counts form, which writes
+the verdicts and counts them (ops/eval.evaluate_live_counts, the
+verdicts sliced to the live rules), on each range's device, gathers the
+verdicts onto the row's first device and sums the count vectors there —
+the all-reduce, an add on the device when the row is one card. Counts
+are int32 on the device and int64 on the host.
 """
 
 from __future__ import annotations
@@ -235,8 +235,8 @@ def _row_program(cps: CompiledPolicySet, devices: list):
             with (torch.cuda.device(dev) if dev.type == "cuda"
                   else contextlib.nullcontext()):
                 dblob = torch.from_numpy(blob.view(np.int32)).to(dev)
-                v = ops_eval.evaluate_live(cps.plan_on(dev), dblob, *shp, live)
-                f, p = ops_eval.rule_counts(v)
+                v, f, p = ops_eval.evaluate_live_counts(
+                    cps.plan_on(dev), dblob, *shp, live)
             verdicts.append(v.to(first))
             # the all-reduce: one add a data shard on the row's first device
             fails = f.to(first) if fails is None else fails + f.to(first)
@@ -269,8 +269,8 @@ def shard_eval_fns(sps: ShardedPolicySet, mesh: Mesh, axis: str = "data"):
     Row ``p`` of the device grid evaluates shard ``p``'s tensors with the
     flat batch split over the row's data devices and the string
     dictionary sent whole to each. Verdicts come back already sliced to
-    the shard's live rules (ops/eval.evaluate_live), so the gather moves
-    exactly the columns the host layout needs.
+    the shard's live rules (ops/eval.evaluate_live_counts), so the gather
+    moves exactly the columns the host layout needs.
 
     Returns ``[(PolicyShard, fn), ...]``. Programs cache on the shard
     object keyed by the row's devices: a shard the partitioner didn't

@@ -56,7 +56,7 @@ def test_note_launch_is_exact_under_threads():
         _threads(n, count)
         assert _build.LAUNCHES == {
             "glob_nfa": (n + 1) // 2 * per, "eval_rules": n // 2 * per,
-            "eval_rules_scan": 0, "scan_counts": 0, "rule_counts": 0}
+            "eval_rules_scan": 0, "eval_rules_counts": 0, "scan_counts": 0}
     finally:
         sys.setswitchinterval(interval)
         _build.LAUNCHES.update(saved)

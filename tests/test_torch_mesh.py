@@ -5,8 +5,9 @@ that may name one device more than once); its tests build
 ``["cpu"] * 8`` where the JAX package runs on conftest's 8 virtual CPU
 devices. The same seeded pods go through the JAX package's
 ``sharded_scan`` and the port's, 1D and 2D: verdicts, fails and passes
-must be equal, exactly. ``rule_counts_plain`` (K7's counts on the CPU)
-is held to ``jnp.sum(v == V_FAIL, axis=0)``, the JAX program's count.
+must be equal, exactly. ``rule_counts_plain`` (K7's counts on the CPU,
+the plain version of eval_rules' counts form) is held to
+``jnp.sum(v == V_FAIL, axis=0)``, the JAX program's count.
 """
 
 import jax
@@ -220,33 +221,45 @@ def test_rule_counts_plain_matches_jnp_sum(seed, B, R):
 
 
 def test_rule_counts_takes_the_plain_version_on_the_cpu_only():
-    rng = np.random.default_rng(9)
-    wide = torch.from_numpy(rng.integers(0, 6, (40, 64)).astype(np.int8))
-    view = wide[:, :45]                               # a live-column slice
+    """K7's counts come from eval_rules_counts, whose CPU route is
+    eval_rules_plain then rule_counts_plain over the live columns, with
+    no launch counted."""
+    _, tset = _sets(_mixed_docs())
+    blob, shp = tset.to_device(tset.flatten_packed(
+        [_mixed_pod(i) for i in range(40)]))
+    plan = tset.plan
+    live = plan.R - 1                                 # a live-column slice
+    m = ev.match_matrix(plan, blob, *shp)
     saved = dict(_build.LAUNCHES)
     try:
         _build.reset_launches()
-        got = ev.rule_counts(view)
+        v, fails, passes = ev.eval_rules_counts(plan, blob, *shp, m, live)
         assert set(_build.LAUNCHES.values()) == {0}
     finally:
         _build.LAUNCHES.update(saved)
-    want = ev.rule_counts_plain(view.contiguous())
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    want = ev.eval_rules_plain(plan, blob, *shp, m)
+    assert torch.equal(v, want)
+    wf, wp = ev.rule_counts_plain(want[:, :live].contiguous())
+    assert torch.equal(fails, wf) and torch.equal(passes, wp)
     with pytest.raises(ValueError, match="unsupported device"):
-        ev.rule_counts(torch.empty((4, 4), dtype=torch.int8, device="meta"))
+        ev.eval_rules_counts(plan, blob.to("meta"), *shp, m.to("meta"), live)
 
 
 def test_evaluate_live_slices_the_verdicts():
+    """evaluate_live_counts: K1 -> the counts form, the verdicts sliced
+    to the live columns and counted over them."""
     _, tset = _sets(_mixed_docs())
     batch = tset.flatten_packed([_mixed_pod(i) for i in range(9)])
     blob, shp = tset.to_device(batch)
     live = tset.tensors.n_rules_live
     full = ev.evaluate_blob(tset.plan, blob, *shp)
-    got = ev.evaluate_live(tset.plan, blob, *shp, live)
+    got, fails, passes = ev.evaluate_live_counts(tset.plan, blob, *shp, live)
     assert got.shape == (9, live)
     assert torch.equal(got, full[:, :live])
+    wf, wp = ev.rule_counts_plain(full[:, :live])
+    assert torch.equal(fails, wf) and torch.equal(passes, wp)
     with pytest.raises(ValueError, match="live"):
-        ev.evaluate_live(tset.plan, blob, *shp, tset.plan.R + 1)
+        ev.evaluate_live_counts(tset.plan, blob, *shp, tset.plan.R + 1)
 
 
 @pytest.mark.parametrize("n,multiple", [(13, 8), (16, 8), (5, 3), (1, 1)])
