@@ -79,7 +79,23 @@ Phases:
                after it; the library's 250 x 10k resolved matrix through
                the cache, incremental and with KTPU_INCREMENTAL=0, equal
                to the pinned sha256
-  8. background the background scan path, each run with the launch
+  8. mutate    BASELINE config 4 as bench.py runs it, with its two inline
+               policies: add-default-labels over 50,000 Pods (a kind-only
+               gate, which the lane router sends to the host), then
+               annotate-bench-apps over 50,000 mixed resources (a
+               label-selector gate, min_gate_batch=64), each through a
+               BatchMutator whose gate set is on the card: mutations/s of
+               two draws in the router's lane, with its launches; the
+               first 1,000 patch lists equal to the serial mutate()
+               chain's; the host lane and the device lane forced, equal
+               document for document, the device lane launching
+               eval_rules once a chunk of 8192 (7 at 50,000), K1 as often
+               where the gate's plan has a glob pattern, and nothing else;
+               the gate's K1 -> eval_rules a chunk between CUDA events,
+               equal to the plain pipeline, and its share of the device
+               lane's wall; no gate fallback (GATE_FALLBACKS) and no
+               flattener fallback
+ 9. background the background scan path, each run with the launch
                counters set to 0 just before and read just after.
                [background]: BackgroundScanner over the library with a
                ReportGenerator, 10,000 resources, through the single
@@ -106,10 +122,10 @@ Phases:
                HOST cell, the counts equal to the matrix's column sums,
                the first 10,000 rows equal to the 2D scan's and the
                pinned sha256
-  9. scan      every chunk of the 1M scan equal to the plain pipeline's
+10. scan      every chunk of the 1M scan equal to the plain pipeline's
                counts on the card, and its first chunk to the verdict
                matrix's
- 10. times     median of CUDA-event times over warm launches for every
+11. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
@@ -582,6 +598,35 @@ KERNEL_SOURCES = {
     "eval_rules_counts": ("kyverno_tpu_torch/csrc/eval_rules.cu",
                           "kyverno_tpu/parallel/mesh.py:173"),
 }
+
+
+# BASELINE config 4's two policies, as bench.py writes them inline when the
+# reference tree is absent (bench.py:974-984 and :1018-1028)
+ADD_DEFAULT_LABELS = {
+    "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+    "metadata": {"name": "add-default-labels"},
+    "spec": {"rules": [{
+        "name": "add-labels",
+        "match": {"resources": {
+            "kinds": ["Pod", "Service", "Namespace"]}},
+        "mutate": {"patchStrategicMerge": {"metadata": {"labels": {
+            "+(app.kubernetes.io/managed-by)": "kyverno"}}}},
+    }]},
+}
+ANNOTATE_BENCH_APPS = {
+    "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+    "metadata": {"name": "annotate-bench-apps"},
+    "spec": {"rules": [{
+        "name": "annotate",
+        "match": {"resources": {"kinds": ["Pod"], "selector": {
+            "matchLabels": {"app.kubernetes.io/name": "bench"}}}},
+        "mutate": {"patchStrategicMerge": {
+            "metadata": {"annotations": {"+(bench/tier)": "gated"}}}},
+    }]},
+}
+# config 4's documents, and the rows of one gate_verdicts chunk
+MUTATE_DOCS = 50_000
+GATE_CHUNK = 8192
 
 
 def log(msg: str) -> None:
@@ -2180,6 +2225,173 @@ def all_cards_phase(policies: list, n: int = 10_000) -> None:
             f"form's counts equal to the plain version's on each card")
 
 
+def same_mutations(name: str, got: list, want: list) -> None:
+    """Two BatchMutator results: the same patch bytes (json.dumps) and the
+    same patched resource for every document."""
+    check(len(got) == len(want), f"{name}: {len(got)} vs {len(want)} results")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (json.dumps(g.patches) != json.dumps(w.patches)
+                or g.patched_resource != w.patched_resource):
+            raise AssertionError(f"{name}: document {i} differs: "
+                                 f"{g.patches} vs {w.patches}")
+
+
+def serial_chain(policies: list, doc: dict) -> list:
+    """The serial engine's patches of one document: per policy, mutate();
+    the patched resource feeds the next policy."""
+    from kyverno_tpu_torch.engine.context import Context
+    from kyverno_tpu_torch.engine.mutation import mutate
+    from kyverno_tpu_torch.engine.policy_context import PolicyContext
+
+    patches = []
+    for policy in policies:
+        jctx = Context()
+        jctx.add_resource(doc)
+        resp = mutate(PolicyContext(policy=policy, new_resource=doc,
+                                    json_context=jctx))
+        patches.extend(resp.patches)
+        if resp.patched_resource is not None:
+            doc = resp.patched_resource
+    return patches
+
+
+def gate_launches(bm, n: int) -> dict:
+    """The launches gate_verdicts must make over ``n`` documents: one
+    eval_rules a chunk of GATE_CHUNK, and K1 a chunk where the gate's plan
+    has a glob pattern (match_matrix launches it for N > 0 patterns);
+    nothing else."""
+    from kyverno_tpu_torch.ops import _build
+
+    chunks = -(-n // GATE_CHUNK)
+    want = {name: 0 for name in _build.LAUNCHES}
+    want["eval_rules"] = chunks
+    want["glob_nfa"] = chunks if int(bm._gate_cps.plan.nfa_char.shape[0]) else 0
+    return want
+
+
+def mutate_half(label: str, bm, docs: list, warm: list, smi: str) -> dict:
+    """One half of BASELINE config 4 through a BatchMutator on the card:
+    two timed draws of apply() in the lane the router picks (launches
+    counted from 0 just before them), the first 1,000 patch lists against
+    the serial mutate() chain, then the host lane and the device lane
+    forced, equal document for document, the device lane's launches
+    counted from 0 just before it; then the gate's device time a chunk
+    (K1 -> eval_rules between CUDA events) beside that lane's wall, and
+    the gate's launches held to their plain versions on the chunk."""
+    import torch
+
+    from kyverno_tpu_torch.models.flatten import pad_to_buckets_packed
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.ops import eval as ev
+
+    n = len(docs)
+    t0 = time.perf_counter()
+    bm.apply(warm)                    # warms; calibrates the router
+    warm_s = time.perf_counter() - t0
+    lane = "device" if bm._auto_gate(docs) else "host"
+    if lane == "device":
+        bm.gate_verdicts(docs)        # every chunk's shape bucket, as bench.py
+    _build.reset_launches()
+    draws = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = bm.apply(docs)
+        draws.append(time.perf_counter() - t0)
+    auto_launches = dict(_build.LAUNCHES)
+    if lane == "device":
+        want = {k: 2 * v for k, v in gate_launches(bm, n).items()}
+    else:
+        want = {k: 0 for k in auto_launches}
+    check(auto_launches == want, f"[mutate] {label}: the {lane} lane "
+          f"launched {auto_launches}, not {want}")
+    bad = sum(json.dumps(g.patches) != json.dumps(serial_chain(bm.policies, d))
+              for d, g in zip(docs[:1000], out[:1000]))
+    check(bad == 0, f"[mutate] {label}: {bad} of 1,000 patch lists differ "
+          "from the serial mutate() chain")
+    patched = sum(1 for r in out if r.patches)
+    log(f"[mutate] {label} x {n}: router lane {lane} (gate "
+        f"{'kind-only' if bm._gate_trivial else 'with predicates'}, warm-up "
+        f"{warm_s:.3f} s); {n / draws[0]:.1f}; {n / draws[1]:.1f} mutations/s "
+        f"({draws[0]:.3f}; {draws[1]:.3f} s); {patched} patched; launches "
+        f"{auto_launches}; the first 1,000 patch lists equal to the serial "
+        f"mutate() chain's; {smi}")
+    t0 = time.perf_counter()
+    host = bm.apply(docs, use_device_gate=False)
+    host_s = time.perf_counter() - t0
+    same_mutations(f"[mutate] {label}: router lane vs host lane", out, host)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dev = bm.apply(docs, use_device_gate=True)
+    dev_s = time.perf_counter() - t0
+    dev_launches = dict(_build.LAUNCHES)
+    want = gate_launches(bm, n)
+    check(dev_launches == want, f"[mutate] {label}: the device lane "
+          f"launched {dev_launches}, not {want}")
+    same_mutations(f"[mutate] {label}: device lane vs host lane", dev, host)
+    # the gate's program on the card, one chunk of each shape it ran
+    cps = bm._gate_cps
+    chunk_ms = {}
+    for rows in (docs[:GATE_CHUNK], docs[(n - 1) // GATE_CHUNK * GATE_CHUNK:]):
+        batch, _ = pad_to_buckets_packed(cps.flatten_packed(rows))
+        blob, shp = cps.to_device(batch)
+        same(f"[mutate] {label} gate at {shp}",
+             ev.evaluate_blob(cps.plan, blob, *shp),
+             plain_pipeline(cps.plan, blob, shp))
+        chunk_ms[len(rows)] = (shp, cuda_ms(
+            lambda: ev.evaluate_blob(cps.plan, blob, *shp), 50))
+    torch.cuda.synchronize()
+    full = n // GATE_CHUNK
+    tail = n - full * GATE_CHUNK
+    gate_ms = full * chunk_ms[GATE_CHUNK][1] + (chunk_ms[tail][1] if tail else 0.0)
+    log(f"[mutate] {label}: host lane {host_s:.3f} s ({n / host_s:.1f} "
+        f"mutations/s), device lane {dev_s:.3f} s ({n / dev_s:.1f} "
+        f"mutations/s), equal document for document; device lane launches "
+        f"{dev_launches}; the gate on the card (K1 -> eval_rules between "
+        f"events): {chunk_ms[GATE_CHUNK][1]:.4f} ms a {GATE_CHUNK}-row chunk "
+        f"{chunk_ms[GATE_CHUNK][0]}"
+        + (f", {chunk_ms[tail][1]:.4f} ms the {tail}-row tail "
+           f"{chunk_ms[tail][0]}" if tail else "")
+        + f"; {gate_ms:.4f} ms for the {full + bool(tail)} chunks, "
+        f"{100 * gate_ms / (dev_s * 1e3):.4f}% of the device lane's wall; "
+        f"equal to the plain pipeline at both shapes; {smi}")
+    return {"lane": lane, "mutations_per_s": [n / d for d in draws],
+            "auto_launches": auto_launches, "device_launches": dev_launches,
+            "host_s": host_s, "device_s": dev_s, "gate_ms": gate_ms,
+            "chunk_ms": chunk_ms[GATE_CHUNK][1]}
+
+
+def mutate_phase(n: int = MUTATE_DOCS) -> dict:
+    """BASELINE config 4 as bench.py runs it (bench.py:953-1055), on the
+    card: add-default-labels over ``n`` Pods (a kind-only gate, which the
+    router sends to the host), then annotate-bench-apps over ``n`` mixed
+    resources (a label-selector gate, min_gate_batch=64), each through
+    :func:`mutate_half`; no gate fallback and no flattener fallback."""
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.engine.mutate import batch as mutate_batch
+    from kyverno_tpu_torch.models import native_flatten
+
+    smi = nvidia_smi_line()
+    mutate_batch.reset_gate_fallbacks()
+    native_flatten.reset_fallbacks()
+    pods = [make_pod(i) for i in range(n)]
+    bm = mutate_batch.BatchMutator([load_policy(ADD_DEFAULT_LABELS)])
+    labels = mutate_half("add-default-labels", bm, pods, pods[:64], smi)
+    check(labels["lane"] == "host", "the kind-only gate was routed to the card")
+    del pods
+    mixed = [mixed_resource(i) for i in range(n)]
+    bm2 = mutate_batch.BatchMutator([load_policy(ANNOTATE_BENCH_APPS)],
+                                    min_gate_batch=64)
+    check(not bm2._gate_trivial, "the selector gate compiled as kind-only")
+    selector = mutate_half("selector-gated mixed", bm2, mixed, mixed[:256], smi)
+    check(all(v == 0 for v in mutate_batch.GATE_FALLBACKS.values()),
+          f"mutate gate fallbacks {mutate_batch.GATE_FALLBACKS}")
+    check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
+          f"native flattener fallbacks in [mutate] {native_flatten.FALLBACKS}")
+    log(f"[mutate] gate fallbacks {mutate_batch.GATE_FALLBACKS}; native "
+        f"flattener fallbacks {native_flatten.FALLBACKS}")
+    return {"add-default-labels": labels, "selector": selector}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2436,7 +2648,11 @@ def main() -> int:
     # ---- 7. admission: the policy cache, the batcher, K6 and the pool
     admission = admission_phase(library_docs)
 
-    # ---- 8. the background scan path: the scanner's lanes with reports
+    # ---- 8. mutate: BASELINE config 4 through the BatchMutator, its gate
+    # (K1 -> eval_rules a chunk, then the host lane) on the card
+    mutate = mutate_phase()
+
+    # ---- 9. the background scan path: the scanner's lanes with reports
     # and a delta pass; K7 on the 2D (4, 1) mesh of the card, then on the
     # 1D mesh at two chunks (the host memo holds the first 10,000 until
     # the 1D scan's fresh resources push them out)
@@ -2449,7 +2665,7 @@ def main() -> int:
     del mesh2d_matrix
     gc.collect()
 
-    # ---- 9. scan: every chunk against the plain pipeline
+    # ---- 10. scan: every chunk against the plain pipeline
     t0 = time.perf_counter()
     for c, (sb, (f, p, h)) in enumerate(zip(scan_batches, scan_counts)):
         blob, shp = cps.to_device(sb)
@@ -2471,7 +2687,7 @@ def main() -> int:
         f"first chunk's to the verdict matrix's")
     del scan_batches, scan_counts
 
-    # ---- 10. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 11. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -2541,6 +2757,10 @@ def main() -> int:
                       "pipelined_launches": pipe_launches.get(name),
                       "admission_launches":
                           admission["burst"]["launches"].get(name),
+                      "mutate_launches": {
+                          half: {"router": r["auto_launches"].get(name),
+                                 "device_lane": r["device_launches"].get(name)}
+                          for half, r in mutate.items()},
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

@@ -316,6 +316,7 @@ class CompiledPolicySet:
         self._k6: dict[tuple, list[_Slot]] = {}
         self._k6_lock = threading.Condition()
         self._k6_seq = 0
+        self.donation_stats = {"dispatches": 0, "donated_buffers": 0}
 
     # ------------------------------------------------------------ host
 
@@ -404,13 +405,21 @@ class CompiledPolicySet:
         if donate and donation_enabled():
             if self.device.type == "cuda":
                 return self._dispatch_k6(batch, live, phases)
-            with _STATS_LOCK:
-                DONATION_STATS["dispatches"] += 1
+            self._count_donation(False)
         handle = AsyncVerdicts(self._launch(batch, phases), n_live=live,
                                phases=phases)
         if phases is not None:
             phases.clock("dispatched")
         return handle
+
+    def _count_donation(self, reused: bool) -> None:
+        """One donating dispatch, in DONATION_STATS and in the set's own
+        ``donation_stats`` (the same keys, this set's dispatches only)."""
+        with _STATS_LOCK:
+            for stats in (DONATION_STATS, self.donation_stats):
+                stats["dispatches"] += 1
+                if reused:
+                    stats["donated_buffers"] += 1
 
     def _k6_slot(self, shp: tuple, words: int) -> tuple[_Slot, bool]:
         """A slot of the shape bucket ``shp`` for one dispatch, and
@@ -418,7 +427,11 @@ class CompiledPolicySet:
         with self._k6_lock:
             ring = self._k6.setdefault(shp, [])
             while True:
-                slot = next((s for s in ring if s.handle is None), None)
+                # a holder frees its slot from its own get(), under its
+                # handle's lock and not this one, so each slot's handle is
+                # read once here and the pick works on that snapshot
+                handles = [(s, s.handle) for s in ring]
+                slot = next((s for s, h in handles if h is None), None)
                 if slot is not None:
                     reused = True
                     break
@@ -431,12 +444,14 @@ class CompiledPolicySet:
                     ring.append(slot)
                     reused = False
                     break
-                held = [s for s in ring if isinstance(s.handle, AsyncVerdicts)]
+                held = [(s, h) for s, h in handles
+                        if isinstance(h, AsyncVerdicts)]
                 if held:
                     # every slot is held: the oldest holder's verdicts are
-                    # copied out now (it waits on its event), which frees it
-                    slot = min(held, key=lambda s: s.seq)
-                    holder = slot.handle
+                    # copied out now (it waits on its event), which frees
+                    # it; a holder that read them since the snapshot has
+                    # freed it already
+                    slot, holder = min(held, key=lambda sh: sh[0].seq)
                     with holder._lock:
                         if holder._verdicts is None:
                             holder._materialize()
@@ -478,10 +493,7 @@ class CompiledPolicySet:
             raise
         handle = AsyncVerdicts(None, n_live=live, slot=slot, phases=phases)
         slot.handle = handle
-        with _STATS_LOCK:
-            DONATION_STATS["dispatches"] += 1
-            if reused:
-                DONATION_STATS["donated_buffers"] += 1
+        self._count_donation(reused)
         if phases is not None:
             phases.clock("dispatched")
         return handle

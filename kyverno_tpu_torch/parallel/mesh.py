@@ -212,13 +212,16 @@ def _batch_multiple(mesh: Mesh) -> int:
     return multiple
 
 
-def _row_program(cps: CompiledPolicySet, devices: list):
+def _row_program(cps: CompiledPolicySet, devices: list,
+                 live: int | None = None):
     """K7 over one row of data devices: ``step(cells, bmeta, str_bytes,
     dictv)`` on a batch padded to a multiple of ``len(devices)`` returns
     (verdicts int8 [B, live], fails int32 [live], passes int32 [live]) on
-    the row's first device. Row range d runs on ``devices[d]`` with the
-    set's plan there (``cps.plan_on``)."""
-    live = cps.tensors.n_rules_live
+    the row's first device, over the first ``live`` rule columns (the
+    set's live rules unless given). Row range d runs on ``devices[d]``
+    with the set's plan there (``cps.plan_on``)."""
+    if live is None:
+        live = cps.tensors.n_rules_live
     first = devices[0]
 
     def step(cells, bmeta, str_bytes, dictv):
@@ -250,9 +253,11 @@ def _row_program(cps: CompiledPolicySet, devices: list):
 def sharded_eval_fn(cps: CompiledPolicySet, mesh: Mesh, axis: str = "data"):
     """The verdict computation over the packed transfer form with the
     batch axis split over the mesh: ``fn(cells, bmeta, str_bytes, dictv)``
-    -> (verdicts [B, live], fails [live], passes [live]), the per-rule
-    FAIL and PASS counts over the whole padded batch (K7's counts, summed
-    over the data shards).
+    -> (verdicts [B, R], fails [R], passes [R]), the per-rule FAIL and
+    PASS counts over the whole padded batch (K7's counts, summed over the
+    data shards), over every column of the rule axis as the JAX package
+    gives them: R is the plan's rule axis, padded past the live rules of
+    an incremental or sharded set.
 
     1D meshes only — a 2D ``(policy, data)`` mesh needs per-shard
     programs: see :func:`shard_eval_fns` / :func:`sharded_scan`."""
@@ -260,7 +265,7 @@ def sharded_eval_fn(cps: CompiledPolicySet, mesh: Mesh, axis: str = "data"):
         raise ValueError("sharded_eval_fn is the 1D program; use "
                          "shard_eval_fns(ShardedPolicySet, mesh) for a "
                          "2D (policy, data) mesh")
-    return _row_program(cps, list(mesh.devices.reshape(-1)))
+    return _row_program(cps, list(mesh.devices.reshape(-1)), cps.plan.R)
 
 
 def shard_eval_fns(sps: ShardedPolicySet, mesh: Mesh, axis: str = "data"):
@@ -362,7 +367,9 @@ def sharded_scan(cps, resources: list[dict], mesh: Mesh,
         return _sharded_scan_2d(sps, resources, mesh, axis, chunk_size,
                                 flatten_workers)
 
-    fn = sharded_eval_fn(cps, mesh, axis)
+    # sharded_eval_fn's program over the live columns only: the scan
+    # slices them, so the inert ones are neither counted nor copied back
+    fn = _row_program(cps, list(mesh.devices.reshape(-1)))
     rec = tracing.recorder()
     multiple = _batch_multiple(mesh)
     has_host_rules = _host_rules(cps.tensors)

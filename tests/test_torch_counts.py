@@ -6,20 +6,24 @@ the CPU it runs ``eval_rules_plain`` then ``rule_counts_plain``; the
 card's counts form is held to the same on the card by chip_smoke.py.
 Here its counts are held, exactly, to those of the JAX package's K7
 programs on the same padded batch: ``sharded_eval_fn`` (1D, conftest's 8
-virtual devices, over its first ``live`` columns) and ``shard_eval_fns``
-(2D, per policy shard, whose live rules are fewer than its bucket).
+virtual devices, over the whole rule axis, an incremental set's padded
+columns included) and ``shard_eval_fns`` (2D, per policy shard, whose
+live rules are fewer than its bucket).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from kyverno_tpu.api.load import load_policy as jax_load_policy
+from kyverno_tpu.models.engine import IncrementalCompiler as JaxIncremental
 from kyverno_tpu.models.engine import shard_policies as jax_shard_policies
 from kyverno_tpu.models.flatten import pad_packed as jax_pad_packed
 from kyverno_tpu.parallel import make_mesh as jax_make_mesh
 from kyverno_tpu.parallel.mesh import sharded_eval_fn as jax_sharded_eval_fn
 from kyverno_tpu.parallel.mesh import shard_eval_fns as jax_shard_eval_fns
-from kyverno_tpu_torch.models.engine import shard_policies
+from kyverno_tpu_torch.api.load import load_policy
+from kyverno_tpu_torch.models.engine import IncrementalCompiler, shard_policies
 from kyverno_tpu_torch.models.flatten import _assemble_blob, pad_packed
 from kyverno_tpu_torch.ops import _build
 from kyverno_tpu_torch.ops import eval as ev
@@ -61,26 +65,56 @@ def _counts(plan, blob, shp, live):
                                 ev.match_matrix(plan, blob, *shp), live)
 
 
-def test_counts_form_matches_jax_1d_program(case):
-    """The 1D program over 8 devices: its verdicts and counts are over
-    the unsliced rule axis; the port's counts are over the live columns,
-    equal to the JAX counts' first ``live``."""
-    _, jset, tset, resources = case
+def _holds_1d_program(jset, tset, resources):
+    """The port's sharded_eval_fn on 8 CPU devices against the JAX one on
+    conftest's 8 virtual devices, on the same padded batch: verdicts and
+    counts equal over the whole rule axis R, the counts form's over the
+    first ``live`` columns. Returns (R, live)."""
     pb = jset.flatten_packed(resources)
     cells, bmeta, n = jax_pad_packed(pb.cells, pb.bmeta, 8)
     jv, jf, jp = jax_sharded_eval_fn(jset, jax_make_mesh())(
         cells, bmeta, pb.str_bytes, pb.dictv)
-    blob, shp, tn = _port_blob(tset, resources, 8)
-    assert tn == n and shp[0] == cells.shape[0] > n
-    live = tset.tensors.n_rules_live
-    v, fails, passes = _counts(tset.plan, blob, shp, live)
+    tb = tset.flatten_packed(resources)
+    tcells, tbmeta, tn = pad_packed(tb.cells, tb.bmeta, 8)
+    assert tn == n and tcells.shape[0] == cells.shape[0] > n
+    v, fails, passes = sharded_eval_fn(tset, make_mesh(["cpu"] * 8))(
+        tcells, tbmeta, tb.str_bytes, tb.dictv)
+    R, live = tset.plan.R, tset.tensors.n_rules_live
     assert fails.dtype == passes.dtype == torch.int32
-    assert fails.shape == passes.shape == (live,)
-    np.testing.assert_array_equal(v[:, :live].numpy(),
-                                  np.asarray(jv)[:, :live])
-    np.testing.assert_array_equal(fails.numpy(), np.asarray(jf)[:live])
-    np.testing.assert_array_equal(passes.numpy(), np.asarray(jp)[:live])
+    assert v.shape == (cells.shape[0], R) == np.asarray(jv).shape
+    assert fails.shape == passes.shape == (R,) == np.asarray(jf).shape
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(fails.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(passes.numpy(), np.asarray(jp))
+    blob, shp, _ = _port_blob(tset, resources, 8)
+    lv, lf, lp = _counts(tset.plan, blob, shp, live)
+    np.testing.assert_array_equal(lv[:, :live].numpy(), v[:, :live].numpy())
+    np.testing.assert_array_equal(lf.numpy(), fails[:live].numpy())
+    np.testing.assert_array_equal(lp.numpy(), passes[:live].numpy())
     assert int(fails.sum()) > 0 and int(passes.sum()) > 0
+    return R, live
+
+
+def test_counts_form_matches_jax_1d_program(case):
+    """The 1D program over 8 devices: the port's verdicts and counts
+    equal the JAX program's over the whole rule axis, and the counts
+    form's over the live columns."""
+    _, jset, tset, resources = case
+    _holds_1d_program(jset, tset, resources)
+
+
+def test_1d_program_over_an_incremental_sets_padded_rule_axis():
+    """An incremental set's rule axis pads to its bucket (R > live): the
+    1D program still gives the JAX one's whole arrays, the padded
+    columns' verdicts and counts included."""
+    docs = corpus_docs("crosscheck")
+    jinc, tinc = JaxIncremental(), IncrementalCompiler(device="cpu")
+    jp = [jax_load_policy(d) for d in docs]
+    tp = [load_policy(d) for d in docs]
+    jset, tset = jinc.refresh(jp), tinc.refresh(tp)
+    R, live = _holds_1d_program(jset, tset,
+                                corpus_resources("crosscheck", 37))
+    assert R > live
 
 
 def test_counts_form_matches_jax_2d_programs(case):

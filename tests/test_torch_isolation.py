@@ -46,6 +46,15 @@ def test_admission_modules_are_checked():
         assert f"kyverno_tpu_torch.{m}" in mods
 
 
+def test_mutate_modules_are_checked():
+    mods = _port_modules()
+    for m in ("engine.mutate", "engine.mutate.json_patch",
+              "engine.mutate.strategic_merge", "engine.mutate.handlers",
+              "engine.mutate.batch", "engine.force_mutate",
+              "engine.mutation"):
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
 def test_oracle_pool_worker_modules_load_no_torch():
     """What an oracle-pool worker imports (the pool module, the loader
     and the CPU oracle) loads neither torch nor jax."""
