@@ -3,9 +3,12 @@ its plain PyTorch version.
 
     python3 chip_smoke.py            # all phases (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs,
-                                     # flatten parity, evaluate() at 1,000
+                                     # flatten parity, evaluate() at 1,000,
+                                     # [autogen] at 1,000, [actions] small
     python3 chip_smoke.py --all-cards  # build + the mesh scan over every card
                                        # (two or more) against one card's
+    python3 chip_smoke.py --admission 8  # build + the [admission] phase 8
+                                         # times over; how many failed
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -95,7 +98,33 @@ Phases:
                equal to the plain pipeline, and its share of the device
                lane's wall; no gate fallback (GATE_FALLBACKS) and no
                flattener fallback
- 9. background the background scan path, each run with the launch
+ 9. autogen   what the server does to a policy, then the screen on the
+               card: the library through the port's policy webhook steps
+               (apply_defaults -> mutate_policy_for_autogen ->
+               validate_policy -> validate_policy_mutation), 670 rules and
+               no error; the autogen'd policies in a PolicyCache on the
+               card; 10,000 resources cycling Pod, Deployment,
+               StatefulSet, DaemonSet, Job, CronJob and Service, each
+               through its kind's population with the launch counters set
+               to 0 just before: K1 and eval_rules launched, the resolved
+               matrix by (policy, rule name) with no HOST cell and the
+               JAX package's pinned histogram and sha256, again from the
+               verdict memo; every kernel against its plain version on
+               the 670-column plan (three rule tiles), eval_rules timed
+               between CUDA events; a burst of 16 threads x 16 distinct
+               Deployments and CronJobs through an AdmissionBatcher, every
+               device answer equal to the port's oracle, K6 dispatches
+10. actions   the host planes on the card's machine (no PyYAML assumed,
+               no cryptography, no network): a RegistryVerifier against a
+               registry on 127.0.0.1 with 1,000 Pods over 8 images (signed
+               ones patched to their digests, a forged signature and an
+               unsigned tag refused, repeats from the verifier's cache);
+               generate() and apply_generate_rule over 1,000 Namespaces
+               (a data rule and a clone rule) over threads and serially,
+               equal, and equal to documents written out by hand; a CRD's
+               schema through schemas_from_crd -> register_schema ->
+               validate_resource, CrdSync and validate_policy_mutation
+11. background the background scan path, each run with the launch
                counters set to 0 just before and read just after.
                [background]: BackgroundScanner over the library with a
                ReportGenerator, 10,000 resources, through the single
@@ -122,10 +151,10 @@ Phases:
                HOST cell, the counts equal to the matrix's column sums,
                the first 10,000 rows equal to the 2D scan's and the
                pinned sha256
-10. scan      every chunk of the 1M scan equal to the plain pipeline's
+12. scan      every chunk of the 1M scan equal to the plain pipeline's
                counts on the card, and its first chunk to the verdict
                matrix's
-11. times     median of CUDA-event times over warm launches for every
+13. times     median of CUDA-event times over warm launches for every
                kernel and its plain version, beside the least time the
                card could take: the bytes the function must move over
                the memory rate (each kernel is bytes-bound); K1,
@@ -224,6 +253,90 @@ def mixed_resource(i: int) -> dict:
     if r < 9:
         return make_deployment(i)
     return make_service(i)
+
+
+# ---------------------------------------------------------------------
+# The pod controllers that autogen'd rules match, each built around
+# make_pod(i)["spec"] as make_deployment is, and the population of the
+# [autogen] phase that cycles them with Pods and Services.
+
+AUTOGEN_KINDS = ("Pod", "Deployment", "StatefulSet", "DaemonSet", "Job",
+                 "CronJob", "Service")
+
+
+def make_controller(i: int, kind: str) -> dict:
+    """A ``kind`` pod controller whose pod template holds make_pod(i)'s
+    spec: Deployment is make_deployment(i); CronJob nests the template
+    under ``spec.jobTemplate.spec``."""
+    if kind == "Deployment":
+        return make_deployment(i)
+    template = {"metadata": {"labels": {"app": f"a{i % 9}"}},
+                "spec": make_pod(i)["spec"]}
+    selector = {"matchLabels": {"app": f"a{i % 9}"}}
+    api, spec = "apps/v1", {"selector": selector, "template": template}
+    if kind == "StatefulSet":
+        spec = {"replicas": (i % 3) + 1, "serviceName": f"svc-{i}", **spec}
+    elif kind == "Job":
+        api, spec = "batch/v1", {"backoffLimit": i % 4, "template": template}
+    elif kind == "CronJob":
+        api, spec = "batch/v1", {"schedule": f"{i % 60} * * * *",
+                                 "jobTemplate": {"spec": {"template": template}}}
+    elif kind != "DaemonSet":
+        raise ValueError(f"not a pod controller: {kind}")
+    return {"apiVersion": api, "kind": kind,
+            "metadata": {"name": f"{kind.lower()}-{i}", "namespace": "default"},
+            "spec": spec}
+
+
+def autogen_resource(i: int) -> dict:
+    kind = AUTOGEN_KINDS[i % len(AUTOGEN_KINDS)]
+    if kind == "Pod":
+        return make_pod(i)
+    if kind == "Service":
+        return make_service(i)
+    return make_controller(i, kind)
+
+
+def policy_steps():
+    """The port's policy webhook steps and its loader, for
+    :func:`autogen_policies`."""
+    from types import SimpleNamespace
+
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.policy import autogen, openapi, validation
+
+    return SimpleNamespace(
+        load_policy=load_policy, apply_defaults=autogen.apply_defaults,
+        mutate_policy_for_autogen=autogen.mutate_policy_for_autogen,
+        validate_policy=validation.validate_policy,
+        validate_policy_mutation=openapi.validate_policy_mutation)
+
+
+def autogen_policies(docs: list, steps) -> tuple[list, list]:
+    """What the server does to each policy before its cache gets it: the
+    policy webhook's steps (defaults, then autogen, then the structural
+    checks and, where they pass, the mutate schema check), each a
+    function of ``steps`` (:func:`policy_steps`). Returns the autogen'd
+    policies and every error the checks gave, with its policy's name."""
+    out, errors = [], []
+    for d in docs:
+        p = steps.mutate_policy_for_autogen(
+            steps.load_policy(steps.apply_defaults(d)))
+        errs = (steps.validate_policy(p)
+                or steps.validate_policy_mutation(p))
+        errors += [(p.name, e) for e in errs]
+        out.append(p)
+    return out, errors
+
+
+def rule_columns(policies: list) -> dict:
+    """(policy name, rule name) -> column, in policy order and, within a
+    policy, rule order: the resolved matrix's columns in [autogen]."""
+    cols = {}
+    for p in policies:
+        for r in p.spec.rules:
+            cols[(p.name, r.name)] = len(cols)
+    return cols
 
 
 # --------------------------------------------------------------- libraries
@@ -627,6 +740,23 @@ ANNOTATE_BENCH_APPS = {
 # config 4's documents, and the rows of one gate_verdicts chunk
 MUTATE_DOCS = 50_000
 GATE_CHUNK = 8192
+# [autogen]: the library autogen'd as the server autogens it, its resolved
+# matrix over autogen_resource(0..n-1), columns by (policy, rule) in
+# rule_columns' order. The JAX package gives these on the CPU
+# (JAX_PLATFORMS=cpu: kyverno_tpu.policy.autogen's apply_defaults and
+# mutate_policy_for_autogen over _synth_policy_docs(250), then
+# kyverno_tpu.models.CompiledPolicySet.evaluate, 2,000 resources at a time;
+# np.bincount(m.ravel(), minlength=6) and sha256 of the C-contiguous int8
+# bytes), at n = 10,000 and at 1,000:
+# tests/test_torch_autogen.py::jax_autogen_pin(n) computes them
+AUTOGEN_RESOURCES = 10_000
+AUTOGEN_RULES = 670
+EXPECTED_AUTOGEN_HIST = [4842740, 1182910, 660064, 0, 14286, 0]
+EXPECTED_AUTOGEN_SHA = ("a9cffa4eb1b558ba3050f837fadef31ef8f78504d4da046c"
+                        "62b1f0d0e17d919b")
+EXPECTED_AUTOGEN_HIST_1K = [484120, 118330, 66120, 0, 1430, 0]
+EXPECTED_AUTOGEN_SHA_1K = ("d9a555b9f5a7d445391b2d5853eae1763366cfc7851665"
+                           "a4d5d9ec53960a379e")
 
 
 def log(msg: str) -> None:
@@ -1226,7 +1356,7 @@ def split_line(split: dict) -> str:
         for k, d in (("on", split["on"]), ("off", split["off"])))
 
 
-def admission_phase(library_docs: list) -> dict:
+def admission_phase(library_docs: list, run: str = "") -> dict:
     """Phase 7: the admission path at full width, shaped like bench.py's
     burst_library_250. The 250-policy library in enforce mode goes into a
     PolicyCache on the card (incremental compile, rule buckets), an
@@ -1241,7 +1371,9 @@ def admission_phase(library_docs: list) -> dict:
     route ORACLE. Then K6's phase split, a one-policy update's refresh,
     and the library's 250 x 10k resolved matrix through the cache,
     incremental and with KTPU_INCREMENTAL=0, against the pinned sha256.
-    Returns the timed burst's launches."""
+    ``run`` prefixes the bursts' salts, so that a repeat of the phase in
+    one process screens pods that no memo has seen. Returns the timed
+    burst's launches."""
     from kyverno_tpu_torch.api.load import load_policy
     from kyverno_tpu_torch.models import Verdict, engine
     from kyverno_tpu_torch.ops import _build
@@ -1376,7 +1508,7 @@ def admission_phase(library_docs: list) -> dict:
             s0, d0 = dict(batcher.stats), dict(engine.DONATION_STATS)
             k0 = dict(engine.K6_ALLOC)
             pc0 = resolver.stats["pool_cells"]
-            hits0 = pool.hits
+            hits0, misses0 = pool.hits, pool.misses
             # the garbage collector's pauses inside the burst, by generation
             pauses, started = [], {}
 
@@ -1387,11 +1519,25 @@ def admission_phase(library_docs: list) -> dict:
                     pauses.append((info["generation"], (
                         time.perf_counter() - started.pop("t")) * 1e3))
 
+            # the main process's scheduling lag inside the burst: how late
+            # a 1 ms sleep wakes up, which the GIL and the cores decide
+            lag, lag_stop = [], threading.Event()
+
+            def lag_sampler():
+                while not lag_stop.is_set():
+                    t1 = time.perf_counter()
+                    time.sleep(0.001)
+                    lag.append((time.perf_counter() - t1) * 1e3 - 1.0)
+
+            sampler = threading.Thread(target=lag_sampler, daemon=True)
             _build.reset_launches()
             gc.callbacks.append(on_gc)
+            sampler.start()
             try:
                 burst_s = concurrent_round(reqs, answers)
             finally:
+                lag_stop.set()
+                sampler.join()
                 gc.callbacks.remove(on_gc)
             quiesce()
             launches = dict(_build.LAUNCHES)
@@ -1437,6 +1583,9 @@ def admission_phase(library_docs: list) -> dict:
                         [a for a, _ in by["gave_up"]], default=0.0),
                     "pool_cells": resolver.stats["pool_cells"] - pc0,
                     "pool_hits": pool.hits - hits0,
+                    "pool_misses": pool.misses - misses0,
+                    "lag": (percentiles(lag)[1] if lag else 0.0,
+                            max(lag, default=0.0)),
                     "rps": n_req / burst_s,
                     "device_rps": len(by["device"]) / burst_s}
 
@@ -1482,7 +1631,7 @@ def admission_phase(library_docs: list) -> dict:
             saved = {k: os.environ.get(k) for k in env}
             os.environ.update(env)
             try:
-                res = burst(f"r{n_run}")
+                res = burst(f"{run}r{n_run}")
             finally:
                 for k, v in saved.items():
                     if v is None:
@@ -1493,7 +1642,12 @@ def admission_phase(library_docs: list) -> dict:
             st = res["stats"]
             check(st.get("device", 0) > 0 and res["n"]["device"] > 0,
                   f"[admission] {label}: no request answered by the device "
-                  f"lane: {st}, answers {res['n']}")
+                  f"lane: {st}, answers {res['n']}; flush spans, ms: "
+                  f"{res['spans']}; pool cells {res['pool_cells']} in "
+                  f"{res['pool_hits']} calls, {res['pool_misses']} pool "
+                  f"misses (a timeout or a refusal); garbage-collector "
+                  f"pauses {res['gc']}; scheduling lag p99, max "
+                  f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms")
             # every answer without a device row is accounted for: a flush
             # never fails, and each ATTENTION with no cells is a screen
             # timeout or a flush's release of its waiter (a cold bucket)
@@ -1555,7 +1709,10 @@ def admission_phase(library_docs: list) -> dict:
                 f"{nvidia_smi_line()}")
             log(f"[admission] burst {label}: flush spans, ms (count x mean): "
                 f"{res['spans']}; garbage-collector pauses in the burst by "
-                f"generation (count, total ms, largest ms): {res['gc']}")
+                f"generation (count, total ms, largest ms): {res['gc']}; "
+                f"pool misses {res['pool_misses']}; the main process's "
+                f"scheduling lag p99 {res['lag'][0]:.3f} ms, max "
+                f"{res['lag'][1]:.3f} ms")
             runs.setdefault(label, []).append(res)
         out["burst"] = runs["donate on"][0]
         log(f"[admission] K6 slots allocated {engine.K6_ALLOC['slots'] - a0['slots']} "
@@ -2124,6 +2281,8 @@ def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
     plan = cps.plan
     R, N = plan.R, int(plan.nfa_char.shape[0])
     plan_bytes = plan.buf.numel() * 4
+    nfa_bytes = sum(t.numel() * t.element_size() for t in (
+        plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q, plan.nfa_len))
     row = None
     for B in sizes:
         batch = cps.flatten_packed([mixed_resource(i) for i in range(B)])
@@ -2157,6 +2316,11 @@ def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
         nbytes = (B * P * E * 8 + 4 * B + 20 * V + N * V + plan_bytes
                   + B * R + 8 * live)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
+        # K7's whole program: K1's bytes (the NFA rows, the strings and
+        # their lengths read, the match matrix written) and the counts
+        # form's
+        k1_bytes = nfa_bytes + V * 64 + V * 4 + N * V
+        k7_bound = (k1_bytes + nbytes) / HBM_BYTES_PER_S * 1e3
         log(f"[times] eval_rules_counts at B={B} R={R} live={live}: {ms:.4f} "
             f"ms a call between events, {back:.4f} ms on the card back to "
             f"back; eval_rules (matrix form) alone on the same blob "
@@ -2164,13 +2328,15 @@ def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
             f"back; the two-call torch yardstick over the same verdicts "
             f"{yard_ms:.4f} ms between events, {yard_back:.4f} ms back to "
             f"back; K7's program (K1 -> counts form) {k7_back:.4f} ms back "
-            f"to back; plain {plain_ms:.4f} ms; bound {bound:.5f} ms by bytes "
+            f"to back, bound {k7_bound:.5f} ms by bytes; plain "
+            f"{plain_ms:.4f} ms; bound {bound:.5f} ms by bytes "
             f"({nbytes} bytes); {100 * bound / back:.2f}% of the bound back "
             f"to back; {smi}")
         entry = {"ms": ms, "device_ms": back, "plain_ms": plain_ms,
                  "eval_rules_ms": alone_ms, "eval_rules_device_ms": alone_back,
                  "yardstick_ms": yard_ms, "yardstick_device_ms": yard_back,
-                 "k7_device_ms": k7_back, "bound_ms": bound, "bytes": nbytes,
+                 "k7_device_ms": k7_back, "k7_bound_ms": k7_bound,
+                 "bound_ms": bound, "bytes": nbytes,
                  "max_abs_err": max_err, "shape": [B, live]}
         if row is None:
             row = {"name": "eval_rules_counts", "route": "cuda", **entry,
@@ -2392,6 +2558,701 @@ def mutate_phase(n: int = MUTATE_DOCS) -> dict:
     return {"add-default-labels": labels, "selector": selector}
 
 
+AUTOGEN_THREADS, AUTOGEN_PER_THREAD = 16, 16
+
+
+def controller_request(i: int, salt: str) -> tuple[dict, dict]:
+    """One distinct admission of a pod controller (a Deployment for even
+    ``i``, a CronJob for odd) under a salted name and uid, and the
+    context payload the webhook's ctx_cb gives the flush for it."""
+    kind = "Deployment" if i % 2 == 0 else "CronJob"
+    res = make_controller(i, kind)
+    res["metadata"]["name"] = f"{kind.lower()}-{salt}{i}"
+    request = {"uid": f"uid-{salt}{i}", "kind": {"kind": kind},
+               "namespace": "default", "operation": "CREATE", "object": res}
+    return res, {"request": request, "namespace_labels": {}, "roles": [],
+                 "cluster_roles": [], "exclude_group_role": []}
+
+
+def eval_rules_bytes(st) -> int:
+    """The bytes eval_rules' matrix form must move on a Stages blob: the
+    cells, bmeta, the dictionary rows, the glob matrix and the plan read
+    once, the verdicts written once."""
+    plan = st.plan
+    n_pat = int(plan.nfa_char.shape[0])
+    return (st.B * st.P * st.E * 8 + 4 * st.B + 20 * st.V + n_pat * st.V
+            + plan.buf.numel() * 4 + st.B * plan.R)
+
+
+def autogen_phase(n: int = AUTOGEN_RESOURCES) -> dict:
+    """[autogen]: what the server does to a policy, then the screen on the
+    card. The 250-policy library goes through the port's policy webhook
+    steps (apply_defaults -> mutate_policy_for_autogen -> validate_policy
+    -> validate_policy_mutation): 670 rules, no error. The autogen'd
+    policies go into a PolicyCache on the card; ``n`` resources cycling
+    Pod, the five pod controllers and Service are each evaluated in their
+    kind's population (the audit populations: the defaults make every
+    policy audit) with the launch counters set to 0 just before, and the
+    resolved matrix, built by (policy, rule name), must have no HOST cell
+    and the JAX package's histogram and sha256; a second pass from the
+    verdict memo must give the same. On the full 670-column plan every
+    kernel is held to its plain version (zero tolerance) and eval_rules is
+    timed between CUDA events; its device verdicts outside HOST cells
+    equal the resolved matrix. Then a burst of Deployments and CronJobs
+    (16 threads x 16 distinct) through an AdmissionBatcher over the cache,
+    as the webhook screens audit policies: every device answer equal to
+    the port's oracle on its resource, K6 dispatches, no failed flush."""
+    import torch
+
+    from kyverno_tpu_torch.models import CompiledPolicySet, Verdict, engine
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane
+    from kyverno_tpu_torch.runtime.batch import (ATTENTION, CLEAN, ORACLE,
+                                                 AdmissionBatcher)
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
+
+    smi = nvidia_smi_line()
+    t0 = time.perf_counter()
+    policies, errors = autogen_policies(_synth_policy_docs(250), policy_steps())
+    steps_s = time.perf_counter() - t0
+    cols = rule_columns(policies)
+    n_auto = sum(r.startswith("autogen-") for _, r in cols)
+    check(errors == [], f"[autogen] policy errors: {errors[:5]}")
+    check(len(cols) == AUTOGEN_RULES and n_auto == 420,
+          f"[autogen] {len(cols)} rules, {n_auto} autogen'd")
+    audit = PolicyType.VALIDATE_AUDIT
+    check(all(p.spec.validation_failure_action == "audit" for p in policies),
+          "[autogen] the defaults did not make every policy audit")
+    cache = PolicyCache()
+    for p in policies:
+        cache.add(p)
+    t0 = time.perf_counter()
+    pops = {k: cache.compiled(audit, k, "default") for k in AUTOGEN_KINDS}
+    compile_s = time.perf_counter() - t0
+    for k, c in pops.items():
+        check(c.device.type == "cuda", f"[autogen] {k} population on {c.device}")
+    log(f"[autogen] library 250 through the policy webhook's steps in "
+        f"{steps_s:.3f} s: {len(cols)} rules ({n_auto} autogen'd), 0 errors; "
+        f"the policy cache's audit populations compiled on the card in "
+        f"{compile_s:.3f} s: " + ", ".join(
+            f"{k} {len(c.policies)} policies / {c.tensors.n_rules_live} rules "
+            f"({int(c.tensors.rule_host_only[:c.tensors.n_rules_live].sum())} "
+            f"host-only)" for k, c in pops.items()))
+
+    resources = [autogen_resource(i) for i in range(n)]
+    rows = {k: [b for b, r in enumerate(resources) if r["kind"] == k]
+            for k in AUTOGEN_KINDS}
+
+    def resolved() -> np.ndarray:
+        out = np.zeros((n, len(cols)), dtype=np.int8)
+        for k, c in pops.items():
+            m = c.evaluate([resources[b] for b in rows[k]])
+            check(not (m == Verdict.HOST).any(), f"[autogen] {k}: evaluate() "
+                  f"left {int((m == Verdict.HOST).sum())} HOST cells")
+            src = [ref.rule_index for ref in c.rule_refs]
+            dst = [cols[(ref.policy.name, ref.rule.name)] for ref in c.rule_refs]
+            out[np.ix_(rows[k], dst)] = m[:, src]
+        return out
+
+    memo = hostlane.host_cache()
+    memo.clear()
+    m0 = memo.stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    got = resolved()
+    first_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    m1 = memo.stats()
+    t0 = time.perf_counter()
+    again = resolved()
+    memo_s = time.perf_counter() - t0
+    m2 = memo.stats()
+    for k in EVALUATE_KERNELS:
+        check(launches[k] >= 1, f"[autogen] evaluate() did not launch {k}")
+    check(np.array_equal(got, again), "[autogen] the memo'd pass differs")
+    hist = np.bincount(got.ravel().astype(np.int64), minlength=6).tolist()
+    sha = matrix_sha(got)
+    want_hist, want_sha = ((EXPECTED_AUTOGEN_HIST, EXPECTED_AUTOGEN_SHA)
+                           if n == AUTOGEN_RESOURCES else
+                           (EXPECTED_AUTOGEN_HIST_1K, EXPECTED_AUTOGEN_SHA_1K))
+    check(hist == want_hist, f"[autogen] histogram {hist} != {want_hist}")
+    check(sha == want_sha, f"[autogen] sha256 {sha} != {want_sha}")
+    first, second = memo_delta(m0, m1), memo_delta(m1, m2)
+    check(second[1] == 0, f"[autogen] the memo'd pass missed {second[1]} cells")
+    log(f"[autogen] resolved matrix {n} x {len(cols)} through the cache's "
+        f"populations (evaluate() by kind): first {first_s:.3f} s ({first[1]} "
+        f"HOST cells resolved, {first[1] / n:.3f} a resource), from the memo "
+        f"{memo_s:.3f} s ({second[0]} hits); launches {launches}; no HOST "
+        f"cell; histogram {hist}; sha256 {sha}, the JAX package's; {smi}")
+
+    # the 670-column plan: every kernel against its plain version
+    full = CompiledPolicySet(policies)
+    check([(r.policy.name, r.rule.name) for r in full.rule_refs] == list(cols),
+          "[autogen] the full set's columns are not in rule_columns' order")
+    st = Stages(full, resources)
+    counts, seen = st.compare("autogen")
+    m_k = st.k1()
+    v = st.rules(m_k)
+    tb, smem = st.launch()
+    device_v = v.cpu().numpy()[:, :full.tensors.n_rules_live]
+    live = device_v != Verdict.HOST
+    check(np.array_equal(device_v[live], got[live]),
+          "[autogen] the full plan's device verdicts differ from the "
+          "resolved matrix outside HOST cells")
+    ms = cuda_ms(lambda: st.rules(m_k), 50)
+    back_ms = device_ms(lambda: st.rules(m_k))
+    plain_ms = cuda_ms(lambda: st.rules(m_k, plain=True), 10)
+    nbytes = eval_rules_bytes(st)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tiles = [tuple(int(x) for x in t) for t in full.plan.tiles]
+    log(f"[autogen] the full plan: R={full.plan.R} in {full.plan.n_tiles} rule "
+        f"tiles {tiles}, {full.plan.buf.numel() * 4} plan bytes; shapes "
+        f"{st.shape}; eval_rules at {tb} resources and {smem} bytes a block; "
+        f"every kernel equal to its plain version {counts}; scan counts "
+        f"{seen}; {int((~live).sum())} HOST cells on the card "
+        f"({int((~live).sum()) / n:.3f} a resource)")
+    log(f"[autogen] eval_rules at B={n} on this plan: {ms:.4f} ms a call "
+        f"between CUDA events, {back_ms:.4f} ms on the card back to back "
+        f"(plain {plain_ms:.4f} ms); bound {bound_ms:.5f} ms by bytes "
+        f"({nbytes} bytes), {100 * bound_ms / back_ms:.2f}% of it back to "
+        f"back; {smi}")
+    del st, m_k, v
+    torch.cuda.synchronize()
+
+    # the admission burst: Deployments and CronJobs through the batcher,
+    # screened as the webhook screens audit policies
+    batcher = AdmissionBatcher(cache)
+    try:
+        for k in ("Deployment", "CronJob"):
+            batcher.warmup(audit, k, "default", make_controller(1, k))
+
+        def one(res, payload, answers):
+            """One admission as the webhook handles an audit screen: in
+            flight for the router, screened deadline-free with its
+            payload, and through the inline oracle over every rule when
+            the screen routes it there (ORACLE, or ATTENTION with no
+            cells)."""
+            with batcher.admission_in_flight():
+                t1 = time.perf_counter()
+                status, row = batcher.screen(
+                    audit, res["kind"], "default", res, deadline_free=True,
+                    timeout_s=60.0, ctx_cb=lambda: payload)
+                lat = (time.perf_counter() - t1) * 1e3
+                if status == ORACLE or (status == ATTENTION and not row):
+                    cur = cache.compiled(audit, res["kind"], "default")
+                    cur._oracle_verdicts(
+                        res, list(range(cur.tensors.n_rules_live)),
+                        context=payload)
+            answers.append((res, payload, status, row, lat))
+
+        def burst(salt):
+            reqs = [controller_request(i, salt)
+                    for i in range(AUTOGEN_THREADS * AUTOGEN_PER_THREAD)]
+            start = threading.Barrier(AUTOGEN_THREADS)
+            answers = []
+
+            def client(part):
+                start.wait()
+                for res, payload in part:
+                    one(res, payload, answers)
+
+            ws = [threading.Thread(target=client, args=(
+                reqs[w * AUTOGEN_PER_THREAD:(w + 1) * AUTOGEN_PER_THREAD],))
+                for w in range(AUTOGEN_THREADS)]
+            t1 = time.perf_counter()
+            for w in ws:
+                w.start()
+            for w in ws:
+                w.join()
+            return answers, time.perf_counter() - t1
+
+        burst("warm")
+        s0, d0 = dict(batcher.stats), dict(engine.DONATION_STATS)
+        _build.reset_launches()
+        answers, burst_s = burst("timed")
+        burst_launches = dict(_build.LAUNCHES)
+        stats = {k: v - s0.get(k, 0) for k, v in batcher.stats.items()
+                 if isinstance(v, (int, float))}
+        donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+        kinds, device_lats = {}, []
+        t1 = time.perf_counter()
+        for res, payload, status, row, lat in answers:
+            kinds[status] = kinds.get(status, 0) + 1
+            if status == ORACLE or (status == ATTENTION and not row):
+                continue
+            device_lats.append(lat)
+            cur = cache.compiled(audit, res["kind"], "default")
+            want = cur._oracle_verdicts(
+                res, list(range(cur.tensors.n_rules_live)), context=payload)
+            idx = {(r.policy.name, r.rule.name): r.rule_index
+                   for r in cur.rule_refs}
+            cells = {idx[(p, r)]: (vv, msg) for p, r, vv, msg in row}
+            name = res["metadata"]["name"]
+            for ri, (vv, msg) in want.items():
+                cell = cells.get(ri)
+                if cell is None:
+                    check(vv == Verdict.NOT_APPLICABLE, f"[autogen] burst: "
+                          f"{name} rule {ri} left out, the oracle says {vv!r}")
+                    continue
+                check(cell[0] == vv, f"[autogen] burst: {name} rule {ri}: "
+                      f"screen {cell[0]!r}, oracle {vv!r}")
+                check(not cell[1] or cell[1] == msg, f"[autogen] burst: "
+                      f"{name} rule {ri}: message {cell[1]!r}, oracle {msg!r}")
+            if status == CLEAN:
+                check(all(vv not in (Verdict.FAIL, Verdict.ERROR)
+                          for vv, _ in want.values()),
+                      f"[autogen] burst: CLEAN for {name}, the oracle fails it")
+        check_s = time.perf_counter() - t1
+        check(batcher.stats.get("flush_error", 0) == 0,
+              f"[autogen] burst: {batcher.stats.get('flush_error')} flushes "
+              "failed")
+        check(device_lats, f"[autogen] burst: no device answer: {kinds}, {stats}")
+        # every answer without cells is a screen timeout or a flush's
+        # release of its waiter, never a swallowed failure
+        empty = sum(1 for _, _, st_, row, _ in answers
+                    if st_ == ATTENTION and not row)
+        check(empty == stats.get("screen_timeout", 0)
+              + stats.get("flush_fallback", 0),
+              f"[autogen] burst: {empty} answers without cells, "
+              f"{stats.get('screen_timeout', 0)} screen timeouts, "
+              f"{stats.get('flush_fallback', 0)} released by a flush")
+        check(donated["dispatches"] > 0, f"[autogen] burst: K6 {donated}")
+        for k in EVALUATE_KERNELS:
+            check(burst_launches[k] >= 1,
+                  f"[autogen] burst: {k} not launched: {burst_launches}")
+        p50, p99 = percentiles(device_lats)
+        log(f"[autogen] burst of {len(answers)} distinct Deployments and "
+            f"CronJobs ({AUTOGEN_THREADS} threads x {AUTOGEN_PER_THREAD}) in "
+            f"{burst_s:.3f} s: answers {kinds}; {len(device_lats)} answered by "
+            f"the device, screen p50 {p50:.3f} ms, p99 {p99:.3f} ms, every one "
+            f"equal to the port's oracle ({check_s:.3f} s to check); launches "
+            f"{burst_launches}; K6 {donated}; routing " + ", ".join(
+                f"{k} {stats.get(k, 0)}" for k in (
+                    "oracle", "device", "clean", "attention", "screen_timeout",
+                    "flush_fallback", "flush_error"))
+            + f"; {smi}")
+    finally:
+        batcher.stop()
+    memo.clear()
+    return {"launches": launches, "burst_launches": burst_launches,
+            "eval_rules": {"ms": ms, "device_ms": back_ms,
+                           "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bytes": nbytes,
+                           "tiles": full.plan.n_tiles},
+            "first_s": first_s, "memo_s": memo_s, "compile_s": compile_s}
+
+
+class LocalRegistry:
+    """A registry on 127.0.0.1 that speaks the Docker Registry HTTP API v2
+    (manifests and blobs, no auth), with cosign's signature objects under
+    ``sha256-<hex>.sig``: a SimpleSigning payload blob whose layer carries
+    an ECDSA-P256 signature, made with the port's ``utils.ecdsa``."""
+
+    def __init__(self):
+        self.manifests, self.blobs, self.requests = {}, {}, []
+        self.httpd = None
+
+    def put_blob(self, repo: str, data: bytes) -> str:
+        digest = "sha256:" + hashlib.sha256(data).hexdigest()
+        self.blobs[(repo, digest)] = data
+        return digest
+
+    def put_manifest(self, repo: str, ref: str, manifest: dict) -> str:
+        body = json.dumps(manifest).encode()
+        digest = "sha256:" + hashlib.sha256(body).hexdigest()
+        self.manifests[(repo, ref)] = self.manifests[(repo, digest)] = body
+        return digest
+
+    def push_image(self, repo: str, tag: str) -> str:
+        cfg = self.put_blob(repo, json.dumps({"repo": repo, "tag": tag}).encode())
+        return self.put_manifest(repo, tag, {
+            "schemaVersion": 2, "config": {"digest": cfg}, "layers": []})
+
+    def cosign_sign(self, repo: str, digest: str, priv: int) -> None:
+        import base64
+
+        from kyverno_tpu_torch.engine.registry_verify import SIG_ANNOTATION
+        from kyverno_tpu_torch.utils import ecdsa
+
+        payload = json.dumps({"critical": {
+            "identity": {"docker-reference": repo},
+            "image": {"docker-manifest-digest": digest},
+            "type": "cosign container image signature"},
+            "optional": None}).encode()
+        sig = base64.b64encode(ecdsa.sign(priv, payload)).decode()
+        blob = self.put_blob(repo, payload)
+        self.put_manifest(repo, digest.replace("sha256:", "sha256-") + ".sig", {
+            "schemaVersion": 2, "layers": [{
+                "digest": blob, "size": len(payload),
+                "annotations": {SIG_ANNOTATION: sig}}]})
+
+    def start(self) -> str:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        reg = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                reg.requests.append(self.path)
+                parts = self.path.split("/")
+                body, headers = None, []
+                if len(parts) >= 5 and parts[1] == "v2":
+                    what, ref, repo = parts[-2], parts[-1], "/".join(parts[2:-2])
+                    body = (reg.manifests if what == "manifests"
+                            else reg.blobs).get((repo, ref))
+                    if body is not None and what == "manifests":
+                        headers = [("Docker-Content-Digest", "sha256:"
+                                    + hashlib.sha256(body).hexdigest())]
+                code, body = (200, body) if body is not None else (404, b"{}")
+                self.send_response(code)
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        threading.Thread(target=self.httpd.serve_forever, daemon=True).start()
+        return f"127.0.0.1:{self.httpd.server_address[1]}"
+
+    def stop(self) -> None:
+        if self.httpd is not None:
+            self.httpd.shutdown()
+            self.httpd.server_close()
+
+
+class DictClient:
+    """A cluster as a dict, (kind, namespace, name) -> document: what
+    ``generate`` and ``CrdSync`` read, and where generated documents go."""
+
+    def __init__(self, docs=()):
+        self.store = {}
+        self.lock = threading.Lock()
+        for d in docs:
+            self.create_resource(d)
+
+    def get_resource(self, api_version, kind, namespace, name):
+        import copy
+
+        with self.lock:
+            return copy.deepcopy(self.store.get((kind, namespace or "", name)))
+
+    def list_resource(self, api_version, kind, namespace=""):
+        import copy
+
+        with self.lock:
+            return [copy.deepcopy(v) for (k, ns, _), v in sorted(
+                self.store.items()) if k == kind
+                and (not namespace or ns == namespace)]
+
+    def get_configmap(self, namespace, name):
+        return self.get_resource("v1", "ConfigMap", namespace, name)
+
+    def create_resource(self, doc):
+        import copy
+
+        meta = doc.get("metadata") or {}
+        with self.lock:
+            self.store[(doc.get("kind", ""), meta.get("namespace", ""),
+                        meta.get("name", ""))] = copy.deepcopy(doc)
+        return doc
+
+
+REGCRED = {"apiVersion": "v1", "kind": "Secret",
+           "metadata": {"name": "regcred", "namespace": "default",
+                        "uid": "u-1", "resourceVersion": "7"},
+           "type": "kubernetes.io/dockerconfigjson",
+           "data": {".dockerconfigjson": "e30="}}
+NAMESPACE_DEFAULTS = {
+    "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+    "metadata": {"name": "namespace-defaults"},
+    "spec": {"rules": [{
+        "name": "default-deny",
+        "match": {"resources": {"kinds": ["Namespace"]}},
+        "generate": {
+            "apiVersion": "networking.k8s.io/v1", "kind": "NetworkPolicy",
+            "name": "default-deny",
+            "namespace": "{{request.object.metadata.name}}",
+            "synchronize": True,
+            "data": {"spec": {"podSelector": {},
+                              "policyTypes": ["Ingress", "Egress"]}}},
+    }, {
+        "name": "clone-regcred",
+        "match": {"resources": {"kinds": ["Namespace"]}},
+        "generate": {
+            "apiVersion": "v1", "kind": "Secret", "name": "regcred",
+            "namespace": "{{request.object.metadata.name}}",
+            "clone": {"namespace": "default", "name": "regcred"}},
+    }]},
+}
+
+
+def generated_reference(ns: str) -> dict:
+    """What NAMESPACE_DEFAULTS must generate for Namespace ``ns``, written
+    out by hand: rule name -> document."""
+    def labels(rule):
+        return {"kyverno.io/generated-by-policy": "namespace-defaults",
+                "kyverno.io/generated-by-rule": rule,
+                "kyverno.io/generated-by-kind": "Namespace",
+                "kyverno.io/generated-by-namespace": "",
+                "kyverno.io/generated-by-name": ns}
+
+    return {
+        "default-deny": {
+            "apiVersion": "networking.k8s.io/v1", "kind": "NetworkPolicy",
+            "metadata": {"name": "default-deny", "namespace": ns,
+                         "labels": labels("default-deny")},
+            "spec": {"podSelector": {}, "policyTypes": ["Ingress", "Egress"]}},
+        "clone-regcred": {
+            "apiVersion": "v1", "kind": "Secret",
+            "metadata": {"name": "regcred", "namespace": ns,
+                         "labels": labels("clone-regcred")},
+            "type": "kubernetes.io/dockerconfigjson",
+            "data": {".dockerconfigjson": "e30="}},
+    }
+
+
+def generate_namespaces(policy, namespaces: list, client,
+                        workers: int = 1) -> dict:
+    """generate() then apply_generate_rule for each PASS row, over
+    ``namespaces``, writing each document to ``client``; with ``workers``
+    > 1 over a thread pool. Returns (namespace, rule) -> (mode, document)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kyverno_tpu_torch.engine.context import Context
+    from kyverno_tpu_torch.engine.generation import apply_generate_rule, generate
+    from kyverno_tpu_torch.engine.policy_context import PolicyContext
+
+    rules = {r.name: r for r in policy.spec.rules}
+
+    def one(ns):
+        ctx = Context()
+        ctx.add_resource(ns)
+        pctx = PolicyContext(policy=policy, new_resource=ns, json_context=ctx,
+                             client=client)
+        out = {}
+        for rr in generate(pctx).policy_response.rules:
+            if rr.status.value != "pass":
+                continue
+            doc, mode = apply_generate_rule(rules[rr.name], pctx, ns, client)
+            if doc is not None:
+                client.create_resource(doc)
+            out[(ns["metadata"]["name"], rr.name)] = (mode, doc)
+        return out
+
+    results = {}
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            for out in pool.map(one, namespaces):
+                results.update(out)
+    else:
+        for ns in namespaces:
+            results.update(one(ns))
+    return results
+
+
+SPROCKET_CRD = {
+    "apiVersion": "apiextensions.k8s.io/v1", "kind": "CustomResourceDefinition",
+    "metadata": {"name": "sprockets.acme.io"},
+    "spec": {"group": "acme.io",
+             "names": {"kind": "Sprocket", "plural": "sprockets"},
+             "versions": [{"name": "v1", "served": True, "storage": True,
+                           "schema": {"openAPIV3Schema": {
+                               "type": "object", "properties": {
+                                   "apiVersion": {"type": "string"},
+                                   "kind": {"type": "string"},
+                                   "metadata": {
+                                       "type": "object",
+                                       "x-kubernetes-preserve-unknown-fields":
+                                           True},
+                                   "spec": {"type": "object", "properties": {
+                                       "teeth": {"type": "integer"},
+                                       "finish": {"type": "string"},
+                                       "port": {"x-kubernetes-int-or-string":
+                                                True}}}}}}}]},
+}
+
+
+def actions_phase(n_pods: int = 1000, n_namespaces: int = 1000) -> dict:
+    """[actions]: the host work of the verifyImages, generate and policy
+    planes on the card's machine (its Python, no PyYAML assumed, no
+    network, no cryptography). verifyImages: a RegistryVerifier against a
+    LocalRegistry on 127.0.0.1 holding eight images (six signed with the
+    port's ECDSA, one with a forged signature, one unsigned), and
+    ``n_pods`` Pods over them through verify_and_patch_images: each signed
+    image patched to its digest, the forged and the unsigned refused, and
+    every repeat of a signed image taken by the verifier's cache (at most
+    three registry requests an image). Generate: generate() and
+    apply_generate_rule over ``n_namespaces`` Namespaces with a ``data``
+    rule and a ``clone`` rule against a DictClient, over eight threads and
+    serially, the two equal and equal to documents written out by hand.
+    OpenAPI: schemas_from_crd on a CRD -> register_schema ->
+    validate_resource on a valid and an invalid document, CrdSync over
+    the DictClient, and a mutate policy for the kind schema-checked."""
+    import importlib.util
+
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.engine.context import Context
+    from kyverno_tpu_torch.engine.image_verify import verify_and_patch_images
+    from kyverno_tpu_torch.engine.policy_context import PolicyContext
+    from kyverno_tpu_torch.engine.registry_verify import (RegistryClient,
+                                                          RegistryVerifier)
+    from kyverno_tpu_torch.policy import crd_sync, openapi
+    from kyverno_tpu_torch.utils import ecdsa
+
+    loaded0 = {m for m in ("yaml", "cryptography") if m in sys.modules}
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in ("yaml", "cryptography")}
+    out = {}
+    # ---- verifyImages against the local registry
+    reg = LocalRegistry()
+    host = reg.start()
+    try:
+        priv, pub = ecdsa.generate_keypair()
+        forger, _ = ecdsa.generate_keypair()
+        pem = ecdsa.public_key_to_pem(pub)
+        digests = {}
+        for j in range(8):
+            repo = f"team/app{j}"
+            digests[repo] = reg.push_image(repo, "v1")
+            if j < 6:
+                reg.cosign_sign(repo, digests[repo], priv)
+            elif j == 6:
+                reg.cosign_sign(repo, digests[repo], forger)
+        policy = load_policy({
+            "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": "verify-team-images"},
+            "spec": {"validationFailureAction": "enforce", "rules": [{
+                "name": "check-signature",
+                "match": {"resources": {"kinds": ["Pod"]}},
+                "verifyImages": [{"image": f"{host}/team/*", "key": pem}]}]}})
+        verifier = RegistryVerifier(RegistryClient(plain_http=True),
+                                    default_registry=host)
+        seen = {}
+        t0 = time.perf_counter()
+        for i in range(n_pods):
+            repo = f"team/app{i % 8}"
+            image = f"{host}/{repo}:v1"
+            pod = {"apiVersion": "v1", "kind": "Pod",
+                   "metadata": {"name": f"signed-{i}", "namespace": "default"},
+                   "spec": {"containers": [{"name": "c", "image": image}]}}
+            ctx = Context()
+            ctx.add_resource(pod)
+            ctx.add_image_info(pod)
+            resp = verify_and_patch_images(PolicyContext(
+                policy=policy, new_resource=pod, json_context=ctx), verifier)
+            [rr] = resp.policy_response.rules
+            j = i % 8
+            if j < 6:
+                check(rr.status.value == "pass" and rr.patches == [{
+                    "op": "replace", "path": "/spec/containers/0/image",
+                    "value": f"{image}@{digests[repo]}"}],
+                    f"[actions] {image}: {rr.status} {rr.message} {rr.patches}")
+            else:
+                want = "does not match key" if j == 6 else "no cosign object"
+                check(rr.status.value == "fail" and want in rr.message
+                      and not rr.patches and not resp.successful,
+                      f"[actions] {image}: {rr.status} {rr.message}")
+            seen[j] = seen.get(j, 0) + 1
+        verify_s = time.perf_counter() - t0
+        per_repo = {}
+        for path in reg.requests:
+            parts = path.split("/")
+            if len(parts) >= 5 and parts[1] == "v2":
+                r = "/".join(parts[2:-2])
+                per_repo[r] = per_repo.get(r, 0) + 1
+        for j in range(6):
+            check(per_repo.get(f"team/app{j}", 0) <= 3,
+                  f"[actions] team/app{j}: {per_repo.get(f'team/app{j}')} "
+                  "registry requests for its repeats")
+        log(f"[actions] verifyImages: {n_pods} Pods over 8 images of a local "
+            f"registry ({host}) in {verify_s:.3f} s "
+            f"({verify_s / n_pods * 1e3:.3f} ms a Pod): 6 signed images patched "
+            f"to their digests, the forged signature and the unsigned tag "
+            f"refused; registry requests by repository {per_repo} (a refusal "
+            f"is not cached, as in the JAX package: each of its Pods asks "
+            f"again)")
+        out["verify_s"] = verify_s
+        out["requests"] = per_repo
+    finally:
+        reg.stop()
+
+    # ---- generate: data and clone rules over Namespaces
+    gen_policy = load_policy(NAMESPACE_DEFAULTS)
+    namespaces = [{"apiVersion": "v1", "kind": "Namespace",
+                   "metadata": {"name": f"team-{i}",
+                                "labels": {"tier": str(i % 3)}}}
+                  for i in range(n_namespaces)]
+    results = {}
+    for label, workers in (("threads", 8), ("serial", 1)):
+        client = DictClient([REGCRED])
+        t0 = time.perf_counter()
+        results[label] = (generate_namespaces(gen_policy, namespaces, client,
+                                              workers),
+                          time.perf_counter() - t0, client)
+    got, threads_s, client = results["threads"]
+    want, serial_s, serial_client = results["serial"]
+    check(got == want and client.store == serial_client.store,
+          "[actions] generate over threads differs from the serial path")
+    check(len(got) == 2 * n_namespaces, f"[actions] {len(got)} generated")
+    for (ns, rule), (mode, doc) in got.items():
+        check(mode == "CREATE" and doc == generated_reference(ns)[rule],
+              f"[actions] generate {ns}/{rule}: {mode} {doc}")
+    again = generate_namespaces(gen_policy, namespaces[:50], client, 8)
+    modes = sorted({m for m, _ in again.values()})
+    check(modes == ["UPDATE"], f"[actions] a second pass gave modes {modes}")
+    log(f"[actions] generate: {n_namespaces} Namespaces x 2 rules (data, "
+        f"clone) in {threads_s:.3f} s over 8 threads, {serial_s:.3f} s "
+        f"serially; the same {len(got)} documents, each equal to the one "
+        f"written out by hand; a second pass over 50 updates them")
+    out["generate_s"] = (threads_s, serial_s)
+
+    # ---- OpenAPI: a CRD's schema checks documents and a mutate policy
+    schemas = crd_sync.schemas_from_crd(SPROCKET_CRD)
+    check(set(schemas) == {"Sprocket"}, f"[actions] CRD kinds {set(schemas)}")
+    try:
+        for kind, schema in schemas.items():
+            openapi.register_schema(kind, schema)
+        good = openapi.validate_resource({
+            "apiVersion": "acme.io/v1", "kind": "Sprocket",
+            "metadata": {"name": "s"},
+            "spec": {"teeth": 12, "finish": "matte", "port": "http"}})
+        bad = openapi.validate_resource({
+            "apiVersion": "acme.io/v1", "kind": "Sprocket",
+            "metadata": {"name": "s"}, "spec": {"teeth": "many", "colour": 1}})
+        check(good == [] and any("teeth" in e for e in bad)
+              and any("colour" in e for e in bad),
+              f"[actions] schema checks: valid {good}, invalid {bad}")
+        mut = load_policy({
+            "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+            "metadata": {"name": "sprocket-teeth"},
+            "spec": {"rules": [{
+                "name": "set-teeth",
+                "match": {"resources": {"kinds": ["Sprocket"]}},
+                "mutate": {"patchStrategicMerge": {"spec": {
+                    "teeth": "many"}}}}]}})
+        mut_errs = openapi.validate_policy_mutation(mut)
+        check(mut_errs and "teeth" in mut_errs[0],
+              f"[actions] mutate schema check {mut_errs}")
+        openapi.unregister_schema("Sprocket")
+        sync = crd_sync.CrdSync(DictClient([SPROCKET_CRD]))
+        check(sync.sync_once() == 1 and openapi.has_schema("Sprocket"),
+              "[actions] CrdSync did not register the CRD's kind")
+    finally:
+        openapi.unregister_schema("Sprocket")
+    log(f"[actions] OpenAPI: schemas_from_crd -> register_schema -> "
+        f"validate_resource: the valid document passes, the invalid one "
+        f"gives {bad}; a mutate policy writing a string into an integer "
+        f"field is refused ({mut_errs[0]}); CrdSync registers the kind")
+    loaded = {m for m in ("yaml", "cryptography") if m in sys.modules}
+    check(loaded <= loaded0, f"[actions] the phase imported {loaded - loaded0}")
+    log(f"[actions] installed here: {have}; loaded by the phase: none")
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2406,6 +3267,9 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and hold the kernels to their plain versions "
                          "on small inputs, run evaluate() at 1,000, then stop")
+    ap.add_argument("--admission", type=int, default=0, metavar="N",
+                    help="build, then only the [admission] phase, N times "
+                         "over in one process; report how many runs failed")
     ap.add_argument("--all-cards", action="store_true",
                     help="build, then only the mesh scan over every card of "
                          "the host against the one-card scan (needs 2 or more)")
@@ -2459,6 +3323,26 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    if args.admission:
+        library_docs = _synth_policy_docs(250)
+        failed = []
+        for i in range(args.admission):
+            t0 = time.perf_counter()
+            try:
+                admission_phase(library_docs, run=f"a{i}")
+            except AssertionError as e:
+                failed.append(i + 1)
+                log(f"[admission] run {i + 1} failed: {e}")
+            log(f"[admission] run {i + 1} of {args.admission}: "
+                f"{time.perf_counter() - t0:.3f} s")
+        log(f"[admission] {len(failed)} of {args.admission} runs failed "
+            f"{failed}; {nvidia_smi_line()}")
+        if failed:
+            return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.all_cards:
         all_cards_phase([load_policy(d) for d in _synth_policy_docs(250)])
         log(nvidia_smi_line())
@@ -2564,6 +3448,8 @@ def main() -> int:
     if args.quick:
         evaluate_phase(lib_cps, 1000, anchor)
         pipelined_phase(lib_cps, 1000, chunk=256)
+        autogen_phase(1000)
+        actions_phase(200, 200)
         check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
               f"native flattener fallbacks {native_flatten.FALLBACKS}")
         log(nvidia_smi_line())
@@ -2652,7 +3538,16 @@ def main() -> int:
     # (K1 -> eval_rules a chunk, then the host lane) on the card
     mutate = mutate_phase()
 
-    # ---- 9. the background scan path: the scanner's lanes with reports
+    # ---- 9-10. autogen: the library as the server autogens it, screened
+    # on the card; then the host planes of verifyImages, generate, OpenAPI
+    t0 = time.perf_counter()
+    autogen = autogen_phase()
+    t1 = time.perf_counter()
+    actions_phase()
+    log(f"[autogen] phase wall {t1 - t0:.3f} s; [actions] phase wall "
+        f"{time.perf_counter() - t1:.3f} s")
+
+    # ---- 11. the background scan path: the scanner's lanes with reports
     # and a delta pass; K7 on the 2D (4, 1) mesh of the card, then on the
     # 1D mesh at two chunks (the host memo holds the first 10,000 until
     # the 1D scan's fresh resources push them out)
@@ -2665,7 +3560,7 @@ def main() -> int:
     del mesh2d_matrix
     gc.collect()
 
-    # ---- 10. scan: every chunk against the plain pipeline
+    # ---- 12. scan: every chunk against the plain pipeline
     t0 = time.perf_counter()
     for c, (sb, (f, p, h)) in enumerate(zip(scan_batches, scan_counts)):
         blob, shp = cps.to_device(sb)
@@ -2687,7 +3582,7 @@ def main() -> int:
         f"first chunk's to the verdict matrix's")
     del scan_batches, scan_counts
 
-    # ---- 11. times at the slice's shapes (library 250 x 10k, then 100k)
+    # ---- 13. times at the slice's shapes (library 250 x 10k, then 100k)
     st = Stages(cps, resources)
     B, P, E, V = st.shape
     plan = cps.plan
@@ -2712,10 +3607,9 @@ def main() -> int:
         b_, v_ = s_.B, s_.V
         G = -(-b_ // 32)
         masks = 4 * (2 * G * R + T * G)
-        rules_in = (b_ * s_.P * s_.E * 8 + 4 * b_ + 20 * v_ + N * v_
-                    + plan_bytes)
+        rules_in = eval_rules_bytes(s_) - b_ * R
         return {"glob_nfa": nfa_bytes + v_ * 64 + v_ * 4 + N * v_,
-                "eval_rules": rules_in + b_ * R,
+                "eval_rules": eval_rules_bytes(s_),
                 "eval_rules_scan": rules_in + masks,
                 "scan_counts": masks + 8 * R + b_,
                 "scan_blob": (s_.blob.numel() * 4 + N * v_ + plan_bytes
@@ -2761,6 +3655,9 @@ def main() -> int:
                           half: {"router": r["auto_launches"].get(name),
                                  "device_lane": r["device_launches"].get(name)}
                           for half, r in mutate.items()},
+                      "autogen_launches": autogen["launches"].get(name),
+                      "autogen_burst_launches":
+                          autogen["burst_launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],
@@ -2854,6 +3751,7 @@ def main() -> int:
         f"{flat100_s:.3f} s; eval_rules {tb100} resources and {smem100} bytes a "
         f"block, its scan form {tb_s} and {smem_s}")
     # K7's counts form at the mesh scan's chunk and at 10k
+    rows["eval_rules"]["autogen_670"] = autogen["eval_rules"]
     rows["eval_rules_counts"] = {
         **counts_times(cps),
         "launches": mesh["launches"]["eval_rules_counts"],

@@ -6,7 +6,17 @@ Layer map:
   - ``kyverno_tpu_torch.engine``  anchors, leaf and condition operators,
                                   and the CPU oracle (``validation``,
                                   ``match``, ``context``, ``variables``,
-                                  ``jmespath``) that resolves HOST cells
+                                  ``jmespath``) that resolves HOST cells;
+                                  the mutate, generate (``generation``)
+                                  and verifyImages engines
+                                  (``image_verify``, ``registry_verify``
+                                  over a registry's HTTP API,
+                                  ``certchain`` for keyless chains)
+  - ``kyverno_tpu_torch.policy``  what the policy webhook does to a
+                                  policy: ``autogen`` (pod-controller
+                                  rules), ``validation``, the OpenAPI
+                                  schemas (``openapi``) and their CRD sync
+                                  (``crd_sync``)
   - ``kyverno_tpu_torch.store``   mock values for rules' ``context:``
                                   entries (offline runs)
   - ``kyverno_tpu_torch.models``  policy IR, compiler, flatteners (Python,
@@ -26,6 +36,8 @@ Layer map:
                                   verdict reduction, scan counts, per-rule
                                   counts), each beside its plain PyTorch
                                   version
+  - ``kyverno_tpu_torch.utils``   wildcards, quantities, durations and a
+                                  self-contained P-256 ECDSA (``ecdsa``)
   - ``kyverno_tpu_torch.convert`` carry compiled state from numpy
 """
 

@@ -2,8 +2,9 @@
 (the admission path's too) loads neither jax nor any module of the JAX
 package (kyverno_tpu), the package's sources name neither in an import,
 no source of the port (Python, CUDA or C++) names a path under the JAX
-package's ``native/`` or ``kyverno_tpu/`` directories, and what an
-oracle-pool worker imports loads no torch."""
+package's ``native/`` or ``kyverno_tpu/`` directories, what an
+oracle-pool worker imports loads no torch, and the generate, verifyImages
+and policy modules load neither PyYAML nor cryptography."""
 
 import json
 import os
@@ -53,6 +54,36 @@ def test_mutate_modules_are_checked():
               "engine.mutate.batch", "engine.force_mutate",
               "engine.mutation"):
         assert f"kyverno_tpu_torch.{m}" in mods
+
+
+SLICE_10_MODULES = ("engine.generation", "engine.image_verify",
+                    "engine.registry_verify", "engine.certchain",
+                    "utils.ecdsa", "policy.autogen", "policy.validation",
+                    "policy.openapi", "policy.crd_sync")
+
+
+def test_generate_verify_images_and_policy_modules_are_checked():
+    mods = _port_modules()
+    for m in SLICE_10_MODULES:
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def test_slice_10_modules_import_no_yaml_and_no_cryptography():
+    """The card's machine may lack PyYAML and cryptography: importing the
+    generate, verifyImages and policy modules loads neither (each is
+    imported inside the function that needs it), nor jax or the JAX
+    package."""
+    mods = [f"kyverno_tpu_torch.{m}" for m in SLICE_10_MODULES]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('yaml', 'cryptography', 'jax', 'jaxlib', 'kyverno_tpu')]\n"
+        "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_oracle_pool_worker_modules_load_no_torch():
