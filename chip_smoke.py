@@ -4,11 +4,20 @@ its plain PyTorch version.
     python3 chip_smoke.py            # all phases (one card)
     python3 chip_smoke.py --quick    # build + kernel-vs-plain on small inputs,
                                      # flatten parity, evaluate() at 1,000,
-                                     # [autogen] at 1,000, [actions] small
+                                     # [autogen] at 1,000, [actions] small,
+                                     # [webhook] at one policy
     python3 chip_smoke.py --all-cards  # build + the mesh scan over every card
                                        # (two or more) against one card's
     python3 chip_smoke.py --admission 8  # build + the [admission] phase 8
                                          # times over; how many failed
+    python3 chip_smoke.py --admission 8 --cold-flush on  # the same, each
+                                         # timed burst begun on a cold shape
+                                         # bucket (release on or off)
+    python3 chip_smoke.py --admission 8 --heap keep  # the same on a heap
+                                         # filled to a full run's size
+                                         # (keep, or freeze it out of the
+                                         # garbage collector)
+    python3 chip_smoke.py --webhook      # build + the [webhook] phase alone
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -82,6 +91,29 @@ Phases:
                after it; the library's 250 x 10k resolved matrix through
                the cache, incremental and with KTPU_INCREMENTAL=0, equal
                to the pinned sha256
+ 7b. webhook   the same path behind the port's WebhookServer over HTTP/1.1
+               keep-alive on 127.0.0.1, shaped like bench.py's
+               bench_config1: disallow-latest-tag in enforce mode, 200
+               sequential POSTs of one body, then 16 threads x 32
+               distinct bodies, every verdict as the image says; the
+               library in enforce mode in a PolicyCache on the card with
+               an AdmissionBatcher, warmed as bench.py warms, then 16
+               threads x 16 distinct Pods with the launch counters set to
+               0 and a traceparent a request: every answer equal to a
+               second server without a batcher (the oracle lane) given
+               the same review, a denial from the device row with each
+               of its lines as the webhook writes it for the oracle
+               lane's failing rule, device answers, K1 and eval_rules
+               once a device flush, K6 dispatches on reused blobs;
+               /metrics counting every
+               request with the card's memory gauge (fed once from
+               torch.cuda), /healthz, /debug/traces holding each traced
+               admission under its caller's id with the flush's
+               device_dispatch span and an admission with a screen span;
+               the same Pods through /mutate (config 4's two policies)
+               equal to the serial mutate() chain; a policy through
+               /policyvalidate and /policymutate, whose autogen rules are
+               the [autogen] steps'; p50, p99 and requests/s a lane
   8. mutate    BASELINE config 4 as bench.py runs it, with its two inline
                policies: add-default-labels over 50,000 Pods (a kind-only
                gate, which the lane router sends to the host), then
@@ -128,12 +160,15 @@ Phases:
                counters set to 0 just before and read just after.
                [background]: BackgroundScanner over the library with a
                ReportGenerator, 10,000 resources, through the single
-               lane (KTPU_INCREMENTAL=0), the incremental lane, the 1D
-               mesh of the card and the 2D (4, 1) mesh of it: each
-               lane's responses (and the incremental lane's
-               verdict_matrix()) state the pinned resolved matrix;
-               violations, rule results, responses and aggregate()'s
-               per-policy totals equal across lanes; the launches each
+               lane (KTPU_INCREMENTAL=0), the incremental lane and the
+               1D mesh of the card: each lane's responses (and the
+               incremental lane's verdict_matrix()) state the pinned
+               resolved matrix; violations, rule results, responses and
+               aggregate()'s per-policy totals equal across lanes; the
+               2D (4, 1) mesh of the card over the first 2,000 (its
+               10,000 are [mesh2d]'s), its matrix equal to the 1D
+               lane's first rows and its counts and totals to that
+               matrix's; the launches each
                lane must make; then a one-policy update, 90 MODIFIED and
                10 DELETED watch events and delta_scan(), whose
                verdict_matrix() equals a fresh scanner's full scan.
@@ -174,10 +209,12 @@ the exit code is not 0; with no CUDA device it exits 2 before any phase.
 """
 
 import argparse
+import base64
 import gc
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1356,6 +1393,29 @@ def split_line(split: dict) -> str:
         for k, d in (("on", split["on"]), ("off", split["off"])))
 
 
+# the first rows of the 10,000 that [background]'s 2D (4, 1) lane scans
+BACKGROUND_2D_ROWS = 2_000
+# the objects the garbage collector tracks when a full run reaches
+# [admission] (383,731 on an H100 machine): --heap fills an
+# --admission run's heap to this size
+FULL_RUN_HEAP = 383_731
+# --cold-flush: None leaves the bursts as they are; True / False begins
+# each timed burst on a cold shape bucket with the release on / off
+COLD_FLUSH = None
+# each timed burst's routing counters, in order
+BURST_STATS: list = []
+
+
+def fill_heap(target: int) -> list:
+    """Mixed resources, kept alive by the caller, until the garbage
+    collector tracks ``target`` objects."""
+    out = []
+    gc.collect()
+    while len(gc.get_objects()) < target:
+        out.extend(mixed_resource(len(out) + i) for i in range(1000))
+    return out
+
+
 def admission_phase(library_docs: list, run: str = "") -> dict:
     """Phase 7: the admission path at full width, shaped like bench.py's
     burst_library_250. The 250-policy library in enforce mode goes into a
@@ -1505,6 +1565,12 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             answers = []
             quiesce()
             rec.clear()
+            if COLD_FLUSH is not None:
+                # begin the timed burst on a cold shape bucket: forget the
+                # buckets the warm-up saw; the release on or off
+                with batcher._lock:
+                    batcher._seen_shapes.clear()
+                batcher.cold_flush_fallback = COLD_FLUSH
             s0, d0 = dict(batcher.stats), dict(engine.DONATION_STATS)
             k0 = dict(engine.K6_ALLOC)
             pc0 = resolver.stats["pool_cells"]
@@ -1547,6 +1613,9 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             stats = {k: v - s0.get(k, 0) for k, v in batcher.stats.items()
                      if isinstance(v, (int, float))}
             donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+            gc2 = [p for q, p in pauses if q == 2]
+            BURST_STATS.append(dict(stats, gc2_ms=sum(gc2),
+                                    gc2_max_ms=max(gc2, default=0.0)))
             # the device-answered requests (a device row: CLEAN, or
             # ATTENTION with its cells) apart from those the screen gave
             # up on (ATTENTION with no cells: a timeout, a cold release
@@ -1815,6 +1884,498 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
         batcher.stop()
         resolver.attach_pool(None, None)
         pool.stop()
+    return out
+
+
+# ------------------------------------------------------------- webhook
+# bench.py's bench_config1 over the port's WebhookServer: a fixed body 200
+# times on one keep-alive connection, then 16 threads x 32 distinct bodies
+WEBHOOK_SEQUENTIAL = 200
+WEBHOOK_THREADS, WEBHOOK_PER_THREAD = 16, 32
+
+
+def webhook_body(i: int, salt: str = "", traceparent: bool = False) -> bytes:
+    """One distinct AdmissionReview, as bench.py's _admission_body makes
+    it: make_pod(i) under a salted name and uid."""
+    pod = make_pod(i)
+    pod["metadata"]["name"] = f"pod-{salt}{i}"
+    return json.dumps({
+        "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+        "request": {"uid": f"uid-{salt}{i}", "kind": {"kind": "Pod"},
+                    "namespace": "default", "operation": "CREATE",
+                    "object": pod},
+    }).encode()
+
+
+def traceparent_for(uid: str) -> str:
+    """A caller's W3C traceparent whose trace id is a digest of ``uid``."""
+    return (f"00-{hashlib.blake2b(uid.encode(), digest_size=16).hexdigest()}"
+            f"-00f067aa0ba902b7-01")
+
+
+def webhook_client(port: int, bodies: list, path: str = "/validate",
+                   traced: bool = False) -> list:
+    """POST each body on one keep-alive connection; (ms, response, body,
+    completion time) a request. ``traced`` sends each request with a
+    traceparent of its own (:func:`traceparent_for` its uid)."""
+    import http.client
+    import socket
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.connect()
+    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    out = []
+    try:
+        for b in bodies:
+            headers = {"Content-Type": "application/json"}
+            if traced:
+                headers["traceparent"] = traceparent_for(
+                    json.loads(b)["request"]["uid"])
+            t0 = time.perf_counter()
+            conn.request("POST", path, b, headers)
+            r = conn.getresponse()
+            raw = r.read()
+            t1 = time.perf_counter()
+            check(r.status == 200, f"[webhook] POST {path}: HTTP {r.status} "
+                  f"{raw[:200]!r}")
+            out.append(((t1 - t0) * 1e3, json.loads(raw)["response"], b, t1))
+    finally:
+        conn.close()
+    return out
+
+
+def webhook_burst(port: int, bodies: list, threads: int,
+                  path: str = "/validate", traced: bool = False
+                  ) -> tuple[float, list]:
+    """``threads`` clients, each on a keep-alive connection of its own
+    with an equal slice of ``bodies``, started together; (wall seconds,
+    answers)."""
+    per = -(-len(bodies) // threads)
+    start = threading.Barrier(threads)
+    results: list = [None] * threads
+
+    def client(w):
+        start.wait()
+        results[w] = webhook_client(port, bodies[w * per:(w + 1) * per],
+                                    path, traced)
+
+    ws = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
+    t0 = time.perf_counter()
+    for w in ws:
+        w.start()
+    for w in ws:
+        w.join()
+    wall = time.perf_counter() - t0
+    check(all(r is not None for r in results), "[webhook] a client failed")
+    return wall, [a for r in results for a in r]
+
+
+def same_answer(got: dict, ref: dict, server, policies: dict,
+                request: dict) -> str | None:
+    """How the batcher lane's response ``got`` says what the oracle
+    lane's ``ref`` says for ``request``: "exact" when the two are equal;
+    "device" when they differ only in that the denial's lines of the
+    policies the webhook denied from the device row come first, each line
+    the one ``server._device_deny_messages`` writes for the oracle's
+    failing rule (or the oracle's own line, for a cell the flush
+    resolved on the host), and the oracle lane's other lines follow in
+    its order; None otherwise."""
+    from kyverno_tpu_torch.models import Verdict
+
+    if got == ref:
+        return "exact"
+    if ({k: v for k, v in got.items() if k != "status"}
+            != {k: v for k, v in ref.items() if k != "status"}
+            or got["allowed"] or "status" not in got or "status" not in ref):
+        return None
+    # a line a (policy, rule); a message may span lines of its own
+    head, *got_lines = re.split(r"\n(?=policy )", got["status"]["message"])
+    ref_head, *ref_lines = re.split(r"\n(?=policy )",
+                                    (ref.get("status") or {}).get("message",
+                                                                  ""))
+    if head != ref_head or set(got["status"]) != set(ref["status"]):
+        return None
+
+    def pair(line):
+        if not line.startswith("policy ") or ": " not in line:
+            return None
+        p, _, r = line[len("policy "):].split(": ", 1)[0].partition("/")
+        return p, r
+
+    oracle_line = {pair(ln): ln for ln in ref_lines}
+    for k in range(1, len(got_lines) + 1):
+        prefix = got_lines[:k]
+        pairs = [pair(ln) for ln in prefix]
+        if None in pairs:
+            return None
+        denied = {p for p, _ in pairs}
+        rest = [ln for ln in ref_lines if (pair(ln) or ("",))[0] not in denied]
+        if got_lines[k:] != rest or sorted(pairs) != sorted(
+                pr for pr in oracle_line if pr and pr[0] in denied):
+            continue
+        for (p, r), ln in zip(pairs, prefix):
+            device = server._device_deny_messages(
+                policies.get(p), [(r, Verdict.FAIL, "")], request=request,
+                resource=request.get("object") or {})
+            if ln != oracle_line[(p, r)] and ln not in (device or ()):
+                return None
+        return "device"
+    return None
+
+
+def lane_line(label: str, answers: list, wall: float) -> str:
+    p50, p99 = percentiles([a[0] for a in answers])
+    return (f"{label}: {len(answers)} requests, p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms, {len(answers) / wall:.1f} requests/s "
+            f"({wall:.3f} s)")
+
+
+class WideRing:
+    """While entered, the trace recorder keeps the last 8,192 traces: a
+    burst's admission traces and its flush traces together outnumber the
+    ring's 256."""
+
+    def __enter__(self):
+        from collections import deque
+
+        from kyverno_tpu_torch.runtime import tracing
+
+        self.rec = tracing.recorder()
+        self.saved = self.rec._ring
+        self.rec._ring = deque(self.saved, maxlen=8192)
+        return self
+
+    def __exit__(self, *exc):
+        if hasattr(self, "saved"):
+            self.rec._ring = self.saved
+
+
+def routing(stats: dict, before: dict) -> dict:
+    return {k: stats.get(k, 0) - before.get(k, 0) for k in (
+        "oracle", "device", "clean", "attention", "cache", "device_decided",
+        "device_deny", "screen_timeout", "flush_fallback", "cold_release",
+        "flush_error", "circuit_open")}
+
+
+def observe(port: int, sent: int, traced: list, label: str,
+            expect_dispatch: bool = True) -> dict:
+    """The observability routes of a webhook server that has answered
+    ``sent`` admissions, ``traced`` of them with a traceparent of their
+    own: /metrics counts every request and shows the card's memory (fed
+    once from torch.cuda just before), /healthz answers, /debug/traces
+    holds the traced admissions under their callers' ids with the
+    flushes' device_dispatch spans, and an admission with a screen
+    span."""
+    import http.client
+
+    from kyverno_tpu_torch.runtime import metrics
+
+    metrics.record_device_memory(metrics.registry(),
+                                 metrics.cuda_memory_stats(0), device="0")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", "/metrics")
+        r = conn.getresponse()
+        text = r.read().decode()
+        check(r.status == 200, f"[webhook] /metrics HTTP {r.status}")
+        conn.request("GET", "/healthz")
+        r = conn.getresponse()
+        health = json.loads(r.read())
+        check(r.status == 200 and health.get("status") in ("ok", "degraded"),
+              f"[webhook] /healthz HTTP {r.status}: {health}")
+        conn.request("GET", "/debug/traces?n=8192")
+        r = conn.getresponse()
+        traces = json.loads(r.read())["traces"]
+        check(r.status == 200, f"[webhook] /debug/traces HTTP {r.status}")
+    finally:
+        conn.close()
+    requests = sum(float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+                   if ln.startswith("kyverno_admission_requests_total{"))
+    check(requests == sent, f"[webhook] {label}: /metrics counts {requests} "
+          f"admission requests, {sent} were sent")
+    memory = {ln.split("kind=\"", 1)[1].split("\"", 1)[0]:
+              float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+              if ln.startswith("kyverno_device_memory_bytes{")}
+    check(memory.get("bytes_in_use", 0) > 0, f"[webhook] {label}: device "
+          f"memory gauges {memory}")
+    admissions = [t for t in traces if t["kind"] == "admission"]
+    by_id = {t["trace_id"]: t for t in admissions}
+    want = {traceparent_for(u).split("-")[1] for u in traced}
+    adopted = [by_id[i] for i in want if i in by_id]
+    check(len(adopted) == len(want), f"[webhook] {label}: {len(adopted)} of "
+          f"{len(want)} traced admissions exported under the caller's id")
+    spans = [{s["name"] for s in t["spans"]} for t in admissions]
+    dispatched = sum(1 for t in adopted
+                     if {"device_dispatch", "cold_dispatch"}
+                     & {s["name"] for s in t["spans"]})
+    screened = sum(1 for s in spans if "screen" in s)
+    check(dispatched > 0 or not expect_dispatch, f"[webhook] {label}: no "
+          "traced admission holds a device_dispatch span")
+    check(screened > 0, f"[webhook] {label}: no admission trace holds a "
+          "screen span")
+    log(f"[webhook] {label}: /metrics counts {int(requests)} admission "
+        f"requests (all sent), device memory {memory}; /healthz "
+        f"{health['status']}; /debug/traces: {len(admissions)} admission "
+        f"traces, the {len(adopted)} traced ones under their callers' ids, "
+        f"{dispatched} of them with the flush's device_dispatch, {screened} "
+        f"admissions with a screen span")
+    return {"requests": requests, "memory": memory, "dispatched": dispatched}
+
+
+def webhook_phase(library_docs: list, quick: bool = False) -> dict:
+    """[webhook]: the port's admission webhook over HTTP, shaped like
+    bench.py's bench_config1. One policy: 200 sequential POSTs of one
+    body on a keep-alive connection, then 16 threads x 32 distinct
+    bodies. The library (``quick`` leaves it out): warmed as bench.py
+    warms, then a timed burst of 16 x 16 distinct Pods with the launch
+    counters set to 0 just before, each request with a traceparent of its
+    own; every answer equal to a second server without a batcher (the
+    oracle lane) given the same review, a denial from the device row
+    line by line as the webhook writes it for the oracle's failing rules;
+    device answers, K1 and eval_rules once a device flush, K6 dispatches;
+    the observability routes. Then the same Pods through /mutate against
+    the serial mutate() chain, and a policy through /policyvalidate and
+    /policymutate against the [autogen] steps. Returns the burst's
+    launches and lanes."""
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.models import engine
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane, metrics, tracing
+    from kyverno_tpu_torch.runtime.batch import AdmissionBatcher
+    from kyverno_tpu_torch.runtime.client import FakeCluster
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
+    from kyverno_tpu_torch.runtime.webhook import WebhookServer
+
+    enf = PolicyType.VALIDATE_ENFORCE
+    smi = nvidia_smi_line()
+    out = {}
+    rec = tracing.recorder()
+    metrics.registry().reset()
+
+    # ---- one policy, as bench_config1
+    one = dict(_synth_policy_docs(1)[0])
+    one["spec"] = dict(one["spec"], validationFailureAction="enforce")
+    cache = PolicyCache()
+    cache.add(load_policy(one))
+    batcher = AdmissionBatcher(cache)
+    server = WebhookServer(policy_cache=cache, client=FakeCluster(),
+                           admission_batcher=batcher)
+    ring = WideRing()
+    try:
+        ring.__enter__()
+        port = server.run(host="127.0.0.1", port=0).server_address[1]
+        fixed = webhook_body(1, "bench")
+        first = webhook_client(port, [fixed] * 11)
+        check(first[0][1]["allowed"] is True, f"[webhook] the fixed body "
+              f"(nginx:1.21) was denied: {first[0][1]}")
+        s0 = dict(batcher.stats)
+        seq = webhook_client(port, [fixed] * WEBHOOK_SEQUENTIAL)
+        seq_stats = routing(batcher.stats, s0)
+        bodies = [webhook_body(i, "s")
+                  for i in range(WEBHOOK_THREADS * WEBHOOK_PER_THREAD)]
+        s0 = dict(batcher.stats)
+        rec.clear()
+        burst_s, burst = webhook_burst(port, bodies, WEBHOOK_THREADS,
+                                       traced=quick)
+        burst_stats = routing(batcher.stats, s0)
+        for _, resp, body, _ in burst:
+            i = int(json.loads(body)["request"]["uid"].rsplit("s", 1)[1])
+            check(resp["allowed"] is (i % 4 != 0), f"[webhook] one policy: "
+                  f"{resp['uid']} allowed {resp['allowed']}")
+        log(f"[webhook] one policy (disallow-latest-tag, enforce), over "
+            f"HTTP/1.1 keep-alive: " + lane_line(
+                f"{WEBHOOK_SEQUENTIAL} sequential POSTs of one body",
+                seq, sum(a[0] for a in seq) / 1e3)
+            + f", routing {seq_stats}; " + lane_line(
+                f"{WEBHOOK_THREADS} threads x {WEBHOOK_PER_THREAD} distinct "
+                "bodies", burst, burst_s)
+            + f", routing {burst_stats}, every verdict as the image says; "
+            f"{smi}")
+        out["one_policy"] = {"sequential": percentiles([a[0] for a in seq]),
+                             "burst": percentiles([a[0] for a in burst]),
+                             "burst_rps": len(burst) / burst_s}
+        if quick:
+            sent = 11 + WEBHOOK_SEQUENTIAL + len(burst)
+            # a repeat inside the result cache's second: a screen span
+            webhook_client(port, [max(burst, key=lambda a: a[3])[2]])
+            # one policy is cheap on the oracle: the router may send the
+            # whole burst there, and then no admission dispatched
+            out["observe"] = observe(
+                port, sent + 1,
+                [json.loads(b)["request"]["uid"] for b in bodies],
+                "one policy", expect_dispatch=burst_stats["device"] > 0)
+            return out
+    finally:
+        ring.__exit__()
+        server.stop()
+        batcher.stop()
+
+    # ---- the library: the batcher's server against the oracle lane's
+    enforce = [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
+               for d in library_docs]
+    lib = PolicyCache()
+    for d in enforce:
+        lib.add(load_policy(d))
+    t0 = time.perf_counter()
+    cps = lib.compiled(enf, "Pod", "default")
+    compile_s = time.perf_counter() - t0
+    # the oracle lane's server first: a server attaches its pool to the
+    # host lane, and the batcher's flushes are to use the batcher's
+    oracle = WebhookServer(policy_cache=lib, client=FakeCluster(),
+                           registry=metrics.MetricsRegistry())
+    lib_batcher = AdmissionBatcher(lib)
+    metrics.registry().reset()
+    server = WebhookServer(policy_cache=lib, client=FakeCluster(),
+                           admission_batcher=lib_batcher)
+    mutator = None
+    try:
+        port = server.run(host="127.0.0.1", port=0).server_address[1]
+        oracle_port = oracle.run(host="127.0.0.1", port=0).server_address[1]
+        t0 = time.perf_counter()
+        lib_batcher.warmup(enf, "Pod", "default", make_pod(1))
+        warm_s = time.perf_counter() - t0
+        n_req = ADMISSION_THREADS * ADMISSION_PER_THREAD
+        warm = [[webhook_body(i, f"w{r}") for i in range(n_req)]
+                for r in range(2)]
+        sent = len(webhook_client(port, warm[0][:32]))
+        pre = dict(lib_batcher.stats)
+        for pool in warm:
+            sent += len(webhook_burst(port, pool, ADMISSION_THREADS)[1])
+        tripped = routing(lib_batcher.stats, pre)
+        if tripped["circuit_open"] or tripped["screen_timeout"]:
+            time.sleep(lib_batcher.circuit_cooldown_s + 0.2)
+        end = time.perf_counter() + 60
+        while lib_batcher._pending_flushes and time.perf_counter() < end:
+            time.sleep(0.005)
+        bodies = [webhook_body(i, "lib") for i in range(n_req)]
+        with WideRing():
+            rec.clear()
+            s0, d0 = dict(lib_batcher.stats), dict(engine.DONATION_STATS)
+            _build.reset_launches()
+            burst_s, burst = webhook_burst(port, bodies, ADMISSION_THREADS,
+                                           traced=True)
+            end = time.perf_counter() + 60
+            while lib_batcher._pending_flushes and time.perf_counter() < end:
+                time.sleep(0.005)
+            launches = dict(_build.LAUNCHES)
+            stats = routing(lib_batcher.stats, s0)
+            donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+            flushes = [tr for tr in rec.traces(8192) if tr.kind == "flush"
+                       and {"device_dispatch", "cold_dispatch"}
+                       & tr.stage_names()]
+            sent += len(burst)
+            # a repeat inside the result cache's second: a screen span
+            webhook_client(port, [max(burst, key=lambda a: a[3])[2]])
+            sent += 1
+            out["observe"] = observe(
+                port, sent, [json.loads(b)["request"]["uid"] for b in bodies],
+                "library")
+        check(stats["flush_error"] == 0, f"[webhook] flushes failed: {stats}")
+        check(stats["device"] > 0 and stats["device_decided"] > 0,
+              f"[webhook] no request answered by the device lane: {stats}")
+        for k in EVALUATE_KERNELS:
+            check(launches[k] == len(flushes) > 0, f"[webhook] {k} launched "
+                  f"{launches[k]} times for {len(flushes)} device flushes")
+        check(donated["dispatches"] > 0 and donated["donated_buffers"] > 0,
+              f"[webhook] K6 dispatches {donated}")
+        # the oracle lane: the same reviews, its own latencies
+        oracle_s, oracle_answers = webhook_burst(oracle_port, bodies,
+                                                 ADMISSION_THREADS)
+        want = {a[1]["uid"]: a[1] for a in oracle_answers}
+        by_name = {p.name: p for p in lib.get_policies(enf, "Pod", "default")}
+        same_text = 0
+        for _, got, body, _ in burst:
+            ref = want[got["uid"]]
+            kind = same_answer(got, ref, server, by_name,
+                               json.loads(body)["request"])
+            check(kind is not None, f"[webhook] {got['uid']}: the batcher's "
+                  f"server says {got}, the oracle lane {ref}")
+            same_text += kind == "exact"
+        denied = sum(1 for a in burst if not a[1]["allowed"])
+        log(f"[webhook] the library ({len(enforce)} policies, enforce; Pod "
+            f"population compiled in {compile_s:.3f} s on {cps.device}), warmup "
+            f"{warm_s:.3f} s: " + lane_line(
+                f"batcher lane, {ADMISSION_THREADS} threads x "
+                f"{ADMISSION_PER_THREAD} distinct Pods", burst, burst_s)
+            + f"; routing {stats}; {len(flushes)} device flushes, launches "
+            f"{launches}, K6 {donated}; " + lane_line(
+                "oracle lane (no batcher), the same reviews", oracle_answers,
+                oracle_s)
+            + f"; every answer equal to the oracle lane's ({denied} denied; "
+            f"{same_text} of {len(burst)} the same text, the others denied "
+            f"from the device row, whose lines name each rule without the "
+            f"failing path, as in the JAX package, and equal to what the "
+            f"webhook writes for the oracle lane's failing rules); {smi}")
+        out.update(launches=launches, flushes=len(flushes), stats=stats,
+                   donated=donated,
+                   device=percentiles([a[0] for a in burst]),
+                   device_rps=len(burst) / burst_s,
+                   oracle=percentiles([a[0] for a in oracle_answers]),
+                   oracle_rps=len(oracle_answers) / oracle_s)
+
+        # ---- /mutate: BASELINE config 4's two policies, the same Pods
+        mut = PolicyCache()
+        mpols = [load_policy(d) for d in (ADD_DEFAULT_LABELS,
+                                          ANNOTATE_BENCH_APPS)]
+        for p in mpols:
+            mut.add(p)
+        mutator = WebhookServer(policy_cache=mut, client=FakeCluster(),
+                                registry=metrics.MetricsRegistry())
+        mport = mutator.run(host="127.0.0.1", port=0).server_address[1]
+        t0 = time.perf_counter()
+        mutated = webhook_client(mport, bodies, path="/mutate")
+        mutate_s = time.perf_counter() - t0
+        from kyverno_tpu_torch.engine.context import (
+            Context, mutate_resource_with_image_info)
+
+        n_patched = 0
+        for _, resp, body, _ in mutated:
+            doc = json.loads(body)["request"]["object"]
+            doc, want_p = mutate_resource_with_image_info(doc, Context())
+            want_p = list(want_p) + serial_chain(mpols, doc)
+            got_p = (json.loads(base64.b64decode(resp["patch"]))
+                     if "patch" in resp else [])
+            check(resp["allowed"] and got_p == want_p, f"[webhook] /mutate "
+                  f"{resp['uid']}: {got_p} against the serial chain's "
+                  f"{want_p}")
+            n_patched += bool(got_p)
+        log(f"[webhook] /mutate, config 4's two policies: " + lane_line(
+            "the same Pods, one keep-alive connection", mutated, mutate_s)
+            + f"; {n_patched} patched, every patch equal to the serial "
+            f"mutate() chain's")
+
+        # ---- the policy webhook: one policy through both paths
+        doc = library_docs[0]
+        review = json.dumps({
+            "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": "policy", "kind": {"kind": "ClusterPolicy"},
+                        "operation": "CREATE", "object": doc}}).encode()
+        (_, valid, _, _), = webhook_client(mport, [review],
+                                           path="/policyvalidate")
+        (_, mpatch, _, _), = webhook_client(mport, [review],
+                                            path="/policymutate")
+        check(valid["allowed"] is True, f"[webhook] /policyvalidate {valid}")
+        added = [p["value"] for p in json.loads(base64.b64decode(
+            mpatch["patch"])) if p["path"].startswith("/spec/rules/")]
+        (auto,), errors = autogen_policies([doc], policy_steps())
+        check(not errors, f"[webhook] the [autogen] steps: {errors}")
+        steps_rules = [(r.name, sorted(r.match_kinds()))
+                       for r in auto.spec.rules[len(doc["spec"]["rules"]):]]
+        got_rules = [(r["name"], sorted(r["match"]["resources"]["kinds"]))
+                     for r in added]
+        check(got_rules == steps_rules and got_rules, f"[webhook] "
+              f"/policymutate added {got_rules}, the [autogen] steps "
+              f"{steps_rules}")
+        log(f"[webhook] /policyvalidate allowed {doc['metadata']['name']}; "
+            f"/policymutate added the rules the [autogen] steps give: "
+            f"{got_rules}")
+    finally:
+        server.stop()
+        lib_batcher.stop()
+        oracle.stop()
+        if mutator is not None:
+            mutator.stop()
+        hostlane.resolver().attach_pool(None, None)
     return out
 
 
@@ -2094,6 +2655,25 @@ def state_matrix(scanner) -> tuple[list, np.ndarray]:
     return keys, np.ascontiguousarray(m[:, order])
 
 
+def matrix_key(m: np.ndarray, rule_refs) -> tuple:
+    """What a scan's result and reports state for its response matrix
+    ``m``: (violations, rule results, responses, per-policy pass and
+    fail totals), as BackgroundScanner and ReportGenerator count them:
+    a rule result each non-NOT_APPLICABLE cell, a response each
+    resource and policy with one, a violation each FAIL."""
+    pol = {}
+    for ref in rule_refs:
+        pol.setdefault(ref.policy.name, []).append(ref.rule_index)
+    totals, responses = {}, 0
+    for name, cols in pol.items():
+        sub = m[:, cols]
+        responses += int((sub != 0).any(axis=1).sum())
+        t = [int((sub == 1).sum()), int((sub == 2).sum())]
+        if (sub != 0).any():
+            totals[name] = t
+    return int((m == 2).sum()), int((m != 0).sum()), responses, totals
+
+
 def report_totals(reports: list) -> dict:
     """Per-policy pass and fail totals of aggregate()'s reports."""
     out = {}
@@ -2125,15 +2705,20 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
     resources = [mixed_resource(i) for i in range(n)]
     mesh_2d = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4, shape=(4, 1))
     # lane: (environment, mesh, expected launches of K1, eval_rules and
-    # its counts form); a mesh lane's counts forms are held to the plain
-    # counts as in [mesh]
+    # its counts form, rows); a mesh lane's counts forms are held to the
+    # plain counts as in [mesh]. The 2D (4, 1) lane (the scanner's own
+    # ShardedPolicySet) scans the first BACKGROUND_2D_ROWS only, [mesh2d]
+    # having scanned all 10,000 on that mesh: its matrix is held to the
+    # 1D lane's first rows, and its counts to that matrix
     kernels = ("glob_nfa", "eval_rules", "eval_rules_counts")
-    lanes = [("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0)),
-             ("incremental", {}, None, (1, 1, 0)),
-             ("mesh 1D", {}, mesh_1d, (1, 0, 1)),
-             ("mesh 2D (4, 1)", {}, mesh_2d, (4, 0, 4))]
-    seen, out = None, {}
-    for name, env, mesh, want in lanes:
+    lanes = [("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0), n),
+             ("incremental", {}, None, (1, 1, 0), n),
+             ("mesh 1D", {}, mesh_1d, (1, 0, 1), n),
+             ("mesh 2D (4, 1)", {}, mesh_2d, (4, 0, 4),
+              min(n, BACKGROUND_2D_ROWS))]
+    seen, out, m_1d = None, {}, None
+    for name, env, mesh, want, rows in lanes:
+        lane_res = resources[:rows]
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
@@ -2145,7 +2730,7 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
             _build.reset_launches()
             with CheckedCounts() as checked, AllSpans():
                 t0 = time.perf_counter()
-                result = sc.scan(resources)
+                result = sc.scan(lane_res)
                 scan_s = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
             split = scan_split()
@@ -2161,10 +2746,15 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
         if mesh is not None:
             check_mesh_launches(f"[background] {name}", launches, want[0],
                                 checked)
-        m = response_matrix(result, sc.cps.rule_refs, resources)
-        check(matrix_sha(m) == EXPECTED_EVAL_SHA,
-              f"[background] {name}: the responses' matrix sha256 "
-              f"{matrix_sha(m)} != {EXPECTED_EVAL_SHA}")
+        m = response_matrix(result, sc.cps.rule_refs, lane_res)
+        if rows == n:
+            check(matrix_sha(m) == EXPECTED_EVAL_SHA,
+                  f"[background] {name}: the responses' matrix sha256 "
+                  f"{matrix_sha(m)} != {EXPECTED_EVAL_SHA}")
+        else:
+            check(np.array_equal(m, m_1d[:rows]),
+                  f"[background] {name}: the responses' matrix of the "
+                  f"first {rows} rows differs from the 1D lane's")
         state = sc.verdict_matrix()
         check((state is not None) == (name == "incremental"),
               f"[background] {name}: verdict_matrix() {state is not None}")
@@ -2179,11 +2769,20 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
         aggregate_s = time.perf_counter() - t0
         key = (result.violations, result.rules_evaluated,
                len(result.responses), totals)
-        if seen is None:
-            seen = key
-        check(key == seen, f"[background] {name}: violations, rules, "
-              f"responses or report totals differ from the first lane's")
-        log(f"[background] {name}: scan {scan_s:.3f} s = evaluate "
+        if rows == n:
+            if seen is None:
+                seen = key
+            check(key == seen, f"[background] {name}: violations, rules, "
+                  f"responses or report totals differ from the first "
+                  f"lane's")
+        else:
+            want_key = matrix_key(m, sc.cps.rule_refs)
+            check(key == want_key, f"[background] {name}: violations, "
+                  f"rules, responses and report totals "
+                  f"{key[:3]} differ from its matrix's {want_key[:3]}"
+                  f"{'' if key[3] == want_key[3] else ' (report totals)'}")
+        log(f"[background] {name}: {rows} resources, scan {scan_s:.3f} s "
+            f"= evaluate "
             f"{split['scan_evaluate']:.3f} + responses "
             f"{split['scan_responses']:.3f} + report requests (the rest) "
             f"{scan_s - split['scan_evaluate'] - split['scan_responses']:.3f} "
@@ -2191,12 +2790,17 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
             f"{aggregate_s:.3f} s; "
             f"{result.violations} violations, {result.rules_evaluated} rule "
             f"results, {len(result.responses)} responses, report totals of "
-            f"{len(totals)} policies equal across lanes; launches {launches}; "
-            f"sha256 {EXPECTED_EVAL_SHA[:8]}…"
+            f"{len(totals)} policies "
+            + ("equal across lanes" if rows == n else "as its matrix states")
+            + f"; launches {launches}; "
+            + (f"sha256 {EXPECTED_EVAL_SHA[:8]}…" if rows == n else
+               f"matrix equal to the 1D lane's first {rows} rows")
             + (f"; K7's program a shard, counts equal to the plain "
                f"version's, between events: {checked.times()}"
                if mesh is not None else ""))
         out[name] = {"launches": launches, "scan_s": scan_s}
+        if name == "mesh 1D":
+            m_1d = m
         if name == "incremental":
             inc = (sc, reports)
         del sc, reports, result
@@ -3270,6 +3874,16 @@ def main() -> int:
     ap.add_argument("--admission", type=int, default=0, metavar="N",
                     help="build, then only the [admission] phase, N times "
                          "over in one process; report how many runs failed")
+    ap.add_argument("--cold-flush", choices=("on", "off"), default=None,
+                    help="with --admission: clear the batcher's seen shape "
+                         "buckets before each timed burst, with the cold "
+                         "release (cold_flush_fallback) on or off")
+    ap.add_argument("--heap", choices=("keep", "freeze"), default=None,
+                    help="with --admission: first fill the heap to the size "
+                         "a full run has at [admission], then keep it in "
+                         "the garbage collector's view or freeze it out")
+    ap.add_argument("--webhook", action="store_true",
+                    help="build, then only the [webhook] phase")
     ap.add_argument("--all-cards", action="store_true",
                     help="build, then only the mesh scan over every card of "
                          "the host against the one-card scan (needs 2 or more)")
@@ -3324,7 +3938,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     if args.admission:
+        global COLD_FLUSH
+        if args.cold_flush is not None:
+            COLD_FLUSH = args.cold_flush == "on"
         library_docs = _synth_policy_docs(250)
+        ballast = fill_heap(FULL_RUN_HEAP) if args.heap else []
+        gc.collect()
+        tracked = len(gc.get_objects())
+        if args.heap == "freeze":
+            gc.freeze()
+        log(f"[admission] heap: {tracked} tracked objects "
+            f"({len(ballast)} mixed resources added), "
+            + ("frozen out of the collector" if args.heap == "freeze"
+               else "in the collector's view"))
         failed = []
         for i in range(args.admission):
             t0 = time.perf_counter()
@@ -3335,10 +3961,32 @@ def main() -> int:
                 log(f"[admission] run {i + 1} failed: {e}")
             log(f"[admission] run {i + 1} of {args.admission}: "
                 f"{time.perf_counter() - t0:.3f} s")
+        total = {k: sum(b.get(k, 0) for b in BURST_STATS) for k in (
+            "circuit_open", "screen_timeout", "cold_release",
+            "flush_fallback", "flush_error")}
+        log(f"[admission] cold flush forced: {args.cold_flush or 'no'}; over "
+            f"{len(BURST_STATS)} timed bursts: {total}; bursts with a breaker "
+            f"opening {sum(1 for b in BURST_STATS if b.get('circuit_open'))}, "
+            f"with a screen timeout "
+            f"{sum(1 for b in BURST_STATS if b.get('screen_timeout'))}, with "
+            f"a cold release "
+            f"{sum(1 for b in BURST_STATS if b.get('cold_release'))}; "
+            f"heap {args.heap or 'as it is'}: generation-2 pauses in the "
+            f"bursts {sum(b['gc2_ms'] for b in BURST_STATS):.1f} ms, the "
+            f"largest "
+            f"{max((b['gc2_max_ms'] for b in BURST_STATS), default=0.0):.1f} "
+            f"ms")
         log(f"[admission] {len(failed)} of {args.admission} runs failed "
             f"{failed}; {nvidia_smi_line()}")
         if failed:
             return 1
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.webhook:
+        webhook_phase(_synth_policy_docs(250))
+        log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
             "count": torch.cuda.device_count()}}))
@@ -3450,6 +4098,7 @@ def main() -> int:
         pipelined_phase(lib_cps, 1000, chunk=256)
         autogen_phase(1000)
         actions_phase(200, 200)
+        webhook_phase(_synth_policy_docs(250), quick=True)
         check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
               f"native flattener fallbacks {native_flatten.FALLBACKS}")
         log(nvidia_smi_line())
@@ -3533,6 +4182,11 @@ def main() -> int:
 
     # ---- 7. admission: the policy cache, the batcher, K6 and the pool
     admission = admission_phase(library_docs)
+
+    # ---- 7b. webhook: the same path behind the port's WebhookServer
+    t0 = time.perf_counter()
+    webhook = webhook_phase(library_docs)
+    log(f"[webhook] phase wall {time.perf_counter() - t0:.3f} s")
 
     # ---- 8. mutate: BASELINE config 4 through the BatchMutator, its gate
     # (K1 -> eval_rules a chunk, then the host lane) on the card
@@ -3658,6 +4312,7 @@ def main() -> int:
                       "autogen_launches": autogen["launches"].get(name),
                       "autogen_burst_launches":
                           autogen["burst_launches"].get(name),
+                      "webhook_launches": webhook["launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

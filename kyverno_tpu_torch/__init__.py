@@ -29,7 +29,10 @@ Layer map:
                                   host lane (prefetch, verdict memo,
                                   fan-out) that resolves HOST cells, the
                                   admission batcher and policy cache, the
-                                  background scanner and the reports
+                                  background scanner and the reports, the
+                                  admission webhook over HTTP and its
+                                  planes (metrics, SLO, observability
+                                  routes, cluster client)
   - ``kyverno_tpu_torch.parallel`` the device mesh and K7, the sharded
                                   scan (``sharded_scan``)
   - ``kyverno_tpu_torch.ops``     CUDA kernels (glob NFA, check evaluation,

@@ -563,6 +563,14 @@ class CompiledPolicySet:
             out.append(resolved)
             rec.add_span(tr0, "host_resolve", h0, time.perf_counter(),
                          lane="prefetch" if pf0 is not None else "post_pass")
+            try:
+                from ..runtime import metrics as metrics_mod
+
+                metrics_mod.record_policy_verdict_matrix(
+                    metrics_mod.registry(), self.rule_refs, resolved,
+                    lane="scan")
+            except Exception:
+                pass
             rec.finish(tr0)
 
         with ThreadPoolExecutor(max_workers=1,
@@ -1052,6 +1060,14 @@ class ShardedPolicySet:
             "reassembled": reassembled,
             "shard_rules": {sh.index: sh.n_rules_live for sh in shards},
         }
+        try:
+            from ..runtime import metrics as metrics_mod
+
+            metrics_mod.record_mesh_shard_rules(
+                metrics_mod.registry(),
+                {sh.index: sh.n_rules_live for sh in shards})
+        except Exception:
+            pass
         return self
 
     # -- convenience delegation to the full (host-layout) set ----------

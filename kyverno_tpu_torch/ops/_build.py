@@ -75,7 +75,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path] | None:
+def _start(name: str) -> tuple[subprocess.Popen, Path, float] | None:
     out = _lib_path(name)
     if out.exists():
         return None
@@ -85,15 +85,25 @@ def _start(name: str) -> tuple[subprocess.Popen, Path] | None:
            str(CSRC / f"{name}.cu")]
     with open(BUILD_DIR / f"{name}.log", "w") as log:
         proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
-    return proc, tmp
+    return proc, tmp, time.perf_counter()
 
 
-def _finish(name: str, proc: subprocess.Popen, tmp: Path) -> None:
+def _finish(name: str, proc: subprocess.Popen, tmp: Path,
+            t0: float) -> None:
     rc = proc.wait()
     log = (BUILD_DIR / f"{name}.log").read_text()
     if rc != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu (rc={rc}):\n{log}")
     os.replace(tmp, _lib_path(name))
+    # the build's wall time into the metrics registry, as the JAX
+    # package records each XLA build; never raises
+    try:
+        from ..runtime import metrics as metrics_mod
+
+        metrics_mod.record_xla_compile(metrics_mod.registry(),
+                                       time.perf_counter() - t0, what=name)
+    except Exception:
+        pass
 
 
 def build_all() -> float:

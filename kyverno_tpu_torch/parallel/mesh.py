@@ -152,6 +152,18 @@ def make_mesh(devices=None, axis: str = "data",
         raise ValueError("a mesh needs at least one device")
     if shape is None:
         shape = mesh_shape_from_env(len(devices))
+    try:
+        from ..runtime import metrics as metrics_mod
+
+        reg = metrics_mod.registry()
+        metrics_mod.record_mesh_devices(reg, len(devices), devices[0].type)
+        if shape is None:
+            metrics_mod.record_mesh_shape(reg, (axis,), (len(devices),))
+        else:
+            metrics_mod.record_mesh_shape(
+                reg, (MESH_AXIS_POLICY, axis), shape)
+    except Exception:
+        pass
     if shape is None:
         return Mesh(_device_array(devices), (axis,))
     p, d = shape
@@ -320,6 +332,13 @@ def _resolve_chunk(cps, chunk, v, fails, passes, pf, rec, tr):
         rec.add_span(tr, "host_resolve", h0, time.perf_counter(),
                      cells=int(bb.size),
                      lane=("prefetch" if pf is not None else "post_pass"))
+    try:
+        from ..runtime import metrics as metrics_mod
+
+        metrics_mod.record_policy_verdict_matrix(
+            metrics_mod.registry(), cps.rule_refs, v, lane="mesh")
+    except Exception:
+        pass
 
 
 def sharded_scan(cps, resources: list[dict], mesh: Mesh,

@@ -3,8 +3,11 @@ registry (``featureplane``), the span recorder (``tracing``), the host
 lane that resolves HOST cells (``hostlane``: prefetch at dispatch, a
 content-addressed verdict memo in ``resourcecache``, fan-out over a
 thread pool), the pool-safety predicate of ``oracle_pool``, the
-background scanner (``background``) and the report pipeline
-(``reports``).
+background scanner (``background``), the report pipeline (``reports``),
+and the admission webhook (``webhook``) with the planes it imports:
+``metrics``, ``obs_http``, ``slo`` and ``sloactions``, ``config``,
+``userinfo``, ``events``, ``workqueue``, ``client``, ``watch`` and
+``auth``.
 
 The scanner's and the reports' names load on first use, so that what an
 oracle-pool worker imports from this package loads no torch."""

@@ -13,8 +13,9 @@ default: chunked, and it keeps the state the delta pass needs), and with
 KTPU_INCREMENTAL=0 ``single`` (one evaluate), ``pipelined``
 (evaluate_pipelined) or ``serial_chunks`` (KTPU_FLATTEN_PIPELINE=0) above
 one chunk. The scanner runs on ``cuda`` unless the caller passes
-``device="cpu"`` or a mesh of CPU devices. The JAX package's
-observability listener and its fleet hooks are not here.
+``device="cpu"`` or a mesh of CPU devices. ``serve_observability``
+starts the /metrics /healthz /debug/traces listener; the JAX package's
+dry-run corpus registration and its fleet hooks are not here.
 
 Delta scanning (KTPU_INCREMENTAL, default on): the scanner persists the
 verdict matrix between passes, keyed by (resource key) x (policy, rule).
@@ -135,7 +136,29 @@ class BackgroundScanner:
         self._events: list[tuple[str, dict]] = []
         self.delta_stats = {"full_scans": 0, "delta_scans": 0,
                             "cols_evaluated": 0, "rows_evaluated": 0}
+        self._obs = None
         self._apply_policies(policies)
+
+    def serve_observability(self, host: str = "127.0.0.1",
+                            port: int = 9464):
+        """Start the standalone /metrics /healthz /debug/traces
+        listener (runtime/obs_http.ObservabilityServer) — scanner-only
+        processes have no webhook port to scrape. Port 0 picks a free
+        port (read it back from the returned server's ``server_port``).
+        Idempotent per scanner. (The JAX package also registers the
+        scanner as the dry-run corpus here; the port has no dry-run
+        service yet.)"""
+        if self._obs is None:
+            from .obs_http import ObservabilityServer
+
+            self._obs = ObservabilityServer(host=host, port=port)
+            self._obs.start()
+        return self._obs
+
+    def stop_observability(self) -> None:
+        if self._obs is not None:
+            self._obs.stop()
+            self._obs = None
 
     # -------------------------------------------------------- policy feed
 

@@ -26,11 +26,12 @@ donate=True)``: pinned staging and a persistent device blob per shape
 bucket); a flush's HOST cells resolve through the host lane, whose
 admission payloads may go to an attached ``OraclePool``.
 
-This is the JAX package's batcher with its SLO-actions, metrics and
-fleet-fabric planes off: the coalescing window is never scaled, the pad
-floor is ``PAD_FLOOR``, no geometry profile suspends the late-join
-graft, nothing is recorded to a metrics registry and no decision goes to
-or comes from a fabric. None of these changes a verdict.
+This is the JAX package's batcher. Its SLO-actions plane
+(runtime/sloactions.py) scales the coalescing window, lowers the pad
+floor and suspends the late-join graft while its geometry profile is
+engaged, and every flush feeds the metrics registry; both sit behind a
+``try`` and neither changes a verdict. The JAX package's fleet
+fabric (decisions shared across replicas) is not here.
 """
 
 from __future__ import annotations
@@ -60,6 +61,29 @@ _log = logging.getLogger(__name__)
 # API server's patience even after a device miss
 WEBHOOK_TIMEOUT_S = 10.0
 SCREEN_DEADLINE_S = WEBHOOK_TIMEOUT_S / 4
+
+
+def _slo_geometry_active() -> bool:
+    """Whether the SLO degradation controller's latency-optimized
+    geometry profile is engaged (runtime/sloactions.py). False whenever
+    the actions plane is off — the healthy geometry is the default."""
+    try:
+        from . import sloactions
+
+        return sloactions.geometry_active()
+    except Exception:
+        return False
+
+
+def _slo_window_scale() -> float:
+    """Coalescing-window multiplier under the geometry profile (1.0
+    healthy)."""
+    try:
+        from . import sloactions
+
+        return sloactions.window_scale()
+    except Exception:
+        return 1.0
 
 
 def stream_enabled() -> bool:
@@ -320,14 +344,15 @@ class AdmissionBatcher:
     PAD_FLOOR = 16
 
     def _window(self) -> float:
-        """Effective coalescing window (the JAX package scales it down
-        while its SLO geometry profile is engaged; that plane is off)."""
-        return self.window_s
+        """Effective coalescing window: the configured window scaled
+        down by the SLO geometry profile while degraded (1x healthy)."""
+        return self.window_s * _slo_window_scale()
 
     @classmethod
     def _pad_admission(cls, batch, floor: int | None = None):
         """Power-of-two bucket padding with the admission batch floor
-        (``floor`` overrides it; padding never touches verdicts)."""
+        (``floor`` overrides it — the SLO geometry profile passes a
+        smaller one while degraded; padding never touches verdicts)."""
         from ..models.flatten import pad_packed, pad_to_buckets_packed
         from dataclasses import replace
 
@@ -845,6 +870,7 @@ class AdmissionBatcher:
                     self._seen_shapes[cps].add(shape_key)
             s0 = time.perf_counter()
             out = []
+            attrib: dict[tuple, int] = {}
             for b in live_rows:
                 vrow = []
                 clean = True
@@ -853,9 +879,21 @@ class AdmissionBatcher:
                     if v is Verdict.NOT_APPLICABLE:
                         continue
                     vrow.append((ref.policy.name, ref.rule.name, v, ""))
+                    ak = (ref.policy.name, ref.rule.name, v.name)
+                    attrib[ak] = attrib.get(ak, 0) + 1
                     if v not in (Verdict.PASS, Verdict.SKIP):
                         clean = False
                 out.append((CLEAN if clean else ATTENTION, vrow))
+            if attrib:
+                try:
+                    from . import metrics as metrics_mod
+
+                    metrics_mod.record_policy_verdicts(
+                        metrics_mod.registry(),
+                        [(p, r, v, n) for (p, r, v), n in attrib.items()],
+                        lane="block", namespace=namespace)
+                except Exception:
+                    pass
             rec.add_span(trace, "scatter", s0, time.perf_counter(),
                          rows=len(out), lane="stream_block")
             with self._lock:
@@ -1110,8 +1148,15 @@ class AdmissionBatcher:
                                else "kill_switch"))
             v_used = int(raw.dictv.shape[0])
             # bucket the batch shape (pow2 + admission floor) so nearby
-            # batch sizes share one shape bucket and its K6 slots
-            batch, _ = self._pad_admission(raw)
+            # batch sizes share one shape bucket and its K6 slots; the
+            # SLO geometry profile shrinks the floor while degraded
+            try:
+                from . import sloactions
+
+                floor = sloactions.effective_pad_floor(self.PAD_FLOOR)
+            except Exception:
+                floor = self.PAD_FLOOR
+            batch, _ = self._pad_admission(raw, floor=floor)
             if (self.continuous and stream_enabled() and not is_probe
                     and flush_key is not None):
                 # continuous batches keep string-table headroom (>= 25%
@@ -1127,6 +1172,7 @@ class AdmissionBatcher:
             with self._lock:
                 cold = shape_key not in self._seen_shapes.setdefault(cps,
                                                                      set())
+                queue_depth = self._pending_flushes
             if cold and self.cold_flush_fallback and not is_probe:
                 # the first flush of a shape bucket — release the waiters
                 # to the oracle now and let this flush warm the bucket in
@@ -1148,7 +1194,11 @@ class AdmissionBatcher:
             # the window semantics bit for bit.
             if (self.continuous and stream_enabled() and not is_probe
                     and not cold and flush_key is not None
-                    and batch.n > len(items)):
+                    and batch.n > len(items)
+                    and not _slo_geometry_active()):
+                # geometry action suspends late-join grafting: while
+                # degraded the profile trades fill for latency, and a
+                # graft extends exactly the flush we want out the door
                 late_items: list = []
                 with self._lock:
                     lb = self._buckets.get(flush_key)
@@ -1278,6 +1328,11 @@ class AdmissionBatcher:
             flush_cells: dict[str, int] = {}
             flagged_rules: dict[str, int] = {}
             esc: dict[str, int] = {}
+            # per-flush attribution aggregate: (policy, rule, verdict) ->
+            # count, folded into the bounded top-K registry feed at
+            # _note_flush_stats (one recorder call per flush, never one
+            # per cell — the scatter loop stays a dict increment)
+            attrib: dict[tuple, int] = {}
             base_spans = list(ft.spans) if ft is not None else None
             for b, (_, _, fut) in enumerate(items):
                 s0 = time.perf_counter()
@@ -1291,6 +1346,8 @@ class AdmissionBatcher:
                     msg = messages.get((b, ref.rule_index), "")
                     row.append((ref.policy.name, ref.rule.name, v, msg))
                     flush_cells[v.name] = flush_cells.get(v.name, 0) + 1
+                    ak = (ref.policy.name, ref.rule.name, v.name)
+                    attrib[ak] = attrib.get(ak, 0) + 1
                     if v not in (Verdict.PASS, Verdict.SKIP):
                         clean = False
                         flagged_rules[ref.rule.name] = (
@@ -1321,16 +1378,42 @@ class AdmissionBatcher:
                     if base_spans is not None:
                         fut.ktpu_flush_spans = base_spans + [sp]
                     fut.set_result((CLEAN if clean else ATTENTION, row, True))
+            # SLO load-shed annotation: a degraded fleet stamps the
+            # flush trace + a stat counter; verdicts are untouched by
+            # construction. The controller tick rides along so flush
+            # traffic keeps the degradation state machine current (the
+            # state-seconds counter accounts idle stretches separately).
+            try:
+                from . import sloactions
+                from .slo import watchdog
+
+                sloactions.controller().maybe_tick()
+                ann = watchdog().annotation(max_age_s=1.0)
+                if ann is not None:
+                    if ft is not None:
+                        ft.labels.update(ann)
+                    with self._lock:
+                        self.stats["slo_degraded_flushes"] = (
+                            self.stats.get("slo_degraded_flushes", 0) + 1)
+            except Exception:
+                pass
             self._note_flush_stats(len(items), host_resolved, flush_cells,
                                    flagged_rules, esc, n_hits=n_hits,
                                    n_miss=n_miss,
+                                   queue_depth=queue_depth,
                                    overlap_s=overlap_s,
                                    host_prefetch_cells=(
                                        host_pf.applied_cells
                                        if host_pf is not None else 0),
                                    host_overlap_s=(
                                        host_pf.overlap_s()
-                                       if host_pf is not None else 0.0))
+                                       if host_pf is not None else 0.0),
+                                   batch_fill=(len(items) / batch.n
+                                               if batch.n else 0.0),
+                                   attrib=attrib,
+                                   namespace=(flush_key[2]
+                                              if flush_key else None),
+                                   flush_s=time.monotonic() - t0)
         except Exception:
             # the waiters still get an answer (ATTENTION: the oracle
             # lane), but a failed flush is counted and logged, never
@@ -1435,11 +1518,17 @@ class AdmissionBatcher:
     def _note_flush_stats(self, batch_size: int, host_resolved: int,
                           flush_cells: dict, flagged_rules: dict,
                           esc: dict, n_hits: int = 0, n_miss: int = 0,
+                          queue_depth: int = 0,
                           overlap_s: float = 0.0,
                           host_prefetch_cells: int = 0,
-                          host_overlap_s: float = 0.0) -> None:
-        """Fold one flush's diagnostics into stats (the routing split
-        must be observable, not just in bench output)."""
+                          host_overlap_s: float = 0.0,
+                          batch_fill: float = 0.0,
+                          attrib: dict | None = None,
+                          namespace: str | None = None,
+                          flush_s: float = 0.0) -> None:
+        """Fold one flush's diagnostics into stats + the metrics registry
+        (the routing split must be observable, not just in bench
+        output)."""
         with self._lock:
             if host_resolved:
                 self.stats["host_cells_resolved"] = (
@@ -1479,11 +1568,16 @@ class AdmissionBatcher:
         # all lookups) — the number that must stay high through a
         # policy-update storm
         memo = self._row_cache.stats()
+        host_memo_delta = (0, 0)
         try:
             from .hostlane import host_cache
 
             hc = host_cache().stats()
             with self._lock:
+                last = getattr(self, "_host_memo_last", (0, 0))
+                host_memo_delta = (hc["hits"] - last[0],
+                                   hc["misses"] - last[1])
+                self._host_memo_last = (hc["hits"], hc["misses"])
                 # process-wide host-verdict memo traffic, mirrored into
                 # stats as absolute totals (bench reads the delta)
                 self.stats["host_memo_hit"] = hc["hits"]
@@ -1494,6 +1588,41 @@ class AdmissionBatcher:
             self.stats["flatten_memo_survival_ratio"] = (
                 memo["survival_ratio"])
             self.stats["flatten_memo_extended_rows"] = memo["extended"]
+        try:
+            from . import metrics as metrics_mod
+
+            reg = metrics_mod.registry()
+            metrics_mod.record_flush_batch(reg, batch_size,
+                                           host_resolved=host_resolved)
+            for k, n in esc.items():
+                metrics_mod.record_screen_escalation(reg, k, n)
+            metrics_mod.record_flatten_rows(reg, hits=n_hits, misses=n_miss)
+            if overlap_s > 0:
+                metrics_mod.record_pipeline_overlap(reg, overlap_s)
+            metrics_mod.record_flush_queue_depth(reg, queue_depth)
+            if batch_fill > 0:
+                metrics_mod.record_stream_gauges(reg,
+                                                 inflight_fill=batch_fill)
+            if memo["hits"] or memo["misses"]:
+                metrics_mod.record_memo_survival(reg,
+                                                 memo["survival_ratio"])
+            metrics_mod.record_host_lane(
+                reg, prefetch_cells=host_prefetch_cells,
+                memo_hits=max(0, host_memo_delta[0]),
+                memo_misses=max(0, host_memo_delta[1]),
+                overlap_s=host_overlap_s)
+            # per-policy attribution (bounded top-K + __other__) and
+            # per-policy flush-latency observations — one call per
+            # flush, fed from the scatter loop's aggregate
+            if attrib:
+                metrics_mod.record_policy_verdicts(
+                    reg, [(p, r, v, n) for (p, r, v), n in attrib.items()],
+                    lane="flush", namespace=namespace)
+                if flush_s > 0:
+                    metrics_mod.record_policy_flush_latency(
+                        reg, {p for (p, _, _) in attrib}, flush_s)
+        except Exception:
+            pass
 
     def stop(self) -> None:
         with self._lock:

@@ -69,6 +69,86 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
     _S("KTPU_TRACE", "kyverno_tpu_torch.runtime.tracing",
        "tests/test_torch_pipeline.py", "1",
        "span recorder"),
+    _S("KTPU_PROPAGATE", "kyverno_tpu_torch.runtime.tracing",
+       "tests/test_torch_planes.py", "1",
+       "cross-process trace-context propagation"),
+    _S("KTPU_ATTRIB", "kyverno_tpu_torch.runtime.tracing",
+       "tests/test_torch_planes.py", "1",
+       "per-policy attribution metrics"),
+    _S("KTPU_ATTRIB_TOP_K", "kyverno_tpu_torch.runtime.metrics",
+       "tests/test_torch_planes.py", "64",
+       "distinct (policy, rule) series before attribution overflow"),
+    _S("KTPU_SLO", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "1",
+       "SLO burn-rate watchdog (observation only)"),
+    _S("KTPU_SLO_BUDGET_S", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "10.0",
+       "admission deadline budget in seconds"),
+    _S("KTPU_SLO_WINDOW_SHORT_S", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "60",
+       "short burn window in seconds"),
+    _S("KTPU_SLO_WINDOW_LONG_S", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "600",
+       "long burn window in seconds"),
+    _S("KTPU_SLO_BURN_DEGRADED", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "1.0",
+       "burn-rate threshold for the degraded state"),
+    _S("KTPU_SLO_MIN_SAMPLES", "kyverno_tpu_torch.runtime.slo",
+       "tests/test_torch_planes.py", "8",
+       "samples before a burn window votes"),
+    # -- SLO degradation plane (closed-loop actions; annotate-only when
+    #    the master switch is off)
+    _S("KTPU_SLO_ACTIONS", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "0",
+       "master switch for closed-loop SLO degradation actions"),
+    _S("KTPU_SLO_SHED", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "shed low-severity enforce policies while degraded"),
+    _S("KTPU_SLO_SHED_MAX", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "max policies in the shed set"),
+    _S("KTPU_SLO_GEOMETRY", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "latency-optimized batcher geometry profile while degraded"),
+    _S("KTPU_SLO_WINDOW_FACTOR", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "0.25",
+       "coalescing/late-join window multiplier under the geometry action"),
+    _S("KTPU_SLO_PAD_FLOOR", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "8",
+       "admission pad floor under the geometry action"),
+    _S("KTPU_SLO_HOSTBOUND", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "bound host-lane fan-out + guard OraclePool submissions"),
+    _S("KTPU_SLO_FANOUT_MAX", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "2",
+       "host-lane fan-out cap while the hostbound action is engaged"),
+    _S("KTPU_SLO_POOL_TIMEOUT_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "0.5",
+       "OraclePool submission timeout while degraded"),
+    _S("KTPU_SLO_POOL_RETRIES", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "bounded retries for a missed guarded pool submission"),
+    _S("KTPU_SLO_BREAKER_THRESHOLD", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "3",
+       "consecutive pool failures before the circuit opens"),
+    _S("KTPU_SLO_BREAKER_COOLDOWN_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "5.0",
+       "open-circuit cooldown before a half-open probe"),
+    _S("KTPU_SLO_SCALE_HINTS", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1",
+       "emit replica scale hints on /healthz while degraded"),
+    _S("KTPU_SLO_DEGRADE_AFTER_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "0.5",
+       "sustained degraded signal before the controller degrades"),
+    _S("KTPU_SLO_RECOVER_AFTER_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "3.0",
+       "sustained healthy signal before the controller recovers"),
+    _S("KTPU_SLO_MIN_DWELL_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "1.0",
+       "minimum dwell in either state (flap suppression)"),
+    _S("KTPU_SLO_TICK_S", "kyverno_tpu_torch.runtime.sloactions",
+       "tests/test_torch_planes.py", "0.25",
+       "controller tick period / rate limit for maybe_tick"),
 )}
 
 
@@ -95,3 +175,7 @@ def enabled_strict(name: str) -> bool:
 
 def int_value(name: str) -> int:
     return int(raw(name))
+
+
+def float_value(name: str) -> float:
+    return float(raw(name))

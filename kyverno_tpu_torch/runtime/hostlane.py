@@ -62,11 +62,6 @@ def fanout_enabled() -> bool:
     return featureplane.enabled("KTPU_HOST_FANOUT")
 
 
-# a pool resolution's timeout: the JAX package's default, the one its
-# host lane passes with the SLO actions plane off
-POOL_TIMEOUT_S = 3.0
-
-
 _cache: HostVerdictCache | None = None
 _cache_lock = threading.Lock()
 
@@ -304,17 +299,31 @@ class HostLaneResolver:
         parent = tracing.current()
         if fanout_enabled() and len(items) > 1:
             ex = self.executor()
+            # SLO hostbound action (runtime/sloactions.py): while
+            # degraded, at most ``bound`` resolutions are in flight at
+            # once — submission stays in order and scatter still runs
+            # on the calling thread, so results are byte-identical to
+            # the unbounded fan-out; only the concurrency shrinks
+            from . import sloactions
+
+            bound = sloactions.fanout_bound()
             with self._lock:
                 self.stats["fanout_batches"] += 1
-            futs = [(b, ex.submit(self.resolve_resource, cps,
-                                  resources[b], rows, ctx(b), parent))
-                    for b, rows in items]
-            for b, fut in futs:
-                try:
-                    oracle = fut.result()
-                except Exception:
-                    continue
-                resolved += _scatter(verdicts, b, oracle, messages_out)
+                if bound is not None:
+                    self.stats["fanout_bounded_batches"] = (
+                        self.stats.get("fanout_bounded_batches", 0) + 1)
+            chunk = bound if bound is not None else len(items)
+            for start in range(0, len(items), max(1, chunk)):
+                futs = [(b, ex.submit(self.resolve_resource, cps,
+                                      resources[b], rows, ctx(b), parent))
+                        for b, rows in items[start:start + max(1, chunk)]]
+                for b, fut in futs:
+                    try:
+                        oracle = fut.result()
+                    except Exception:
+                        continue
+                    resolved += _scatter(verdicts, b, oracle,
+                                         messages_out)
         else:
             for b, rows in items:
                 oracle = self.resolve_resource(cps, resources[b], rows,
@@ -374,6 +383,23 @@ class HostLaneResolver:
             trace, "host_resolve_row", r0, time.perf_counter(),
             cells=len(rule_rows), memo_hits=n_memo_hits,
             misses=len(misses), lane=lane)
+        if out:
+            try:
+                from . import metrics as metrics_mod
+
+                agg: dict[tuple, int] = {}
+                for r, (v, _msg) in out.items():
+                    ref = cps.rule_refs[r]
+                    ak = (ref.policy.name, ref.rule.name, v.name)
+                    agg[ak] = agg.get(ak, 0) + 1
+                metrics_mod.record_policy_verdicts(
+                    metrics_mod.registry(),
+                    [(p, rn, vn, n) for (p, rn, vn), n in agg.items()],
+                    lane=f"host_{lane}",
+                    namespace=(resource or {}).get("metadata",
+                                                   {}).get("namespace"))
+            except Exception:
+                pass
         return out
 
     def _oracle_misses(self, cps, resource: dict, rule_rows: list[int],
@@ -408,8 +434,16 @@ class HostLaneResolver:
             if id(policy) not in live_ids or not _policy_pure(policy):
                 return None
             policies[policy.name] = policy
-        results = pool.evaluate_payload(list(policies), resource, context,
-                                        timeout_s=POOL_TIMEOUT_S)
+        # guarded submission (runtime/sloactions.py): timeout/retry and
+        # circuit breaking while the SLO actions plane is live; a plain
+        # default-timeout call when KTPU_SLO_ACTIONS=0
+        from . import sloactions
+
+        names = list(policies)
+        results = sloactions.pool_evaluate(
+            pool, gen,
+            lambda timeout_s: pool.evaluate_payload(
+                names, resource, context, timeout_s=timeout_s))
         if results is None:
             return None
         rows = {(pname, rname): (status, msg)
@@ -427,6 +461,14 @@ class HostLaneResolver:
                 out[r] = (_STATUS_TO_VERDICT[RuleStatus(cell[0])], cell[1])
         with self._lock:
             self.stats["pool_cells"] += len(rule_rows)
+        # the worker payload carried the admission's traceparent (the
+        # webhook stamps it into the context payload); label the
+        # resolving trace so the cross-process hop stays attributable
+        tp = context.get("traceparent")
+        if tp:
+            trace = tracing.current()
+            if trace is not None:
+                trace.labels.setdefault("pool_traceparent", str(tp))
         return out
 
 

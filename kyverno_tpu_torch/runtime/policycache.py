@@ -6,18 +6,21 @@ of each (kind, type, namespace) population, rebuilt lazily on change and
 incrementally by default (one ``IncrementalCompiler`` per population):
 the admission batcher's compiled sets, each on the cache's device.
 
-The JAX package's warn-only admission lint and its compile metrics come
-with the analysis and metrics planes; the compile bookkeeping
-(``compile_stats``, ``compile_totals``) is here.
+The JAX package's warn-only admission lint comes with the analysis
+plane; the compile bookkeeping (``compile_stats``, ``compile_totals``)
+and its churn metrics are here.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from enum import IntFlag
 
 from ..api.types import ClusterPolicy
+
+logger = logging.getLogger(__name__)
 
 
 class PolicyType(IntFlag):
@@ -219,7 +222,9 @@ class PolicyCache:
 
     def _note_compile(self, mode: str, seconds: float, pop: tuple,
                       cps, refresh: dict | None) -> None:
-        """Compile accounting: the last compile and cumulative totals."""
+        """Compile accounting: cache-local stats for bench/tests plus the
+        churn metrics (never raises — observability must not take down
+        admission)."""
         refresh = refresh or {}
         reused = int(refresh.get("reused", 0))
         recompiled = int(refresh.get("recompiled", 0))
@@ -235,3 +240,15 @@ class PolicyCache:
         self.compile_totals[f"{mode}_s"] += seconds
         self.compile_totals["segments_spliced"] += reused
         self.compile_totals["segments_recompiled"] += recompiled
+        try:
+            from .metrics import (record_dict_epoch, record_policy_compile,
+                                  record_segments_spliced, registry)
+
+            reg = registry()
+            record_policy_compile(reg, seconds, mode)
+            if mode == "incremental":
+                record_segments_spliced(reg, reused)
+                record_dict_epoch(reg, "/".join(str(p) for p in pop),
+                                  cps.tensors.dict_epoch)
+        except Exception:
+            logger.exception("compile metrics recording failed")

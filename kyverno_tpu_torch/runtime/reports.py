@@ -8,8 +8,7 @@ reportcontroller.go:501 aggregateReports) and deletes consumed requests.
 
 A cluster client is any object with ``get_resource``, ``create_resource``,
 ``update_resource``, ``list_resource`` and ``delete_resource``; without
-one the requests stay in an in-process list. The JAX package's gauges of
-the report queue (its metrics plane) are not here.
+one the requests stay in an in-process list.
 """
 
 from __future__ import annotations
@@ -131,9 +130,23 @@ class ReportGenerator:
             self._queue.append(rcr)
             self._ensure_writer()
             self._writer_wake.set()
+            self._note_depth()
             return
         with self._lock:
             self._pending.append(rcr)
+        self._note_depth()
+
+    def _note_depth(self) -> None:
+        """Gauge the CR-writer queue and the in-process pending list —
+        the report-pipeline backlog an operator watches during scans."""
+        try:
+            from . import metrics as metrics_mod
+
+            metrics_mod.record_report_queue_depth(
+                metrics_mod.registry(), queued=len(self._queue),
+                pending=len(self._pending))
+        except Exception:
+            pass
 
     # --------------------------------------------------- async CR writer
 
@@ -375,4 +388,5 @@ class ReportGenerator:
                         "kyverno.io/v1alpha2", kind, ns, name)
                 except Exception:
                     pass
+        self._note_depth()
         return reports

@@ -1,17 +1,197 @@
-"""Content-addressed caches of the host side.
+"""Caches of the host side.
+
+:class:`ResourceCache` is the watch-maintained read-through lister per
+GVK (upstream Kyverno's pkg/resourcecache: per-kind caches created on
+demand, kept in sync by the cluster watch stream when the client provides
+one — ``FakeCluster.watch``, or a ``RestClient``'s informers — and TTL
+resync otherwise). The webhook reads namespace labels and ConfigMaps
+through it, so steady-state admission does no synchronous API GETs.
 
 :class:`FlattenRowCache` is the admission batcher's flatten-row memo
 (its :meth:`~FlattenRowCache.digest` is the canonical body digest both
-caches key on), and :class:`HostVerdictCache` memoizes the CPU oracle's
-verdicts for HOST cells. The JAX package's watch-maintained
-``ResourceCache`` (the cluster informer cache) comes with the client and
-the webhook.
+content-addressed caches key on), and :class:`HostVerdictCache` memoizes
+the CPU oracle's verdicts for HOST cells.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+
+
+class _Entry:
+    __slots__ = ("resource", "stamp", "pending")
+
+    def __init__(self, resource: dict | None, stamp: float,
+                 pending: bool = False):
+        self.resource = resource          # None caches a confirmed absence
+        self.stamp = stamp
+        self.pending = pending            # read-through fetch in flight
+
+
+class ResourceCache:
+    """pkg/resourcecache ResourceCache."""
+
+    def __init__(self, client, resync_s: float = 60.0,
+                 informer_sync_timeout_s: float = 10.0):
+        self.client = client
+        self.resync_s = resync_s
+        self.informer_sync_timeout_s = informer_sync_timeout_s
+        self._lock = threading.Lock()
+        self._informer_create_lock = threading.Lock()
+        self._entries: dict[tuple, _Entry] = {}
+        self._watching = False
+        self._informed: dict[tuple, object] = {}  # (apiVersion, kind) -> Reflector
+        self._event_kinds: set[str] = set()       # kinds with events flowing
+        self._sync_waited: set[tuple] = set()
+        self.lookups = 0
+        self.fetches = 0
+        if client is not None and hasattr(client, "watch"):
+            client.watch(self._on_event)
+            self._watching = True
+
+    @staticmethod
+    def _key(kind: str, namespace: str, name: str) -> tuple:
+        return (kind, namespace or "", name)
+
+    def _on_event(self, event: str, resource: dict) -> None:
+        meta = resource.get("metadata") or {}
+        kind = resource.get("kind", "")
+        key = self._key(kind, meta.get("namespace", ""),
+                        meta.get("name", ""))
+        with self._lock:
+            # informer-watched kinds hold complete state: upsert every
+            # event; the global FakeCluster watch only maintains keys a
+            # reader already populated
+            if key not in self._entries and kind not in self._event_kinds:
+                return
+            if event == "DELETED":
+                self._entries[key] = _Entry(None, time.monotonic())
+            else:
+                self._entries[key] = _Entry(resource, time.monotonic())
+
+    def _on_informer_sync(self, kind: str, items: list[dict]) -> None:
+        """Full re-list for an informed kind: replace that kind's slice of
+        the cache wholesale (objects deleted during a watch outage must
+        not survive the re-list)."""
+        now = time.monotonic()
+        with self._lock:
+            for key in [k for k in self._entries if k[0] == kind]:
+                del self._entries[key]
+            for r in items:
+                meta = r.get("metadata") or {}
+                key = self._key(kind, meta.get("namespace", ""),
+                                meta.get("name", ""))
+                self._entries[key] = _Entry(r, now)
+
+    def _ensure_informer(self, api_version: str, kind: str):
+        """First lookup of a kind on an informer-capable client starts its
+        reflector (resourcecache.go CreateGVKInformer) and waits for the
+        initial list; after that every lookup of the kind is a pure cache
+        read — including confirmed absences — with zero polling GETs."""
+        gvk = (api_version, kind)
+        with self._lock:
+            refl = self._informed.get(gvk)
+        if refl is not None:
+            return refl
+        # ensure_informer may synchronously replay on_sync when the shared
+        # WatchHub already holds a synced reflector for this GVK, and
+        # _on_informer_sync takes self._lock — so the call must happen
+        # OUTSIDE self._lock (non-reentrant: holding it here deadlocks the
+        # admission thread). A separate creation mutex keeps the register
+        # single-shot per GVK without involving self._lock.
+        with self._informer_create_lock:
+            with self._lock:
+                refl = self._informed.get(gvk)
+                if refl is None:
+                    # open the event gate BEFORE registering: the hub
+                    # starts delivering events the moment callbacks are in,
+                    # and _on_event must not drop them (a dropped ADDED
+                    # reads back as a confirmed absence until a re-list)
+                    self._event_kinds.add(kind)
+            if refl is not None:
+                return refl
+            refl = self.client.ensure_informer(
+                api_version, kind,
+                on_event=self._on_event,
+                on_sync=lambda items, k=kind: self._on_informer_sync(
+                    k, items))
+            with self._lock:
+                self._informed[gvk] = refl
+        return refl
+
+    def get(self, api_version: str, kind: str, namespace: str,
+            name: str) -> dict | None:
+        """Lister get: cache hit while watch-fresh (or within the resync
+        window), read-through to the client otherwise."""
+        self.lookups += 1
+        key = self._key(kind, namespace, name)
+        if self.client is not None and hasattr(self.client, "ensure_informer"):
+            refl = self._ensure_informer(api_version, kind)
+            # block for the initial list only once per GVK — a reflector
+            # that cannot sync (RBAC-forbidden list, degraded apiserver)
+            # must not turn every lookup into a 10s stall; later lookups
+            # check non-blocking and read through until it recovers
+            gvk = (api_version, kind)
+            first = gvk not in self._sync_waited
+            self._sync_waited.add(gvk)
+            if refl.wait_synced(self.informer_sync_timeout_s if first
+                                else 0):
+                with self._lock:
+                    entry = self._entries.get(key)
+                    # complete state for this kind: a missing key IS a
+                    # confirmed absence, no GET needed
+                    return entry.resource if entry is not None else None
+            # informer not synced (apiserver hiccup): read through below
+        now = time.monotonic()
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is not None and not entry.pending and (
+                    self._watching or now - entry.stamp < self.resync_s):
+                return entry.resource
+            # reserve the key BEFORE fetching so a watch event arriving
+            # while the GET is in flight is captured (and wins below);
+            # concurrent readers share the first reader's reservation
+            # instead of overwriting it
+            pending = None
+            if entry is None or not entry.pending:
+                pending = _Entry(None, now, pending=True)
+                self._entries[key] = pending
+        if self.client is None:
+            with self._lock:
+                if pending is not None and self._entries.get(key) is pending:
+                    del self._entries[key]
+            return None
+        self.fetches += 1
+        resource = self.client.get_resource(api_version, kind, namespace, name)
+        with self._lock:
+            current = self._entries.get(key)
+            if pending is not None and current is pending:
+                self._entries[key] = _Entry(resource, now)
+                return resource
+            if current is not None and not current.pending:
+                # a watch event landed during the GET: it is fresher
+                return current.resource
+            # another reader still owns the reservation; our fetched copy
+            # is the answer for THIS call either way
+            return resource
+
+    def get_namespace_labels(self, namespace: str) -> dict:
+        ns = self.get("v1", "Namespace", "", namespace)
+        if not ns:
+            return {}
+        return (ns.get("metadata") or {}).get("labels") or {}
+
+    def get_configmap(self, namespace: str, name: str) -> dict | None:
+        return self.get("v1", "ConfigMap", namespace, name)
+
+    def invalidate(self, kind: str = "", namespace: str = "",
+                   name: str = "") -> None:
+        with self._lock:
+            if not kind:
+                self._entries.clear()
+            else:
+                self._entries.pop(self._key(kind, namespace, name), None)
 
 
 class FlattenRowCache:

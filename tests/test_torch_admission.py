@@ -347,6 +347,22 @@ def test_flush_without_a_device_row_is_counted(caches, caplog):
         stop(b)
 
 
+def test_cold_flush_releases_its_waiter_on_both_packages(caches):
+    """With ``cold_flush_fallback`` on, the first flush of a new shape
+    bucket releases its waiter to the oracle lane on either package:
+    (ATTENTION, []). The port counts the release once in
+    ``cold_release`` and the waiter once in ``flush_fallback`` (the JAX
+    package counts neither), and no failed flush."""
+    def run(b):
+        return screen(b, pod("nginx:latest", "cold")), dict(b.stats)
+
+    got = both(caches, run, cold_flush_fallback=True)
+    assert got["torch"][0] == got["jax"][0] == (ATTENTION, [])
+    stats = got["torch"][1]
+    assert (stats.get("cold_release"), stats.get("flush_fallback"),
+            stats.get("flush_error")) == (1, 1, None)
+
+
 def test_result_cache_hit_and_expiry(caches):
     def run(b):
         first = screen(b, pod("nginx:latest"))

@@ -24,7 +24,7 @@ from kyverno_tpu.api.load import load_policy as jax_load_policy
 from kyverno_tpu.parallel import make_mesh as jax_make_mesh
 from kyverno_tpu.parallel import mesh as jax_mesh_mod
 from kyverno_tpu.runtime.background import BackgroundScanner as JaxScanner
-from kyverno_tpu.runtime.client import FakeCluster
+from kyverno_tpu.runtime.client import FakeCluster as JaxFakeCluster
 from kyverno_tpu.runtime.hostlane import host_cache as jax_host_cache
 from kyverno_tpu.runtime.reports import ReportGenerator as JaxReports
 from kyverno_tpu_torch.api.load import load_policy as torch_load_policy
@@ -32,6 +32,7 @@ from kyverno_tpu_torch.parallel import make_mesh
 from kyverno_tpu_torch.parallel import mesh as mesh_mod
 from kyverno_tpu_torch.runtime import hostlane
 from kyverno_tpu_torch.runtime.background import BackgroundScanner
+from kyverno_tpu_torch.runtime.client import FakeCluster
 from kyverno_tpu_torch.runtime.reports import ReportGenerator
 from tests.torch_parity import corpus_docs, corpus_resources
 from tests.torch_parity import one_torch_thread  # noqa: F401
@@ -183,9 +184,9 @@ def test_scan_lane_matches_jax(monkeypatch, library, lane):
 def test_scan_snapshot_through_a_client(library):
     docs, resources = library
     jpol, tpol = _load(docs)
-    cluster = FakeCluster(copy.deepcopy(resources))
-    sc = BackgroundScanner(tpol, client=cluster, device="cpu")
-    jsc = JaxScanner(jpol, client=cluster)
+    sc = BackgroundScanner(tpol, client=FakeCluster(copy.deepcopy(resources)),
+                           device="cpu")
+    jsc = JaxScanner(jpol, client=JaxFakeCluster(copy.deepcopy(resources)))
     assert "Pod" in sc.kinds()
     got, want = sc.scan(), jsc.scan()
     assert got.resources_scanned > 0
@@ -357,7 +358,7 @@ def test_reports_through_a_cluster_client(library):
     jpol, tpol = _load(docs[:20])
     tres = BackgroundScanner(tpol, device="cpu").scan(resources[:12]).responses
     jres = JaxScanner(jpol).scan(resources[:12]).responses
-    clusters = (FakeCluster(), FakeCluster())
+    clusters = (FakeCluster(), JaxFakeCluster())
     trep, jrep = (ReportGenerator(client=clusters[0]),
                   JaxReports(client=clusters[1]))
     try:

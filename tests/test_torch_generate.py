@@ -1,6 +1,6 @@
 """The generate engine on both packages: ``generate`` (the admission-time
 filter) and ``apply_generate_rule`` (``data`` and ``clone``
-materialization) against the test's own client and the JAX package's
+materialization) against the test's own client and each package's
 ``FakeCluster``.
 
 Every case of tests/unit/test_generation.py's generate classes runs on the
@@ -20,17 +20,20 @@ import kyverno_tpu_torch.engine.generation as generation
 from kyverno_tpu.api.load import load_policy as jax_load_policy
 from kyverno_tpu.engine.context import Context as JaxContext
 from kyverno_tpu.engine.policy_context import PolicyContext as JaxPolicyContext
-from kyverno_tpu.runtime.client import FakeCluster
+from kyverno_tpu.runtime.client import FakeCluster as JaxFakeCluster
 from kyverno_tpu_torch.api.load import load_policy
 from kyverno_tpu_torch.engine.context import Context
 from kyverno_tpu_torch.engine.policy_context import PolicyContext
 from kyverno_tpu_torch.engine.response import RuleStatus
+from kyverno_tpu_torch.runtime.client import FakeCluster
 from kyverno_tpu_torch.utils.jsoncopy import json_copy
 
 JAX = SimpleNamespace(load=jax_load_policy, Context=JaxContext,
-                      PolicyContext=JaxPolicyContext, gen=jax_generation)
+                      PolicyContext=JaxPolicyContext, gen=jax_generation,
+                      FakeCluster=JaxFakeCluster)
 PORT = SimpleNamespace(load=load_policy, Context=Context,
-                       PolicyContext=PolicyContext, gen=generation)
+                       PolicyContext=PolicyContext, gen=generation,
+                       FakeCluster=FakeCluster)
 
 
 class FakeClient:
@@ -144,12 +147,12 @@ def generate_both(policy_doc, resource, old=None):
 
 def apply_both(policy_doc, trigger, make_client):
     """``apply_generate_rule`` of the policy's first rule on each package,
-    each with a client of its own from ``make_client()``; the port's
-    (resource, mode), after holding it to the JAX one's (the same bytes
-    as JSON)."""
+    each with a client of its own from ``make_client(package)``; the
+    port's (resource, mode), after holding it to the JAX one's (the same
+    bytes as JSON)."""
     out = []
     for pkg in (PORT, JAX):
-        client = make_client()
+        client = make_client(pkg)
         ctx = make_ctx(pkg, policy_doc, trigger, client=client)
         out.append(pkg.gen.apply_generate_rule(
             ctx.policy.spec.rules[0], ctx, json_copy(trigger), client))
@@ -206,7 +209,7 @@ EXISTING_NETPOL = {("NetworkPolicy", "team-a", "default-deny"):
 ], ids=["data-create", "data-update", "clone", "self-clone"])
 def test_apply_generate_rule(policy, resources, mode):
     resource, got_mode = apply_both(
-        policy, NAMESPACE, lambda: FakeClient(json_copy(resources)))
+        policy, NAMESPACE, lambda pkg: FakeClient(json_copy(resources)))
     assert got_mode == mode
     if mode == generation.MODE_SKIP:
         assert resource is None
@@ -229,25 +232,27 @@ def test_apply_generate_rule(policy, resources, mode):
 def test_apply_generate_rule_over_fake_cluster():
     """A clone whose target exists (the target's own fields kept, an
     update), again after the target's data changed, and offline, against
-    the JAX package's FakeCluster as the client."""
+    each package's FakeCluster as its client."""
     target = json_copy(SECRET)
     target["metadata"].update(namespace="team-a", uid="u9",
                               resourceVersion="3")
     resource, mode = apply_both(
         CLONE_POLICY, NAMESPACE,
-        lambda: FakeCluster([json_copy(SECRET), json_copy(target)]))
+        lambda pkg: pkg.FakeCluster([json_copy(SECRET),
+                                     json_copy(target)]))
     assert mode == generation.MODE_UPDATE
     assert resource["metadata"]["uid"] == "u9"
     # a target whose data differs gets the source's
     target["data"] = {"token": "other"}
     resource, mode = apply_both(
         CLONE_POLICY, NAMESPACE,
-        lambda: FakeCluster([json_copy(SECRET), json_copy(target)]))
+        lambda pkg: pkg.FakeCluster([json_copy(SECRET),
+                                     json_copy(target)]))
     assert mode == generation.MODE_UPDATE and resource["data"] == SECRET["data"]
     # offline (no client): a clone is skipped, data always creates
-    assert apply_both(CLONE_POLICY, NAMESPACE, lambda: None) == \
+    assert apply_both(CLONE_POLICY, NAMESPACE, lambda pkg: None) == \
         (None, generation.MODE_SKIP)
-    resource, mode = apply_both(GEN_POLICY, NAMESPACE, lambda: None)
+    resource, mode = apply_both(GEN_POLICY, NAMESPACE, lambda pkg: None)
     assert mode == generation.MODE_CREATE
 
 

@@ -3,8 +3,10 @@
 package (kyverno_tpu), the package's sources name neither in an import,
 no source of the port (Python, CUDA or C++) names a path under the JAX
 package's ``native/`` or ``kyverno_tpu/`` directories, what an
-oracle-pool worker imports loads no torch, and the generate, verifyImages
-and policy modules load neither PyYAML nor cryptography."""
+oracle-pool worker imports loads no torch, the generate, verifyImages
+and policy modules load neither PyYAML nor cryptography, importing the
+webhook and the observability routes loads no profiling or workload
+module, and no port module imports a fleet module."""
 
 import json
 import os
@@ -80,6 +82,72 @@ def test_slice_10_modules_import_no_yaml_and_no_cryptography():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('yaml', 'cryptography', 'jax', 'jaxlib', 'kyverno_tpu')]\n"
         "print(json.dumps(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+SLICE_11_MODULES = ("runtime.config", "runtime.userinfo",
+                    "runtime.workqueue", "runtime.events", "runtime.metrics",
+                    "runtime.slo", "runtime.sloactions", "runtime.obs_http",
+                    "runtime.watch", "runtime.client", "runtime.auth",
+                    "runtime.webhook", "runtime.tracing",
+                    "runtime.featureplane", "runtime.resourcecache")
+
+
+def test_webhook_modules_are_checked():
+    mods = _port_modules()
+    for m in SLICE_11_MODULES:
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def test_webhook_and_obs_routes_load_no_profiling_or_workload():
+    """``profiling`` and ``workload`` wait for later slices: importing the
+    webhook and the observability routes, and serving /debug/profile and
+    /debug/dryrun, loads no port module of that name, nor jax or the JAX
+    package."""
+    code = (
+        "import json, sys\n"
+        "import kyverno_tpu_torch.runtime.webhook\n"
+        "from kyverno_tpu_torch.runtime import obs_http\n"
+        "for path in ('/metrics', '/healthz', '/debug/traces',\n"
+        "             '/debug/policies', '/debug/profile',\n"
+        "             '/debug/dryrun'):\n"
+        "    obs_http.handle_obs_get(path)\n"
+        "obs_http.handle_obs_post('/debug/dryrun', b'{}')\n"
+        "print(json.dumps([m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'kyverno_tpu')\n"
+        "    or m.split('.')[0] == 'kyverno_tpu_torch' and {'profiling',\n"
+        "    'workload', 'fleet'} & set(m.split('.'))]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_no_port_module_imports_fleet():
+    """The fleet plane waits for a later slice: no source of the port
+    names a ``fleet`` module in an import, and importing every port
+    module loads none."""
+    pkg = os.path.dirname(kyverno_tpu_torch.__file__)
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            for line in open(os.path.join(dirpath, f)):
+                s = line.strip()
+                if s.startswith(("import ", "from ")):
+                    words = s.replace(",", " ").split()
+                    assert not any(w == "fleet" or ".fleet" in w
+                                   or w.startswith("fleet.")
+                                   for w in words), (f, s)
+    mods = _port_modules()
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps([m for m in sys.modules if m.split('.')[0]"
+        " == 'kyverno_tpu_torch' and 'fleet' in m.split('.')]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

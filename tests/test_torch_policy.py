@@ -8,7 +8,8 @@ tests/unit/test_openapi.py and tests/unit/test_crd_sync.py runs on the JAX
 package and on the port with the same inputs: the error lists and the
 converted schemas are equal, and the JAX tests' own expectations hold on
 the port. Each package keeps its own schema registry; a ``CrdSync`` of
-each watches one shared ``FakeCluster`` of the JAX package. The policy
+each watches its own package's ``FakeCluster``, and the tests make the
+same writes to both clusters (``Clusters``). The policy
 webhook's validation steps (``validate_policy``, then
 ``validate_policy_mutation``) stand in for the JAX tests' webhook cases.
 """
@@ -25,8 +26,9 @@ import kyverno_tpu_torch.policy.crd_sync as crd_sync
 import kyverno_tpu_torch.policy.openapi as openapi
 import kyverno_tpu_torch.policy.validation as validation
 from kyverno_tpu.api.load import load_policy as jax_load_policy
-from kyverno_tpu.runtime.client import FakeCluster
+from kyverno_tpu.runtime.client import FakeCluster as JaxFakeCluster
 from kyverno_tpu_torch.api.load import load_policy
+from kyverno_tpu_torch.runtime.client import FakeCluster
 from kyverno_tpu_torch.utils.jsoncopy import json_copy
 
 JAX = SimpleNamespace(load=jax_load_policy, v=jax_validation,
@@ -373,8 +375,35 @@ def test_crd_schema_checks_documents():
             {"kind": "Gadget", "spec": bad}, "Gadget"))
 
 
-def syncs(client):
-    return {"port": PORT.crd.CrdSync(client), "jax": JAX.crd.CrdSync(client)}
+class Clusters:
+    """A port ``FakeCluster`` and a JAX one holding the same resources;
+    every write goes to both."""
+
+    def __init__(self, resources=()):
+        self.port = FakeCluster(json_copy(list(resources)))
+        self.jax = JaxFakeCluster(json_copy(list(resources)))
+
+    def _each(self, op, *args):
+        for c in (self.port, self.jax):
+            getattr(c, op)(*json_copy(list(args)))
+
+    def create_resource(self, doc):
+        self._each("create_resource", doc)
+
+    def update_resource(self, doc):
+        self._each("update_resource", doc)
+
+    def delete_resource(self, *key):
+        self._each("delete_resource", *key)
+
+    def set_openapi_document(self, doc):
+        self.port.openapi_document = json_copy(doc)
+        self.jax.openapi_document = json_copy(doc)
+
+
+def syncs(clients: Clusters):
+    return {"port": PORT.crd.CrdSync(clients.port),
+            "jax": JAX.crd.CrdSync(clients.jax)}
 
 
 def has_both(kind) -> bool:
@@ -384,7 +413,7 @@ def has_both(kind) -> bool:
 
 
 def test_sync_once_registers_crd_kinds():
-    client = FakeCluster([_crd()])
+    client = Clusters([_crd()])
     assert not has_both("Gadget")
     counts = {k: s.sync_once() for k, s in syncs(client).items()}
     assert counts["port"] == counts["jax"] >= 1
@@ -396,7 +425,7 @@ def test_sync_once_registers_crd_kinds():
 
 
 def test_watch_events_register_and_unregister():
-    client = FakeCluster()
+    client = Clusters()
     ss = syncs(client)
     for s in ss.values():
         s.run()                  # FakeCluster: the global watch seam
@@ -412,8 +441,8 @@ def test_watch_events_register_and_unregister():
 
 
 def test_openapi_document_feeds_sync_and_pruning():
-    client = FakeCluster([_crd()])
-    client.openapi_document = json_copy(WIDGET_DOC)
+    client = Clusters([_crd()])
+    client.set_openapi_document(WIDGET_DOC)
     ss = syncs(client)
     for s in ss.values():
         s.sync_once()
@@ -429,7 +458,7 @@ def test_openapi_document_feeds_sync_and_pruning():
 
 
 def test_stopped_sync_is_inert():
-    client = FakeCluster()
+    client = Clusters()
     ss = syncs(client)
     for s in ss.values():
         s.run()
@@ -489,7 +518,7 @@ def test_mutate_policy_against_fresh_crd_is_schema_checked():
             k.load(json_copy(doc))))
 
     assert check(bad) == []
-    client = FakeCluster([_crd()])
+    client = Clusters([_crd()])
     for s in syncs(client).values():
         s.sync_once()
     errs = check(bad)

@@ -442,3 +442,47 @@ def request_resources(n: int) -> list[dict]:
                 ["nginx:latest", "nginx:1.21", "redis:6"])}]
         out.append(pod)
     return out
+
+
+# ------------------------------------------------- mirrored batteries
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_JAX_PACKAGE = re.compile(r"\bkyverno_tpu\b")
+
+
+def mirror_battery(relpath: str, subs=(), drop=()) -> dict:
+    """The port's copy of one of the JAX package's test modules: its
+    source with every ``kyverno_tpu`` import (and dotted string) pointed
+    at ``kyverno_tpu_torch``, then ``subs`` — ``(old, new)`` pairs, each
+    of which must occur, for what the port does differently on purpose
+    (its default device, a renamed span) — run into a module namespace
+    of its own. ``drop`` names the cases (``"Class.test"`` or
+    ``"test"``) whose modules the port does not have yet.
+
+    Returns the objects pytest collects, for the caller's module globals:
+    test functions and classes under names prefixed with the battery's
+    stem (``test_watch_unit__test_x``, ``Test_watch_unit__TestY``), and
+    the battery's module-level fixtures under their own names."""
+    path = os.path.join(ROOT, relpath)
+    with open(path, encoding="utf-8") as f:
+        src = _JAX_PACKAGE.sub("kyverno_tpu_torch", f.read())
+    for old, new in subs:
+        assert old in src, (relpath, old)
+        src = src.replace(old, new)
+    stem = os.path.splitext(os.path.basename(relpath))[0][len("test_"):]
+    ns = {"__name__": f"tests.mirror_{stem}", "__file__": path}
+    exec(compile(src, path, "exec"), ns)
+    for case in drop:
+        owner, _, name = case.rpartition(".")
+        if owner:
+            delattr(ns[owner], name)
+        else:
+            del ns[name]
+    out = {}
+    for name, obj in ns.items():
+        if name.startswith("test_") and callable(obj):
+            out[f"test_{stem}__{name}"] = obj
+        elif name.startswith("Test") and isinstance(obj, type):
+            out[f"Test_{stem}__{name}"] = obj
+        elif hasattr(obj, "_fixture_function_marker"):
+            out[name] = obj
+    return out
