@@ -18,6 +18,7 @@ its plain PyTorch version.
                                          # (keep, or freeze it out of the
                                          # garbage collector)
     python3 chip_smoke.py --webhook      # build + the [webhook] phase alone
+    python3 chip_smoke.py --controller   # build + the [controller] phase alone
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -114,6 +115,30 @@ Phases:
                equal to the serial mutate() chain; a policy through
                /policyvalidate and /policymutate, whose autogen rules are
                the [autogen] steps'; p50, p99 and requests/s a lane
+ 7c. controller the controller process (kyverno_tpu_torch.server): the
+               library (enforce) as ClusterPolicies and 1,000
+               autogen_resource(i) in a FakeCluster, two Controller
+               replicas on it. The leader registers the webhooks, runs
+               the migrations and, kicked by the policy load, scans with
+               the launch counters set to 0 just before: K1 and
+               eval_rules launched, no scan error, the responses stating
+               evaluate()'s resolved matrix of the same policies, the
+               aggregated reports its per-policy totals. 16 threads x 16
+               Pods over HTTP alternating the replicas, each answer equal
+               to an oracle lane's (same_answer). A StreamServer (socket)
+               beside the leader's webhook: 256 JSON frames equal to
+               handle()'s answers, 256 ROW frames equal to the device
+               matrix's rows (or escalated at the screen's deadline,
+               counted), 16 BLOCK frames of 64 rows equal to
+               evaluate_device's, HOST rows escalated; K6 dispatches and
+               launches counted; a donated block's host buffer unchanged;
+               no frame, block or shape error. /debug/profile?seconds=2
+               on the leader during the frames: a torch.profiler trace
+               holding K1's and eval_rules' kernels, the card's busy
+               share in its window, device memory reported. Failover:
+               the leader stops, the follower leads within two retry
+               periods and scans; both stop with their report writers
+               flushed and no non-daemon thread left
   8. mutate    BASELINE config 4 as bench.py runs it, with its two inline
                policies: add-default-labels over 50,000 Pods (a kind-only
                gate, which the lane router sends to the host), then
@@ -210,6 +235,7 @@ the exit code is not 0; with no CUDA device it exits 2 before any phase.
 
 import argparse
 import base64
+import faulthandler
 import gc
 import hashlib
 import json
@@ -1944,20 +1970,23 @@ def webhook_client(port: int, bodies: list, path: str = "/validate",
     return out
 
 
-def webhook_burst(port: int, bodies: list, threads: int,
+def webhook_burst(port, bodies: list, threads: int,
                   path: str = "/validate", traced: bool = False
                   ) -> tuple[float, list]:
     """``threads`` clients, each on a keep-alive connection of its own
     with an equal slice of ``bodies``, started together; (wall seconds,
-    answers)."""
+    answers). ``port`` may be a list: client ``w`` then talks to
+    ``port[w % len(port)]``."""
+    ports = port if isinstance(port, list) else [port]
     per = -(-len(bodies) // threads)
     start = threading.Barrier(threads)
     results: list = [None] * threads
 
     def client(w):
         start.wait()
-        results[w] = webhook_client(port, bodies[w * per:(w + 1) * per],
-                                    path, traced)
+        results[w] = webhook_client(ports[w % len(ports)],
+                                    bodies[w * per:(w + 1) * per], path,
+                                    traced)
 
     ws = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
     t0 = time.perf_counter()
@@ -2376,6 +2405,528 @@ def webhook_phase(library_docs: list, quick: bool = False) -> dict:
         if mutator is not None:
             mutator.stop()
         hostlane.resolver().attach_pool(None, None)
+    return out
+
+
+CONTROLLER_RESOURCES = 1_000
+STREAM_JSON, STREAM_ROWS = 256, 256
+STREAM_BLOCKS, STREAM_BLOCK_ROWS = 16, 64
+PROFILE_S = 2.0
+SCAN_WAIT_S = 300.0
+MIGRATION_GR = {
+    "apiVersion": "kyverno.io/v1", "kind": "GenerateRequest",
+    "metadata": {"name": "gr-before-labels", "namespace": "kyverno"},
+    "spec": {"policy": "an-older-policy",
+             "resource": {"apiVersion": "v1", "kind": "Namespace",
+                          "name": "team-a", "namespace": ""}},
+    "status": {"state": "Completed"}}
+
+
+def stream_burst(fn, items: list, threads: int = 16) -> tuple:
+    """``fn(item)`` for every item from ``threads`` threads sharing one
+    stream client (so that ``threads`` frames are in flight on its one
+    connection); (wall seconds, [(ms, answer)] in item order)."""
+    out: list = [None] * len(items)
+    nxt = iter(range(len(items)))
+    lock = threading.Lock()
+    errors: list = []
+
+    def worker():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                ans = fn(items[i])
+            except Exception as e:           # raised below, on this thread
+                errors.append(e)
+                return
+            out[i] = ((time.perf_counter() - t0) * 1e3, ans)
+
+    ws = [threading.Thread(target=worker) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for w in ws:
+        w.start()
+    for w in ws:
+        w.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, out
+
+
+def device_rows(cps, m: np.ndarray) -> list:
+    """The stream plane's verdict list of each row of a device matrix:
+    [policy, rule, verdict, ""] for every applicable cell, rule order."""
+    return [[[ref.policy.name, ref.rule.name, int(row[ref.rule_index]), ""]
+             for ref in cps.rule_refs if row[ref.rule_index] != 0]
+            for row in m]
+
+
+def flush_traces(rec) -> list:
+    return [tr for tr in rec.traces(8192) if tr.kind == "flush"
+            and {"device_dispatch", "cold_dispatch"} & tr.stage_names()]
+
+
+def frame_line(label: str, timed: list, wall: float) -> str:
+    p50, p99 = percentiles([t[0] for t in timed])
+    return (f"{label}: {len(timed)} frames, p50 {p50:.3f} ms, p99 "
+            f"{p99:.3f} ms, {len(timed) / wall:.1f} frames/s ({wall:.3f} s)")
+
+
+def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
+    """[controller]: the controller process on the card. A port
+    FakeCluster holds the library (enforce) as ClusterPolicies, ``n``
+    autogen_resource(i) and a GenerateRequest without its labels. Two
+    Controller replicas (serve_port=0, no TLS) on it: the first leads,
+    registers the webhooks, runs the migrations and scans, the policy
+    load having kicked its scan loop; with the launch counters set to 0
+    before it and read after, the scan launches K1 and eval_rules, ends
+    with no scan error, its responses state evaluate()'s resolved matrix
+    of the same policies over the same resources, and the reports it
+    aggregates hold that matrix's per-policy totals. The second replica
+    then starts and follows. HTTP: 16 threads x 16 distinct Pods, threads
+    alternating between the replicas, every answer equal to an oracle
+    lane's (same_answer). Stream: a StreamServer (socket) beside the
+    leader's webhook and one StreamClient; 256 JSON frames, each answer
+    equal to the webhook's own handle() and to the oracle lane's (under
+    same_answer's rule); 256 ROW frames, each verdict row the device
+    matrix's row (a frame whose flush missed the screen's deadline
+    escalates with none, and is counted as a stream timeout); 16 BLOCK
+    frames of 64 rows tokenized with the leader's compiled set, each row
+    evaluate_device's, a row with a HOST cell escalated; no frame, block or shape error; K6 dispatches and the
+    launches counted; a donated block's host buffer unchanged. A
+    /debug/profile capture of 2 s on the leader during the frames, its
+    trace holding K1's and eval_rules' kernels, and the card's busy share
+    in its window; device memory reported. Failover: the leader stops and
+    releases its lease, the follower leads within two retry periods and
+    scans; both stop, the report writers flushed, no non-daemon thread
+    left. Returns the launches of the scan and the stream."""
+    import urllib.request
+
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.models import CompiledPolicySet, Verdict, engine
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.policy.autogen import mutate_policy_for_autogen
+    from kyverno_tpu_torch.runtime import hostlane, metrics, profiling, tracing
+    from kyverno_tpu_torch.runtime.client import FakeCluster
+    from kyverno_tpu_torch.runtime.leaderelection import RETRY_PERIOD_S
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
+    from kyverno_tpu_torch.runtime.stream_server import (
+        StreamClient, StreamServer, flatten_block_for_wire,
+        flatten_rows_for_wire)
+    from kyverno_tpu_torch.runtime.webhook import (VALIDATING_WEBHOOK_PATH,
+                                                   WebhookServer)
+    from kyverno_tpu_torch.server import Controller
+
+    enf = PolicyType.VALIDATE_ENFORCE
+    smi = nvidia_smi_line()
+    out = {}
+    rec = tracing.recorder()
+    # the process-wide pools of earlier phases (the flattener's chunks,
+    # the host lane's fan-out) outlive them by design
+    threads_before = set(threading.enumerate())
+    enforce = [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
+               for d in _synth_policy_docs(250)]
+    resources = [autogen_resource(i) for i in range(n)]
+    cluster = FakeCluster(json.loads(json.dumps(
+        enforce + resources + [MIGRATION_GR])))
+    # the oracle lane's server first: a server attaches its pool to the
+    # host lane, and the replicas' flushes are to use theirs
+    ocache = PolicyCache()
+    for d in enforce:
+        ocache.add(mutate_policy_for_autogen(load_policy(
+            json.loads(json.dumps(d)))))
+    oracle = WebhookServer(policy_cache=ocache, client=FakeCluster(),
+                           registry=metrics.MetricsRegistry())
+    leader = follower = ss = cl = None
+    stopped: list = []
+    scan_run: dict = {}
+    try:
+        oracle_port = oracle.run(host="127.0.0.1", port=0).server_address[1]
+        metrics.registry().reset()
+        leader = Controller(client=cluster, serve_port=0, enable_tls=False)
+        check(leader.device.type == "cuda", f"[controller] on {leader.device}")
+        scan = leader.run_background_scan
+
+        def timed_scan():
+            # the first scan's launches apart from the screen's warm-up
+            if leader._warm_thread is not None:
+                leader._warm_thread.join()
+            l0 = dict(_build.LAUNCHES)
+            t0 = time.perf_counter()
+            try:
+                return scan()
+            finally:
+                scan_run.setdefault("wall", time.perf_counter() - t0)
+                scan_run.setdefault("launches", {
+                    k: _build.LAUNCHES[k] - l0.get(k, 0)
+                    for k in _build.LAUNCHES})
+
+        leader.run_background_scan = timed_scan
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        leader.start(host="127.0.0.1")
+        start_s = time.perf_counter() - t0
+        check(leader.elector.is_leader(), "[controller] the first replica "
+              "does not lead")
+        check(leader.register.check(), "[controller] the leader did not "
+              "register the webhooks")
+        gr = cluster.get_resource("kyverno.io/v1", "GenerateRequest",
+                                  "kyverno", "gr-before-labels")
+        check((gr["metadata"].get("labels") or {}).get(
+            "generate.kyverno.io/policy-name") == "an-older-policy",
+            f"[controller] the migrations did not run: {gr['metadata']}")
+        end = time.perf_counter() + SCAN_WAIT_S
+        while (not (leader.last_scan is not None and "launches" in scan_run)
+               and leader.last_scan_error is None
+               and time.perf_counter() < end):
+            time.sleep(0.02)
+        check(leader.last_scan_error is None, f"[controller] the leader's "
+              f"scan failed: {leader.last_scan_error!r}")
+        if leader.last_scan is None:
+            faulthandler.dump_traceback(all_threads=True)
+        check(leader.last_scan is not None, f"[controller] no scan in "
+              f"{SCAN_WAIT_S:g} s (every thread's stack above)")
+        launches = scan_run["launches"]
+        for k in EVALUATE_KERNELS:
+            check(launches[k] >= 1, f"[controller] the scan did not launch "
+                  f"{k}: {launches}")
+        result = leader.last_scan
+        policies = leader.policy_cache.all_policies()
+        ref = CompiledPolicySet(policies)
+        t0 = time.perf_counter()
+        want = ref.evaluate(resources)
+        ref_s = time.perf_counter() - t0
+        check(not (want == Verdict.HOST).any(), "[controller] evaluate() "
+              "left HOST cells")
+        m = response_matrix(result, ref.rule_refs, resources)
+        check(result.resources_scanned == n and np.array_equal(m, want),
+              f"[controller] the scan's responses ({result.resources_scanned}"
+              f" resources) differ from evaluate()'s resolved matrix in "
+              f"{int((m != want).sum())} cells")
+        reports = (cluster.list_resource("wgpolicyk8s.io/v1alpha2",
+                                         "PolicyReport")
+                   + cluster.list_resource("wgpolicyk8s.io/v1alpha2",
+                                           "ClusterPolicyReport"))
+        key = matrix_key(m, ref.rule_refs)
+        check(report_totals(reports) == key[3] and result.violations == key[0],
+              "[controller] the aggregated reports' per-policy totals "
+              "differ from the scan's matrix")
+        hist = np.bincount(m.ravel().astype(np.int64), minlength=6).tolist()
+        log(f"[controller] leader started in {start_s:.3f} s (policy load "
+            f"and autogen of {len(enforce)} policies: {len(ref.rule_refs)} "
+            f"rules; webhooks registered; migrations ran); its first "
+            f"background scan of {n} resources, kicked by the policy load: "
+            f"{scan_run['wall']:.3f} s wall, launches {launches}, no scan "
+            f"error; {result.violations} violations, "
+            f"{len(result.responses)} responses, matrix {hist} equal to "
+            f"evaluate()'s resolved matrix ({ref_s:.3f} s) of the same "
+            f"{len(policies)} policies; {len(reports)} reports aggregated "
+            f"with its per-policy totals; {smi}")
+        out["scan"] = {"launches": launches, "wall": scan_run["wall"]}
+
+        follower = Controller(client=cluster, serve_port=0, enable_tls=False)
+        t0 = time.perf_counter()
+        follower.start(host="127.0.0.1")
+        check(not follower.elector.is_leader() and leader.elector.is_leader(),
+              "[controller] not exactly one replica leads")
+        log(f"[controller] follower started in {time.perf_counter() - t0:.3f}"
+            f" s; exactly one replica leads")
+        for c in (leader, follower):
+            if c._warm_thread is not None:
+                c._warm_thread.join()
+
+        # ---- HTTP to both replicas (webhooks are active-active)
+        ports = [c._httpd.server_address[1] for c in (leader, follower)]
+        n_req = ADMISSION_THREADS * ADMISSION_PER_THREAD
+        webhook_burst(ports, [webhook_body(i, "cw") for i in range(n_req)],
+                      ADMISSION_THREADS)
+        bodies = [webhook_body(i, "ctl") for i in range(n_req)]
+        stats0 = [dict(c.admission_batcher.stats) for c in (leader, follower)]
+        with WideRing():
+            rec.clear()
+            _build.reset_launches()
+            d0 = dict(engine.DONATION_STATS)
+            http_s, answers = webhook_burst(ports, bodies, ADMISSION_THREADS)
+            flushes = flush_traces(rec)
+            http_launches = dict(_build.LAUNCHES)
+            http_k6 = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+        stats = [routing(c.admission_batcher.stats, s)
+                 for c, s in zip((leader, follower), stats0)]
+        oracle_s, oracle_answers = webhook_burst(oracle_port, bodies,
+                                                 ADMISSION_THREADS)
+        want_ans = {a[1]["uid"]: a[1] for a in oracle_answers}
+        # the replicas hold the same policies: the leader's webhook writes
+        # a device-row denial as the follower's does
+        by_leader = {p.name: p for p in leader.policy_cache.get_policies(
+            enf, "Pod", "default")}
+        same_text = 0
+        for _, got, body, _ in answers:
+            kind = same_answer(got, want_ans[got["uid"]], leader.webhook,
+                               by_leader, json.loads(body)["request"])
+            check(kind is not None, f"[controller] {got['uid']} answered "
+                  f"{got}, the oracle lane {want_ans[got['uid']]}")
+            same_text += kind == "exact"
+        for s in stats:
+            check(s["flush_error"] == 0, f"[controller] failed flushes {s}")
+        check(sum(s["device"] for s in stats) > 0, f"[controller] no device "
+              f"answer over HTTP: {stats}")
+        rows = sum(int(tr.labels.get("batch", 0)) for tr in flushes)
+        log(f"[controller] HTTP, both replicas: " + lane_line(
+            f"{ADMISSION_THREADS} threads x {ADMISSION_PER_THREAD} distinct "
+            f"Pods, threads alternating replicas",
+            answers, http_s)
+            + f"; routing leader {stats[0]}, follower {stats[1]}; "
+            f"{len(flushes)} device flushes, {rows / max(1, len(flushes)):.2f}"
+            f" rows a flush; launches {http_launches}; K6 {http_k6}; every "
+            f"answer equal to the oracle lane's ({same_text} of {n_req} the "
+            f"same text); " + lane_line("oracle lane", oracle_answers,
+                                        oracle_s) + f"; {smi}")
+        out["http"] = {"p": percentiles([a[0] for a in answers]),
+                       "rps": n_req / http_s, "flushes": len(flushes),
+                       "rows": rows, "launches": http_launches}
+
+        # ---- the stream plane beside the leader's webhook
+        ss = StreamServer(leader.webhook, leader.admission_batcher,
+                          leader.policy_cache, transport="socket").start()
+        cl = StreamClient(ss.port, transport="socket")
+        cps = leader.policy_cache.compiled(enf, "Pod", "default")
+        b_stats = dict(leader.admission_batcher.stats)
+        json_bodies = [webhook_body(i, "sj") for i in range(STREAM_JSON)]
+        reviews = [json.loads(b) for b in json_bodies]
+        json_s, json_ans = stream_burst(cl.admit_json, reviews)
+        # the webhook's own handle() and the oracle lane, on the same
+        # reviews, 16 at a time
+        _, direct_ans = stream_burst(
+            lambda r: leader.webhook.handle(VALIDATING_WEBHOOK_PATH, r),
+            reviews)
+        _, oracle_json = webhook_burst(oracle_port, json_bodies,
+                                       ADMISSION_THREADS)
+        oracle_by_uid = {a[1]["uid"]: a[1] for a in oracle_json}
+        json_same = 0
+        for r, (_, got), (_, direct) in zip(reviews, json_ans, direct_ans):
+            ref_r = oracle_by_uid[r["request"]["uid"]]
+            k1 = same_answer(got["response"], ref_r, leader.webhook,
+                             by_leader, r["request"])
+            k2 = same_answer(direct["response"], ref_r, leader.webhook,
+                             by_leader, r["request"])
+            check(k1 is not None and k2 is not None
+                  and got["response"]["allowed"]
+                  == direct["response"]["allowed"],
+                  f"[controller] JSON frame {r['request']['uid']}: "
+                  f"{got['response']} against handle()'s "
+                  f"{direct['response']} and the oracle lane's {ref_r}")
+            json_same += got["response"] == direct["response"]
+        pods = [make_pod(i) for i in range(STREAM_ROWS)]
+        for i, p in enumerate(pods):
+            p["metadata"]["name"] = f"row-{i}"
+        wire_rows = flatten_rows_for_wire(cps, pods)
+        row_want = device_rows(cps, cps.evaluate_device(
+            cps.flatten_packed(pods)))
+        blocks = []
+        for j in range(STREAM_BLOCKS):
+            chunk = [make_pod(STREAM_ROWS + j * STREAM_BLOCK_ROWS + i)
+                     for i in range(STREAM_BLOCK_ROWS)]
+            blk = flatten_block_for_wire(cps, chunk)
+            blocks.append((blk, cps.evaluate_device(blk)))
+        svc = profiling.capture_service()
+        with WideRing():
+            rec.clear()
+            _build.reset_launches()
+            d0 = dict(engine.DONATION_STATS)
+            t_prof = time.perf_counter()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ports[0]}/debug/profile?seconds="
+                    f"{PROFILE_S}", timeout=30) as resp:
+                started = json.loads(resp.read())
+            check(started.get("status") == "capturing", f"[controller] "
+                  f"/debug/profile answered {started}")
+            # the profiler takes seconds to start: the frames go once its
+            # window is open
+            while (not svc.status()["window_open"]
+                   and time.perf_counter() - t_prof < 120):
+                time.sleep(0.01)
+            check(svc.status()["window_open"], "[controller] the capture's "
+                  "window did not open in 120 s")
+            row_s, row_ans = stream_burst(
+                lambda r: cl.admit_row("Pod", "default", r), wire_rows)
+            block_s, block_ans = stream_burst(
+                lambda b: cl.admit_block("Pod", "default", b[0]), blocks)
+            extra = 0
+            # more blocks while the window is open
+            while svc.status()["window_open"]:
+                blk, m_b = blocks[extra % len(blocks)]
+                block_ans.append((0.0, cl.admit_block("Pod", "default", blk)))
+                extra += 1
+            stream_launches = dict(_build.LAUNCHES)
+            stream_k6 = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+            s_flushes = flush_traces(rec)
+        svc.drain()
+        # a ROW frame whose flush missed the screen's deadline escalates
+        # with no verdicts (the batcher counts it in stream_timeout); every
+        # other frame's verdict row is the device matrix's
+        gave_up = 0
+        for b, (_, got) in enumerate(row_ans):
+            if not got["verdicts"] and got["escalate"] and row_want[b]:
+                gave_up += 1
+                continue
+            check(got["verdicts"] == row_want[b], f"[controller] ROW frame "
+                  f"{b}: {got} against the device row {row_want[b]}")
+        escalated = 0
+        for j, (_, got) in enumerate(block_ans):
+            _, m_b = blocks[j % len(blocks)]
+            want_rows = device_rows(cps, m_b)
+            check(len(got["rows"]) == len(want_rows), f"[controller] BLOCK "
+                  f"frame {j}: {len(got['rows'])} rows")
+            for b, row in enumerate(got["rows"]):
+                host = bool((m_b[b] == Verdict.HOST).any())
+                check(row["verdicts"] == want_rows[b]
+                      and (row["escalate"] or not host),
+                      f"[controller] BLOCK frame {j} row {b}: {row}")
+                escalated += row["escalate"]
+        b_now = leader.admission_batcher.stats
+        timeouts = (b_now.get("stream_timeout", 0)
+                    - b_stats.get("stream_timeout", 0))
+        check(gave_up == timeouts and gave_up < STREAM_ROWS,
+              f"[controller] {gave_up} ROW frames without verdicts, "
+              f"{timeouts} stream timeouts")
+        plane = ss.plane.stats
+        check(not plane.get("frame_errors") and not plane.get("block_errors")
+              and not b_now.get("stream_shape_reject"),
+              f"[controller] stream errors: plane {plane}, batcher "
+              f"{ {k: v for k, v in b_now.items() if k.startswith('stream')} }")
+        for k in EVALUATE_KERNELS:
+            check(stream_launches[k] >= 1, f"[controller] the frames did not "
+                  f"launch {k}: {stream_launches}")
+        check(stream_k6["dispatches"] > 0, f"[controller] K6 {stream_k6}")
+        # a donated block, padded as evaluate_block pads it (its shape
+        # bucket's slots are warm): the verdicts evaluate_device gives,
+        # and the host buffer the block caches unchanged
+        blk, m_b = blocks[0]
+        padded, _ = leader.admission_batcher._pad_admission(blk)
+        snap = np.asarray(padded.packed_blob()[0]).copy()
+        d0 = dict(engine.DONATION_STATS)
+        got_v = np.asarray(cps.evaluate_device_async(padded,
+                                                     donate=True).get())
+        donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
+        kept = np.array_equal(np.asarray(padded.packed_blob()[0]), snap)
+        check(np.array_equal(got_v[:len(m_b)], m_b) and kept
+              and donated["dispatches"] == 1
+              and donated["donated_buffers"] == 1,
+              f"[controller] a donated block: K6 {donated}, verdicts equal "
+              f"{np.array_equal(got_v[:len(m_b)], m_b)}, host buffer "
+              f"unchanged {kept}")
+        # the capture: K1's and eval_rules' kernels in its trace
+        last = svc.status()["last"]
+        check(last.get("error") is None and last.get("trace_file"),
+              f"[controller] profile capture {last}")
+        kev = profiling.kernel_events(last["trace_file"])
+        names = sorted({e["name"] for e in kev})
+        check(any("glob_nfa" in x for x in names)
+              and any("rules_kernel" in x for x in names),
+              f"[controller] the capture's kernels: {names}")
+        busy_us = sum(e["dur"] for e in kev)
+        busy = busy_us / (last["window_s"] * 1e6)
+        with urllib.request.urlopen(f"http://127.0.0.1:{ports[0]}/debug/"
+                                    f"profile", timeout=30) as resp:
+            idle = json.loads(resp.read())
+        mem = idle["device_memory"].get("0", {})
+        check(mem.get("platform") == "cuda" and mem.get("bytes_in_use", 0) > 0,
+              f"[controller] device memory {idle['device_memory']}")
+        s_rows = sum(int(tr.labels.get("batch", 0)) for tr in s_flushes)
+        n_s = {k: b_now.get(k, 0) - b_stats.get(k, 0) for k in (
+            "stream_rows", "stream_blocks", "stream_block_rows",
+            "stream_timeout", "screen_timeout")}
+        log(f"[controller] stream (socket), one client: " + frame_line(
+            "JSON", json_ans, json_s) + f" ({json_same} equal to handle()'s "
+            f"answer exactly, every one under same_answer's rule); "
+            + frame_line("ROW", row_ans, row_s) + "; " + frame_line(
+                "BLOCK (64 rows)", block_ans[:STREAM_BLOCKS], block_s)
+            + f" and {extra} more inside the capture; every verdict row the "
+            f"device matrix's ({gave_up} ROW frames gave up at the screen's "
+            f"deadline and escalated), {escalated} block rows escalated "
+            f"(each with a HOST cell or more); batcher {n_s}; {len(s_flushes)} ROW "
+            f"flushes, {s_rows / max(1, len(s_flushes)):.2f} rows a flush; "
+            f"launches {stream_launches}; K6 {stream_k6}; plane {plane}; a "
+            f"donated block: K6 {donated}, host buffer unchanged; {smi}")
+        log(f"[controller] /debug/profile?seconds={PROFILE_S:g}: "
+            f"{last['seconds']:.3f} s in all (the profiler's start "
+            f"{last['open_s']:.3f} s, its stop and the trace export "
+            f"{last['close_s']:.3f} s), window {last['window_s']:.3f} s, "
+            f"{len(kev)} kernel launches in it "
+            f"({', '.join(names)}); the card busy {busy_us / 1e3:.3f} ms, "
+            f"{100 * busy:.3f}% of the window; device memory {mem}; {smi}")
+        out["stream"] = {"launches": stream_launches, "k6": stream_k6,
+                         "json": percentiles([t[0] for t in json_ans]),
+                         "row": percentiles([t[0] for t in row_ans]),
+                         "block": percentiles(
+                             [t[0] for t in block_ans[:STREAM_BLOCKS]]),
+                         "busy": busy}
+        cl.close()
+        cl = None
+        ss.stop()
+        ss = None
+
+        # ---- failover
+        identity = leader.elector.identity
+        t0 = time.perf_counter()
+        leader.stop()
+        stopped.append(leader)
+        stop_s = time.perf_counter() - t0
+        lease = cluster.get_resource("coordination.k8s.io/v1", "Lease",
+                                     "kyverno", "kyverno")
+        check(lease["spec"]["holderIdentity"] != identity,
+              f"[controller] the stopped leader kept its lease {lease}")
+        t1 = time.perf_counter()
+        while (not follower.elector.is_leader()
+               and time.perf_counter() - t1 < 4 * RETRY_PERIOD_S):
+            time.sleep(0.01)
+        took = time.perf_counter() - t1
+        check(follower.elector.is_leader() and took <= 2 * RETRY_PERIOD_S,
+              f"[controller] the follower led after {took:.3f} s")
+        check(follower.register.check(), "[controller] the new leader's "
+              "webhooks")
+        end = time.perf_counter() + SCAN_WAIT_S
+        while (follower.last_scan is None and follower.last_scan_error is None
+               and time.perf_counter() < end):
+            time.sleep(0.02)
+        if follower.last_scan is None:
+            faulthandler.dump_traceback(all_threads=True)
+        check(follower.last_scan is not None
+              and follower.last_scan_error is None,
+              f"[controller] the new leader's scan: "
+              f"{follower.last_scan_error!r}")
+        check(follower.last_scan.violations == result.violations,
+              "[controller] the new leader's scan differs")
+        follower.stop()
+        stopped.append(follower)
+        for c in (leader, follower):
+            rg = c.report_gen
+            check(not rg._queue and not rg._writing
+                  and (rg._writer is None or not rg._writer.is_alive()),
+                  "[controller] a report writer did not flush and stop")
+        log(f"[controller] failover: the leader stopped in {stop_s:.3f} s "
+            f"and released its lease; the follower led {took:.3f} s later "
+            f"(retry period {RETRY_PERIOD_S:g} s), registered the webhooks "
+            f"and scanned ({follower.last_scan.violations} violations); "
+            f"both stopped, report writers flushed")
+    finally:
+        if cl is not None:
+            cl.close()
+        if ss is not None:
+            ss.stop()
+        for c in (leader, follower):
+            if c is not None and c not in stopped:
+                c.stop()
+        oracle.stop()
+        hostlane.resolver().attach_pool(None, None)
+        profiling.capture_service().drain()
+    left = [t.name for t in threading.enumerate()
+            if not t.daemon and t not in threads_before]
+    check(not left, f"[controller] non-daemon threads left: {left}")
     return out
 
 
@@ -3884,6 +4435,8 @@ def main() -> int:
                          "the garbage collector's view or freeze it out")
     ap.add_argument("--webhook", action="store_true",
                     help="build, then only the [webhook] phase")
+    ap.add_argument("--controller", action="store_true",
+                    help="build, then only the [controller] phase")
     ap.add_argument("--all-cards", action="store_true",
                     help="build, then only the mesh scan over every card of "
                          "the host against the one-card scan (needs 2 or more)")
@@ -3986,6 +4539,13 @@ def main() -> int:
         return 0
     if args.webhook:
         webhook_phase(_synth_policy_docs(250))
+        log(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.controller:
+        controller_phase()
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
@@ -4188,6 +4748,13 @@ def main() -> int:
     webhook = webhook_phase(library_docs)
     log(f"[webhook] phase wall {time.perf_counter() - t0:.3f} s")
 
+    # ---- 7c. controller: two replicas of the controller process, their
+    # webhooks over HTTP, the leader's scan, the stream plane, a profile
+    # capture and the failover
+    t0 = time.perf_counter()
+    controller = controller_phase()
+    log(f"[controller] phase wall {time.perf_counter() - t0:.3f} s")
+
     # ---- 8. mutate: BASELINE config 4 through the BatchMutator, its gate
     # (K1 -> eval_rules a chunk, then the host lane) on the card
     mutate = mutate_phase()
@@ -4313,6 +4880,11 @@ def main() -> int:
                       "autogen_burst_launches":
                           autogen["burst_launches"].get(name),
                       "webhook_launches": webhook["launches"].get(name),
+                      "controller_launches": {
+                          "scan": controller["scan"]["launches"].get(name),
+                          "http": controller["http"]["launches"].get(name),
+                          "stream": controller["stream"]["launches"].get(
+                              name)},
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

@@ -26,6 +26,7 @@ dedup that makes the string path cheap on device.
 
 from __future__ import annotations
 
+import struct
 import time
 from dataclasses import dataclass
 
@@ -692,6 +693,84 @@ def splice_packed_rows(rows: list[PackedRow]) -> PackedBatch:
         tracing.current(), "row_splice", _t0, time.perf_counter(), rows=B)
     return PackedBatch(n=B, e=E, cells=cells, bmeta=bmeta,
                        str_bytes=str_bytes, dictv=dictv)
+
+
+# ---------------------------------------------------------------- wire codec
+#
+# Columnar wire format of the streaming admission plane
+# (runtime/stream_server.py): clients ship pre-tokenized rows and blocks
+# in the packed transfer layout, so the server splices them ready for
+# the card without parsing JSON or walking the resource again. Integers
+# are little-endian; arrays travel as raw C-contiguous buffers in the
+# dtypes the kernels read. The bytes are the JAX package's: a frame
+# written by either package decodes in the other.
+
+_ROW_HDR = struct.Struct("<IIII")      # P, e_row, v, bmeta
+_BLOCK_HDR = struct.Struct("<IIII")    # B, P, E, V
+
+
+def encode_packed_row(row: PackedRow) -> bytes:
+    """Serialize one PackedRow for the stream wire. Inverse of
+    :func:`decode_packed_row`; round-trips bit-exactly."""
+    p, e = (int(row.cells.shape[0]), int(row.cells.shape[1]))
+    v = int(row.dictv.shape[0])
+    return b"".join((
+        _ROW_HDR.pack(p, e, v, int(row.bmeta) & 0xFFFFFFFF),
+        np.ascontiguousarray(row.cells, dtype="<u4").tobytes(),
+        np.ascontiguousarray(row.str_bytes, dtype=np.uint8).tobytes(),
+        np.ascontiguousarray(row.dictv, dtype="<u4").tobytes(),
+    ))
+
+
+def decode_packed_row(buf, offset: int = 0) -> tuple[PackedRow, int]:
+    """Deserialize one PackedRow; returns ``(row, next_offset)``. The
+    arrays are read-only views of the input buffer (no copy): every
+    consumer (splice, graft) only reads them."""
+    p, e, v, bmeta = _ROW_HDR.unpack_from(buf, offset)
+    o = offset + _ROW_HDR.size
+    cells = np.frombuffer(buf, "<u4", p * e * 2, o).reshape(p, e, 2)
+    o += p * e * 2 * 4
+    str_bytes = np.frombuffer(buf, np.uint8, v * STR_LEN, o).reshape(
+        v, STR_LEN)
+    o += v * STR_LEN
+    dictv = np.frombuffer(buf, "<u4", v * 5, o).reshape(v, 5)
+    o += v * 5 * 4
+    return PackedRow(cells=cells, bmeta=int(bmeta), str_bytes=str_bytes,
+                     dictv=dictv), o
+
+
+def encode_packed_block(batch: PackedBatch) -> bytes:
+    """Serialize a whole spliced PackedBatch (the wire unit that needs no
+    re-intern: the server pads and dispatches it without touching the
+    string table)."""
+    B, P, E = (int(batch.cells.shape[0]), int(batch.cells.shape[1]),
+               int(batch.cells.shape[2]))
+    V = int(batch.dictv.shape[0])
+    return b"".join((
+        _BLOCK_HDR.pack(B, P, E, V),
+        np.ascontiguousarray(batch.cells, dtype="<u4").tobytes(),
+        np.ascontiguousarray(batch.bmeta, dtype="<u4").tobytes(),
+        np.ascontiguousarray(batch.str_bytes, dtype=np.uint8).tobytes(),
+        np.ascontiguousarray(batch.dictv, dtype="<u4").tobytes(),
+    ))
+
+
+def decode_packed_block(buf, offset: int = 0) -> tuple[PackedBatch, int]:
+    """Inverse of :func:`encode_packed_block`; read-only views of
+    ``buf``, no copy."""
+    B, P, E, V = _BLOCK_HDR.unpack_from(buf, offset)
+    o = offset + _BLOCK_HDR.size
+    cells = np.frombuffer(buf, "<u4", B * P * E * 2, o).reshape(B, P, E, 2)
+    o += B * P * E * 2 * 4
+    bmeta = np.frombuffer(buf, "<u4", B, o)
+    o += B * 4
+    str_bytes = np.frombuffer(buf, np.uint8, V * STR_LEN, o).reshape(
+        V, STR_LEN)
+    o += V * STR_LEN
+    dictv = np.frombuffer(buf, "<u4", V * 5, o).reshape(V, 5)
+    o += V * 5 * 4
+    return PackedBatch(n=B, e=E, cells=cells, bmeta=bmeta,
+                       str_bytes=str_bytes, dictv=dictv), o
 
 
 def grow_dict_headroom(batch: PackedBatch,

@@ -10,6 +10,8 @@ generate controller.
 
 from __future__ import annotations
 
+from .webhookconfig import _pluralize
+
 
 class CanIOptions:
     """auth.go:15 CanIOptions: one (kind, namespace, verb) access check."""
@@ -39,17 +41,6 @@ class CanIOptions:
         except Exception:
             return False
         return bool(((resp or {}).get("status") or {}).get("allowed", False))
-
-
-def _pluralize(kind: str) -> str:
-    """The JAX package's ``webhookconfig._pluralize``, kept here until
-    the port has ``webhookconfig``."""
-    k = kind.lower()
-    if k.endswith(("s", "x", "z", "ch", "sh")):
-        return k + "es"
-    if k.endswith("y") and k[-2:-1] not in "aeiou":
-        return k[:-1] + "ies"
-    return k + "s"
 
 
 def _plural(kind: str) -> str:

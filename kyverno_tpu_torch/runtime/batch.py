@@ -250,6 +250,13 @@ class AdmissionBatcher:
 
         self._seen_shapes: weakref.WeakKeyDictionary = (
             weakref.WeakKeyDictionary())
+        # the native flattener's library is built (g++, seconds) at its
+        # first use in the process: build it here, so that no screen's
+        # deadline pays for it (a failed build raises, as a flush would)
+        if featureplane.enabled("KTPU_NATIVE"):
+            from ..models import native_flatten
+
+            native_flatten.native_available()
         self._in_flight = 0
         self._arrivals: deque[float] = deque()
         self._lock = threading.Condition()

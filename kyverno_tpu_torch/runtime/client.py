@@ -58,6 +58,10 @@ class FakeCluster(Client):
     def __init__(self, resources: list[dict] | None = None):
         self._lock = threading.RLock()
         self._store: dict[tuple[str, str, str], dict] = {}
+        # the store's keys by kind: a list reads its kind's objects only
+        # (a controller's cluster holds every report, change request and
+        # event beside the resources, and a request lists its bindings)
+        self._kinds: dict[str, set[tuple[str, str, str]]] = {}
         self._watchers: list = []
         self._rv = 0
         #: optional /openapi/v2 swagger document served to CrdSync
@@ -82,9 +86,9 @@ class FakeCluster(Client):
         kind = _normalize_kind(kind)
         with self._lock:
             return [
-                copy.deepcopy(r)
-                for (k, ns, _), r in sorted(self._store.items())
-                if k == kind and (not namespace or ns == namespace)
+                copy.deepcopy(self._store[key])
+                for key in sorted(self._kinds.get(kind, ()))
+                if not namespace or key[1] == namespace
             ]
 
     def create_resource(self, resource):
@@ -105,6 +109,7 @@ class FakeCluster(Client):
             self._rv += 1
             _meta(resource)["resourceVersion"] = str(self._rv)
             self._store[key] = resource
+            self._kinds.setdefault(key[0], set()).add(key)
             self._notify("ADDED", resource)
             return copy.deepcopy(resource)
 
@@ -122,14 +127,17 @@ class FakeCluster(Client):
             self._rv += 1
             _meta(resource)["resourceVersion"] = str(self._rv)
             self._store[key] = resource
+            self._kinds.setdefault(key[0], set()).add(key)
             self._notify("MODIFIED", resource)
             return copy.deepcopy(resource)
 
     def delete_resource(self, api_version, kind, namespace, name):
         kind = _normalize_kind(kind)
         with self._lock:
-            r = self._store.pop((kind, namespace or "", name), None)
+            key = (kind, namespace or "", name)
+            r = self._store.pop(key, None)
             if r is not None:
+                self._kinds[kind].discard(key)
                 self._notify("DELETED", r)
 
     def get_openapi_v2(self) -> dict | None:

@@ -56,6 +56,9 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
     _S("KTPU_STREAM", "kyverno_tpu_torch.runtime.batch",
        "tests/test_torch_admission.py", "1",
        "continuous batching admission lane"),
+    _S("KTPU_STREAM_TRANSPORT", "kyverno_tpu_torch.runtime.stream_server",
+       "tests/test_torch_stream.py", "auto",
+       "stream transport selection (grpc|socket|auto)"),
     _S("KTPU_DONATE", "kyverno_tpu_torch.models.engine",
        "tests/test_torch_admission.py", "1",
        "K6: pinned staging and a persistent device blob per shape bucket "
@@ -96,6 +99,17 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
     _S("KTPU_SLO_MIN_SAMPLES", "kyverno_tpu_torch.runtime.slo",
        "tests/test_torch_planes.py", "8",
        "samples before a burn window votes"),
+    _S("KTPU_PROFILE_PORT", "kyverno_tpu_torch.runtime.profiling",
+       "tests/test_torch_stream.py", "0",
+       "on-demand profiler listener port (0 = disabled)"),
+    # -- webhook config
+    _S("KTPU_WEBHOOK_TIMEOUT_S", "kyverno_tpu_torch.runtime.webhookconfig",
+       "tests/test_torch_server.py", "",
+       "webhook timeoutSeconds override"),
+    _S("KTPU_DEFAULT_FAILURE_POLICY",
+       "kyverno_tpu_torch.runtime.webhookconfig",
+       "tests/test_torch_server.py", "",
+       "failurePolicy when policies don't pin one"),
     # -- SLO degradation plane (closed-loop actions; annotate-only when
     #    the master switch is off)
     _S("KTPU_SLO_ACTIONS", "kyverno_tpu_torch.runtime.sloactions",

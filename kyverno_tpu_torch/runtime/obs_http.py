@@ -25,9 +25,9 @@ kube-apiserver-facing port also answers scrapes) and a standalone
     pairs with verdict breakdowns, the exact-total overflow tail, and
     per-tenant rollups. ``n`` caps the pair rows.
 ``/debug/profile``
-    On-demand device profiling. Waits for the port's ``profiling``
-    module: every request answers 503 ``{"status": "unavailable",
-    "error": ...}``.
+    On-demand device profiling: paramless GET = capture status plus a
+    device-memory snapshot; ``?seconds=N`` starts a bounded
+    torch.profiler window capture (409 while one is running).
 ``/debug/dryrun``
     Policy-rollout dry-run. Waits for the port's ``workload.dryrun``; it
     answers as the JAX package's does with ``KTPU_DRYRUN=0`` and no scan
@@ -53,16 +53,10 @@ _started_at = time.time()
 # keys on it instead of sniffing the layout
 DEBUG_SCHEMA_VERSION = 1
 
-# the two routes whose modules the port does not have yet (profiling,
-# workload.dryrun): fixed answers, as the JAX routes give with their
-# module off
+# the route whose module the port does not have yet (workload.dryrun):
+# fixed answers, as the JAX route gives with its module off
 DRYRUN_SCHEMA_VERSION = 1
 DRYRUN_DISABLED = "dry-run service disabled (workload.dryrun is not ported)"
-_UNAVAILABLE_PROFILE = (
-    503, json.dumps({"status": "unavailable",
-                     "error": "profile capture is not ported "
-                              "(runtime/profiling.py)"}).encode(),
-    "application/json")
 
 
 def _stream_enabled() -> bool:
@@ -146,7 +140,24 @@ def handle_obs_get(path: str, registry=None):
         payload.update(metrics_mod.lint_findings_snapshot(reg))
         return 200, json.dumps(payload).encode(), "application/json"
     if route == "/debug/profile":
-        return _UNAVAILABLE_PROFILE
+        from . import profiling
+
+        q = parse_qs(parsed.query)
+        svc = profiling.capture_service()
+        seconds_arg = q.get("seconds", [None])[0]
+        if seconds_arg is None:
+            payload = {"status": "idle", **svc.status(),
+                       "device_memory": profiling.device_memory_snapshot()}
+            return 200, json.dumps(payload).encode(), "application/json"
+        try:
+            seconds = float(seconds_arg)
+        except ValueError:
+            return (400, json.dumps({"error": "seconds must be a "
+                                     "number"}).encode(),
+                    "application/json")
+        out = svc.start(seconds)
+        status = 409 if out.get("status") == "busy" else 200
+        return status, json.dumps(out).encode(), "application/json"
     if route == "/debug/traces":
         q = parse_qs(parsed.query)
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import threading
 import time
+from collections import Counter
 
 from ..engine.response import EngineResponse, RuleStatus
 
@@ -115,6 +116,10 @@ class ReportGenerator:
         # objects are replaced, never merged, so deleted policies/resources
         # don't accumulate stale rows (reportcontroller.go:682 cleanup).
         self._results: dict[tuple, dict] = {}
+        # stored results by subject kind: a prune for a kind with none
+        # (the report plane's own change requests, deleted as aggregate()
+        # consumes them, each a watch event) skips the pass over the store
+        self._subject_kinds: Counter = Counter()
         # namespaces that ever emitted a report: an empty rebuild must still
         # write (now-empty) reports for them, or stale rows would survive
         self._known_ns: set[str] = set()
@@ -245,6 +250,7 @@ class ReportGenerator:
             self._results = {
                 k: v for k, v in self._results.items() if k[1] != policy_name
             }
+            self._subject_kinds = Counter(k[3] for k in self._results)
             self._pending = self._filter_pending(
                 self._pending,
                 lambda rcr, r: r.get("policy") != policy_name)
@@ -252,10 +258,13 @@ class ReportGenerator:
     def prune_resource(self, kind: str, namespace: str, name: str) -> None:
         """Drop all results for a deleted resource."""
         with self._lock:
-            self._results = {
-                k: v for k, v in self._results.items()
-                if not (k[0] == namespace and k[3] == kind and k[4] == name)
-            }
+            if self._subject_kinds[kind]:
+                self._results = {
+                    k: v for k, v in self._results.items()
+                    if not (k[0] == namespace and k[3] == kind
+                            and k[4] == name)
+                }
+                self._subject_kinds = Counter(k[3] for k in self._results)
 
             def keep(rcr, r):
                 ns = (rcr.get("metadata") or {}).get("namespace", "")
@@ -270,6 +279,7 @@ class ReportGenerator:
         repopulates from scratch (prgen.ReconcileCh, main.go:260)."""
         with self._lock:
             self._results.clear()
+            self._subject_kinds.clear()
 
     def aggregate(self) -> list[dict]:
         """reportcontroller.go:501 aggregateReports + :541 mergeRequests:
@@ -334,6 +344,8 @@ class ReportGenerator:
                     if old is not None and (old.get("timestampNs") or 0) > \
                             (r.get("timestampNs") or 0):
                         continue
+                    if old is None:
+                        self._subject_kinds[key[3]] += 1
                     self._results[key] = r
             by_namespace: dict[str, list[dict]] = {
                 ns: [] for ns in self._known_ns

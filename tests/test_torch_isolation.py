@@ -6,7 +6,11 @@ package's ``native/`` or ``kyverno_tpu/`` directories, what an
 oracle-pool worker imports loads no torch, the generate, verifyImages
 and policy modules load neither PyYAML nor cryptography, importing the
 webhook and the observability routes loads no profiling or workload
-module, and no port module imports a fleet module."""
+module, no port module imports a fleet module, and what the controller
+process's modules import, inside their functions too, reaches neither
+jax nor the JAX package."""
+
+import ast
 
 import json
 import os
@@ -103,22 +107,24 @@ def test_webhook_modules_are_checked():
 
 
 def test_webhook_and_obs_routes_load_no_profiling_or_workload():
-    """``profiling`` and ``workload`` wait for later slices: importing the
-    webhook and the observability routes, and serving /debug/profile and
-    /debug/dryrun, loads no port module of that name, nor jax or the JAX
-    package."""
+    """Importing the webhook and the observability routes loads no
+    ``profiling`` module (``/debug/profile`` imports it when it is
+    served, as the JAX route does); serving every route, /debug/profile
+    and /debug/dryrun included, loads no ``workload`` or ``fleet`` module
+    (later slices), nor jax or the JAX package."""
     code = (
         "import json, sys\n"
         "import kyverno_tpu_torch.runtime.webhook\n"
         "from kyverno_tpu_torch.runtime import obs_http\n"
+        "bad = [m for m in sys.modules if 'profiling' in m.split('.')]\n"
         "for path in ('/metrics', '/healthz', '/debug/traces',\n"
         "             '/debug/policies', '/debug/profile',\n"
         "             '/debug/dryrun'):\n"
         "    obs_http.handle_obs_get(path)\n"
         "obs_http.handle_obs_post('/debug/dryrun', b'{}')\n"
-        "print(json.dumps([m for m in sys.modules\n"
+        "print(json.dumps(bad + [m for m in sys.modules\n"
         "    if m.split('.')[0] in ('jax', 'kyverno_tpu')\n"
-        "    or m.split('.')[0] == 'kyverno_tpu_torch' and {'profiling',\n"
+        "    or m.split('.')[0] == 'kyverno_tpu_torch' and {\n"
         "    'workload', 'fleet'} & set(m.split('.'))]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -218,3 +224,67 @@ def test_sources_name_no_path_of_the_jax_package():
             for n, line in enumerate(text.splitlines(), 1):
                 assert not _jax_paths(line), (f, n, line)
     assert {".py", ".cu", ".cuh", ".cpp"} <= seen
+
+
+SLICE_12_MODULES = ("server", "runtime.profiling", "runtime.stream_server",
+                    "runtime.leaderelection", "runtime.webhookconfig",
+                    "runtime.migrations", "runtime.generate_controller",
+                    "runtime.featureplane", "models.flatten")
+
+
+def test_controller_modules_are_checked():
+    mods = _port_modules()
+    for m in SLICE_12_MODULES:
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def _imported_names(module: str) -> set[str]:
+    """Every module an import statement of ``module`` names, at any
+    depth (inside functions too), relative names resolved."""
+    pkg = os.path.dirname(kyverno_tpu_torch.__file__)
+    rel = module.split(".")[1:]
+    path = os.path.join(pkg, *rel) + ".py"
+    parent = module.split(".")[:-1]
+    out = set()
+    for node in ast.walk(ast.parse(open(path, encoding="utf-8").read())):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = (parent[:len(parent) - node.level + 1] if node.level
+                    else [])
+            name = ".".join(base + ([node.module] if node.module else []))
+            out.add(name)
+            for a in node.names:
+                out.add(f"{name}.{a.name}")
+    return out
+
+
+def test_controller_modules_function_imports_reach_no_jax():
+    """Import everything the controller process's modules import, the
+    imports inside their functions included (``stream_server``'s codec,
+    ``profiling``'s torch.profiler, ``server``'s webhookconfig), in a
+    fresh interpreter: neither jax nor the JAX package loads. ``grpc``
+    is optional (the card's machine lacks it) and is skipped if absent."""
+    names = set()
+    for m in SLICE_12_MODULES:
+        names |= _imported_names(f"kyverno_tpu_torch.{m}")
+    assert "kyverno_tpu_torch.models.flatten" in names
+    assert "torch.profiler" in names
+    code = (
+        "import importlib, importlib.util, json, sys\n"
+        f"for n in sorted({sorted(names)!r}):\n"
+        "    try:\n"
+        "        importlib.import_module(n)\n"
+        "    except ModuleNotFoundError:\n"
+        "        top = n.split('.')[0]\n"
+        "        if top == 'grpc' and importlib.util.find_spec(top) is None:\n"
+        "            continue\n"
+        "        if '.' not in n or importlib.util.find_spec(\n"
+        "                n.rsplit('.', 1)[0]) is None:\n"
+        "            raise\n"
+        "print(json.dumps([m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('jax', 'jaxlib', 'kyverno_tpu')]))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -1,7 +1,7 @@
 """The planes the webhook imports, on the port: ``workqueue``, ``metrics``,
 ``tracing`` (its metrics feed, exports and traceparent), ``slo``,
 ``sloactions``, ``obs_http``, ``watch``, ``client``, ``ResourceCache``,
-``config``, ``userinfo``, ``events`` and ``auth``.
+``config``, ``userinfo``, ``events``, ``auth`` and ``profiling``.
 
 Two kinds of test:
 
@@ -11,8 +11,7 @@ Two kinds of test:
   battery itself, which runs from its own file. The only edits are the
   port's deliberate differences: a policy cache on ``device="cpu"``, the
   cold flush's span (``cold_dispatch``, not ``xla_compile``) and the
-  build-info gauge's engine label. Cases whose module the port does not
-  have yet (``profiling``, ``stream_server``) are left out by name.
+  build-info gauge's engine label.
 - Both packages on the same inputs: the metrics exposition text after
   the same calls (byte for byte but for the build-info and reset-time
   lines), traceparents minted by one package and read by the other,
@@ -65,10 +64,7 @@ _CPU_CACHE = ("PolicyCache()", 'PolicyCache(device="cpu")')
 for _relpath, _subs, _drop in (
         ("tests/runtime/test_workqueue.py", (), ()),
         ("tests/runtime/test_sloactions.py", (), ()),
-        ("tests/runtime/test_obs_plane.py", (), (
-            # runtime/profiling.py and runtime/stream_server.py wait for
-            # the next slice
-            "TestProfiling", "TestPropagation.test_frame_carriage")),
+        ("tests/runtime/test_obs_plane.py", (), ()),
         ("tests/runtime/test_tracing.py", (
             _CPU_CACHE,
             ('("xla_compile" in names)', '("cold_dispatch" in names)'),

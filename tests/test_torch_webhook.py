@@ -15,9 +15,9 @@ package's on the same AdmissionReviews, on the CPU.
 - The JAX package's webhook batteries, case by case, on the port
   (``torch_parity.mirror_battery``; the JAX side of each case is the
   battery's own file). The edits are the port's: a policy cache or
-  scanner on ``device="cpu"``. Cases that need a module the port does
-  not have yet (``generate_controller``, ``migrations``) or the upstream
-  fixture corpus are left out by name.
+  scanner on ``device="cpu"``. Cases that need the upstream fixture
+  corpus are left out by name, and ``TestMigrations`` runs in
+  ``test_torch_server.py``.
 
 Each package keeps its own singletons (the metrics registry, the trace
 recorder, the SLO watchdog and controller, the host-lane resolver); each
@@ -67,20 +67,13 @@ for _relpath, _subs, _drop in (
         ("tests/runtime/test_runtime.py", (
             _CPU_CACHE,
             ("BackgroundScanner([load_policy(doc)])",
-             'BackgroundScanner([load_policy(doc)], device="cpu")'),
-            # runtime/generate_controller.py waits for the next slice
-            ("from kyverno_tpu_torch.runtime.generate_controller import "
-             "GR_COMPLETED, GenerateController\n", "")),
-         # the upstream fixture corpus (absent here, as for the JAX case),
-         # and the generate controller
-         ("TestBackgroundScan.test_scan_snapshot", "TestGenerateController")),
+             'BackgroundScanner([load_policy(doc)], device="cpu")')),
+         # the upstream fixture corpus (absent here, as for the JAX case)
+         ("TestBackgroundScan.test_scan_snapshot",)),
         ("tests/runtime/test_webhook_keepalive.py", (_CPU_CACHE,), ()),
         ("tests/runtime/test_admission_smoke.py", (_CPU_CACHE,), ()),
-        ("tests/runtime/test_auth_migrations.py", (
-            _CPU_CACHE,
-            # runtime/migrations.py waits for the next slice
-            ("from kyverno_tpu_torch.runtime.migrations import "
-             "add_clone_labels, add_gr_labels\n", "")),
+        ("tests/runtime/test_auth_migrations.py", (_CPU_CACHE,),
+         # mirrored in test_torch_server.py, with the controller
          ("TestMigrations",))):
     _exports = mirror_battery(_relpath, _subs, _drop)
     _clash = set(_exports) & set(globals())
