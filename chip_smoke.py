@@ -19,6 +19,9 @@ its plain PyTorch version.
                                          # garbage collector)
     python3 chip_smoke.py --webhook      # build + the [webhook] phase alone
     python3 chip_smoke.py --controller   # build + the [controller] phase alone
+    python3 chip_smoke.py --analysis     # build + the [analysis] phase alone
+    python3 chip_smoke.py --admission 8 --pool-workers 4  # [admission]
+                                         # with the oracle pool at 4 workers
 
 Phases:
   1. build     nvcc builds every kernel of kyverno_tpu_torch/csrc into
@@ -181,19 +184,36 @@ Phases:
                equal, and equal to documents written out by hand; a CRD's
                schema through schemas_from_crd -> register_schema ->
                validate_resource, CrdSync and validate_policy_mutation
+10b. analysis the analysis plane: the differential fuzz
+               (kyverno_tpu_torch.analysis.difffuzz, the configuration the
+               JAX package is gated on: 1,000 cases, batch 24, seed
+               20260805, the pipeline and stream legs) on the card with
+               the launch counters set to 0 just before: no divergence,
+               device-decided cells, messages checked, stream rows, K1
+               and eval_rules launched, K6 dispatches on the stream
+               leg's set; certify_policies and analyze_policies over the
+               library and its autogen'd 670 rules, no KT401 and the
+               counts pinned to the JAX package's; the CLI as
+               subprocesses (lint --self, lint --certify over the
+               library, apply of the library to 8 Pods, its failures
+               equal to evaluate()'s FAIL cells on the card); an
+               IncrementalCompiler on the card over the 670 rules, its
+               refresh certified (KTPU_CERTIFY) with no divergent rule,
+               one-policy refreshes timed with the certifier on and off,
+               and the policy cache's admission lint timed on and off
 11. background the background scan path, each run with the launch
                counters set to 0 just before and read just after.
                [background]: BackgroundScanner over the library with a
-               ReportGenerator, 10,000 resources, through the single
-               lane (KTPU_INCREMENTAL=0), the incremental lane and the
-               1D mesh of the card: each lane's responses (and the
-               incremental lane's verdict_matrix()) state the pinned
-               resolved matrix; violations, rule results, responses and
-               aggregate()'s per-policy totals equal across lanes; the
-               2D (4, 1) mesh of the card over the first 2,000 (its
-               10,000 are [mesh2d]'s), its matrix equal to the 1D
-               lane's first rows and its counts and totals to that
-               matrix's; the launches each
+               ReportGenerator through each lane: the incremental lane
+               over 10,000 resources, its responses and verdict_matrix()
+               stating the pinned resolved matrix; the single lane
+               (KTPU_INCREMENTAL=0) and the 1D mesh of the card over the
+               first 2,000 (their 10,000 are [evaluate]'s and [mesh]'s
+               paths) and the 2D (4, 1) mesh over the first 2,000 (its
+               10,000 are [mesh2d]'s), each matrix equal to the
+               incremental lane's first rows; each lane's violations,
+               rule results, responses and aggregate()'s per-policy
+               totals equal to its matrix's; the launches each
                lane must make; then a one-policy update, 90 MODIFIED and
                10 DELETED watch events and delta_scan(), whose
                verdict_matrix() equals a fresh scanner's full scan.
@@ -826,6 +846,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the script's clock: seconds since the start at the end of each phase
+T_START = time.perf_counter()
+CLOCK: list = []
+
+
+def mark(phase: str) -> None:
+    CLOCK.append((phase, round(time.perf_counter() - T_START, 1)))
+    log(f"[clock] {phase} ended {CLOCK[-1][1]} s after the script started")
+
+
 def check(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
@@ -1421,6 +1451,9 @@ def split_line(split: dict) -> str:
 
 # the first rows of the 10,000 that [background]'s 2D (4, 1) lane scans
 BACKGROUND_2D_ROWS = 2_000
+# the single and 1D mesh lanes scan the first BACKGROUND_LANE_ROWS (cut
+# for the time limit; the incremental lane scans all n)
+BACKGROUND_LANE_ROWS = 2_000
 # the objects the garbage collector tracks when a full run reaches
 # [admission] (383,731 on an H100 machine): --heap fills an
 # --admission run's heap to this size
@@ -1430,6 +1463,10 @@ FULL_RUN_HEAP = 383_731
 COLD_FLUSH = None
 # each timed burst's routing counters, in order
 BURST_STATS: list = []
+# --pool-workers: None sizes the oracle pool as the pool does (cores - 1)
+POOL_WORKERS = None
+# a scheduling-lag sample this late (ms) is a stall
+STALL_MS = 10.0
 
 
 def fill_heap(target: int) -> list:
@@ -1463,14 +1500,14 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
     from kyverno_tpu_torch.api.load import load_policy
     from kyverno_tpu_torch.models import Verdict, engine
     from kyverno_tpu_torch.ops import _build
-    from kyverno_tpu_torch.runtime import hostlane, tracing
+    from kyverno_tpu_torch.runtime import featureplane, hostlane, tracing
     from kyverno_tpu_torch.runtime.batch import (ATTENTION, CLEAN, ORACLE,
                                                  AdmissionBatcher)
     from kyverno_tpu_torch.runtime.oracle_pool import MIN_CORES, OraclePool
     from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
 
     enf = PolicyType.VALIDATE_ENFORCE
-    check(os.environ.get("KTPU_INCREMENTAL", "1") not in ("0", "false", ""),
+    check(featureplane.enabled_strict("KTPU_INCREMENTAL"),
           "KTPU_INCREMENTAL is off")
     enforce = [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
                for d in library_docs]
@@ -1492,7 +1529,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
         f"on {cps.device}")
 
     batcher = AdmissionBatcher(cache)
-    pool = OraclePool()
+    pool = OraclePool(workers=POOL_WORKERS)
     resolver = hostlane.resolver()
     resolver.attach_pool(pool, cache)
     rec = tracing.recorder()
@@ -1602,24 +1639,28 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             pc0 = resolver.stats["pool_cells"]
             hits0, misses0 = pool.hits, pool.misses
             # the garbage collector's pauses inside the burst, by generation
-            pauses, started = [], {}
+            pauses, started, spans = [], {}, []
 
             def on_gc(phase, info):
                 if phase == "start":
                     started["t"] = time.perf_counter()
                 elif "t" in started:
-                    pauses.append((info["generation"], (
-                        time.perf_counter() - started.pop("t")) * 1e3))
+                    t1 = started.pop("t")
+                    now = time.perf_counter()
+                    pauses.append((info["generation"], (now - t1) * 1e3))
+                    spans.append((t1, now))
 
             # the main process's scheduling lag inside the burst: how late
             # a 1 ms sleep wakes up, which the GIL and the cores decide
-            lag, lag_stop = [], threading.Event()
+            lag, lag_at, lag_stop = [], [], threading.Event()
 
             def lag_sampler():
                 while not lag_stop.is_set():
                     t1 = time.perf_counter()
                     time.sleep(0.001)
-                    lag.append((time.perf_counter() - t1) * 1e3 - 1.0)
+                    t2 = time.perf_counter()
+                    lag.append((t2 - t1) * 1e3 - 1.0)
+                    lag_at.append((t1, t2))
 
             sampler = threading.Thread(target=lag_sampler, daemon=True)
             _build.reset_launches()
@@ -1640,8 +1681,20 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                      if isinstance(v, (int, float))}
             donated = {k: engine.DONATION_STATS[k] - d0[k] for k in d0}
             gc2 = [p for q, p in pauses if q == 2]
+            # the sampler's stalls (a wake-up STALL_MS or more late), apart
+            # by whether a collector's pause overlaps them
+            stalls = {"gc": [], "other": []}
+            for ms, (w0, w1) in zip(lag, lag_at):
+                if ms >= STALL_MS:
+                    stalls["gc" if any(w0 < g1 and g0 < w1 for g0, g1 in spans)
+                           else "other"].append(ms)
+            stall = {k: (len(v), round(sum(v), 1), round(max(v, default=0.0),
+                                                         1))
+                     for k, v in stalls.items()}
             BURST_STATS.append(dict(stats, gc2_ms=sum(gc2),
-                                    gc2_max_ms=max(gc2, default=0.0)))
+                                    gc2_max_ms=max(gc2, default=0.0),
+                                    stall_gc_ms=stall["gc"][1],
+                                    stall_other_ms=stall["other"][1]))
             # the device-answered requests (a device row: CLEAN, or
             # ATTENTION with its cells) apart from those the screen gave
             # up on (ATTENTION with no cells: a timeout, a cold release
@@ -1681,6 +1734,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                     "pool_misses": pool.misses - misses0,
                     "lag": (percentiles(lag)[1] if lag else 0.0,
                             max(lag, default=0.0)),
+                    "stall": stall,
                     "rps": n_req / burst_s,
                     "device_rps": len(by["device"]) / burst_s}
 
@@ -1742,7 +1796,10 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                   f"{res['pool_hits']} calls, {res['pool_misses']} pool "
                   f"misses (a timeout or a refusal); garbage-collector "
                   f"pauses {res['gc']}; scheduling lag p99, max "
-                  f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms")
+                  f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms; stalls of "
+                  f"{STALL_MS} ms or more (count, total ms, largest ms) "
+                  f"during a collector's pause {res['stall']['gc']}, "
+                  f"outside one {res['stall']['other']}")
             # every answer without a device row is accounted for: a flush
             # never fails, and each ATTENTION with no cells is a screen
             # timeout or a flush's release of its waiter (a cold bucket)
@@ -1807,7 +1864,10 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 f"generation (count, total ms, largest ms): {res['gc']}; "
                 f"pool misses {res['pool_misses']}; the main process's "
                 f"scheduling lag p99 {res['lag'][0]:.3f} ms, max "
-                f"{res['lag'][1]:.3f} ms")
+                f"{res['lag'][1]:.3f} ms; its stalls of {STALL_MS} ms or "
+                f"more (count, total ms, largest ms) during a collector's "
+                f"pause {res['stall']['gc']}, outside one "
+                f"{res['stall']['other']}")
             runs.setdefault(label, []).append(res)
         out["burst"] = runs["donate on"][0]
         log(f"[admission] K6 slots allocated {engine.K6_ALLOC['slots'] - a0['slots']} "
@@ -1871,9 +1931,14 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 first = warm[0][2]
                 break
         check(first is not None, "[admission] no warm flush after the update")
+        certified = cache._incremental[(int(enf), "Pod", "default")] \
+            .last_refresh_certify
+        check(certified and not certified.get("divergent"),
+              f"[admission] the refresh certified {certified}")
         log(f"[admission] one-policy update ({name}): refresh "
             f"{refresh_s:.4f} s = host compile {cs['seconds'] - cps2.plan_s:.4f} "
-            f"s (1 segment recompiled, {cs['segments_reused']} reused) + plan "
+            f"s (1 segment recompiled, {cs['segments_reused']} reused, its "
+            f"rules certified: {certified}) + plan "
             f"and K1 tables {cps2.plan_s:.4f} s; the first warm flush after "
             f"it {first.duration_s * 1e3:.3f} ms ({first.labels.get('batch')} "
             f"rows; spans, ms: {span_summary([first])}); the pool's workers "
@@ -2465,6 +2530,41 @@ def device_rows(cps, m: np.ndarray) -> list:
             for row in m]
 
 
+def cold_bucket_rows(policy_cache, cps, wire_rows: list,
+                     row_want: list) -> dict:
+    """ROW frames through a fresh AdmissionBatcher over ``policy_cache``,
+    cold release on as in the controller's: it has seen no shape bucket,
+    so its first flush is cold, and every frame still gets its device row
+    (one whose screen gave up at its deadline counts as a stream timeout).
+    Returns the batcher's counters and the buckets it warmed."""
+    from kyverno_tpu_torch.runtime.batch import AdmissionBatcher
+    from kyverno_tpu_torch.runtime.policycache import PolicyType
+
+    b = AdmissionBatcher(policy_cache, cold_flush_fallback=True)
+    try:
+        _, ans = stream_burst(lambda r: b.screen_row(
+            PolicyType.VALIDATE_ENFORCE, "Pod", "default", r), wire_rows)
+        gave_up = 0
+        for i, (_, (status, vrow)) in enumerate(ans):
+            if not vrow and row_want[i]:
+                gave_up += 1
+                continue
+            got = [[p, r, int(v), m] for p, r, v, m in vrow]
+            check(got == row_want[i], f"[controller] cold buckets: ROW "
+                  f"frame {i}: {status} {got} against the device row "
+                  f"{row_want[i]}")
+        buckets = len(b._seen_shapes.get(cps, ()))
+        stats = {k: b.stats.get(k, 0) for k in (
+            "stream_rows", "stream_timeout", "cold_release", "oracle")}
+        check(buckets >= 1 and gave_up == stats["stream_timeout"]
+              and gave_up < len(wire_rows) and not stats["cold_release"],
+              f"[controller] cold buckets: {gave_up} ROW frames without "
+              f"verdicts, {buckets} buckets warmed, counters {stats}")
+        return dict(stats, buckets=buckets)
+    finally:
+        b.stop()
+
+
 def flush_traces(rec) -> list:
     return [tr for tr in rec.traces(8192) if tr.kind == "flush"
             and {"device_dispatch", "cold_dispatch"} & tr.stage_names()]
@@ -2494,7 +2594,9 @@ def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
     equal to the webhook's own handle() and to the oracle lane's (under
     same_answer's rule); 256 ROW frames, each verdict row the device
     matrix's row (a frame whose flush missed the screen's deadline
-    escalates with none, and is counted as a stream timeout); 16 BLOCK
+    escalates with none, and is counted as a stream timeout), and 16 of
+    them again through a fresh batcher whose first flushes are cold,
+    each still the device matrix's row; 16 BLOCK
     frames of 64 rows tokenized with the leader's compiled set, each row
     evaluate_device's, a row with a HOST cell escalated; no frame, block or shape error; K6 dispatches and the
     launches counted; a donated block's host buffer unchanged. A
@@ -2732,6 +2834,7 @@ def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
                      for i in range(STREAM_BLOCK_ROWS)]
             blk = flatten_block_for_wire(cps, chunk)
             blocks.append((blk, cps.evaluate_device(blk)))
+        row_stats = dict(leader.admission_batcher.stats)
         svc = profiling.capture_service()
         with WideRing():
             rec.clear()
@@ -2790,9 +2893,16 @@ def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
         b_now = leader.admission_batcher.stats
         timeouts = (b_now.get("stream_timeout", 0)
                     - b_stats.get("stream_timeout", 0))
+        moved = {k: v - row_stats.get(k, 0) for k, v in b_now.items()
+                 if isinstance(v, (int, float)) and v != row_stats.get(k, 0)}
         check(gave_up == timeouts and gave_up < STREAM_ROWS,
               f"[controller] {gave_up} ROW frames without verdicts, "
-              f"{timeouts} stream timeouts")
+              f"{timeouts} stream timeouts; the batcher's counters over "
+              f"the frames moved {moved}; the leader's compiled Pod set "
+              f"{'is' if leader.policy_cache.compiled(enf, 'Pod', 'default') is cps else 'is not'}"
+              f" the one the rows were tokenized against")
+        cold_b = cold_bucket_rows(leader.policy_cache, cps, wire_rows[:16],
+                                  row_want[:16])
         plane = ss.plane.stats
         check(not plane.get("frame_errors") and not plane.get("block_errors")
               and not b_now.get("stream_shape_reject"),
@@ -2837,6 +2947,8 @@ def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
         check(mem.get("platform") == "cuda" and mem.get("bytes_in_use", 0) > 0,
               f"[controller] device memory {idle['device_memory']}")
         s_rows = sum(int(tr.labels.get("batch", 0)) for tr in s_flushes)
+        cold_rf = [tr for tr in s_flushes
+                   if "cold_dispatch" in tr.stage_names()]
         n_s = {k: b_now.get(k, 0) - b_stats.get(k, 0) for k in (
             "stream_rows", "stream_blocks", "stream_block_rows",
             "stream_timeout", "screen_timeout")}
@@ -2847,9 +2959,14 @@ def controller_phase(n: int = CONTROLLER_RESOURCES) -> dict:
                 "BLOCK (64 rows)", block_ans[:STREAM_BLOCKS], block_s)
             + f" and {extra} more inside the capture; every verdict row the "
             f"device matrix's ({gave_up} ROW frames gave up at the screen's "
-            f"deadline and escalated), {escalated} block rows escalated "
+            f"deadline and escalated), "
+            f"{escalated} block rows escalated "
             f"(each with a HOST cell or more); batcher {n_s}; {len(s_flushes)} ROW "
-            f"flushes, {s_rows / max(1, len(s_flushes)):.2f} rows a flush; "
+            f"flushes, {s_rows / max(1, len(s_flushes)):.2f} rows a flush, "
+            f"{len(cold_rf)} of them the first use of a shape bucket "
+            f"({sum(int(tr.labels.get('batch', 0)) for tr in cold_rf)} rows,"
+            f" answered by the card); a fresh batcher's first flushes, "
+            f"each cold: 16 ROW screens, each its device row, {cold_b}; "
             f"launches {stream_launches}; K6 {stream_k6}; plane {plane}; a "
             f"donated block: K6 {donated}, host buffer unchanged; {smi}")
         log(f"[controller] /debug/profile?seconds={PROFILE_S:g}: "
@@ -3257,17 +3374,22 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
     mesh_2d = mesh_mod.make_mesh([torch.device("cuda", 0)] * 4, shape=(4, 1))
     # lane: (environment, mesh, expected launches of K1, eval_rules and
     # its counts form, rows); a mesh lane's counts forms are held to the
-    # plain counts as in [mesh]. The 2D (4, 1) lane (the scanner's own
-    # ShardedPolicySet) scans the first BACKGROUND_2D_ROWS only, [mesh2d]
-    # having scanned all 10,000 on that mesh: its matrix is held to the
-    # 1D lane's first rows, and its counts to that matrix
+    # plain counts as in [mesh]. The incremental lane scans all n, held to
+    # the pinned sha256; the single and 1D lanes scan the first
+    # BACKGROUND_LANE_ROWS ([evaluate] and [mesh] hold those paths at
+    # 10,000 and more), the 2D (4, 1) lane (the scanner's own
+    # ShardedPolicySet) the first BACKGROUND_2D_ROWS, [mesh2d] having
+    # scanned all 10,000 on that mesh: their matrices are held to the
+    # incremental lane's first rows, and their counts to those matrices
     kernels = ("glob_nfa", "eval_rules", "eval_rules_counts")
-    lanes = [("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0), n),
-             ("incremental", {}, None, (1, 1, 0), n),
-             ("mesh 1D", {}, mesh_1d, (1, 0, 1), n),
+    lanes = [("incremental", {}, None, (1, 1, 0), n),
+             ("single", {"KTPU_INCREMENTAL": "0"}, None, (1, 1, 0),
+              min(n, BACKGROUND_LANE_ROWS)),
+             ("mesh 1D", {}, mesh_1d, (1, 0, 1),
+              min(n, BACKGROUND_LANE_ROWS)),
              ("mesh 2D (4, 1)", {}, mesh_2d, (4, 0, 4),
               min(n, BACKGROUND_2D_ROWS))]
-    seen, out, m_1d = None, {}, None
+    out, m_inc = {}, None
     for name, env, mesh, want, rows in lanes:
         lane_res = resources[:rows]
         saved = {k: os.environ.get(k) for k in env}
@@ -3303,9 +3425,9 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
                   f"[background] {name}: the responses' matrix sha256 "
                   f"{matrix_sha(m)} != {EXPECTED_EVAL_SHA}")
         else:
-            check(np.array_equal(m, m_1d[:rows]),
+            check(np.array_equal(m, m_inc[:rows]),
                   f"[background] {name}: the responses' matrix of the "
-                  f"first {rows} rows differs from the 1D lane's")
+                  f"first {rows} rows differs from the incremental lane's")
         state = sc.verdict_matrix()
         check((state is not None) == (name == "incremental"),
               f"[background] {name}: verdict_matrix() {state is not None}")
@@ -3320,18 +3442,11 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
         aggregate_s = time.perf_counter() - t0
         key = (result.violations, result.rules_evaluated,
                len(result.responses), totals)
-        if rows == n:
-            if seen is None:
-                seen = key
-            check(key == seen, f"[background] {name}: violations, rules, "
-                  f"responses or report totals differ from the first "
-                  f"lane's")
-        else:
-            want_key = matrix_key(m, sc.cps.rule_refs)
-            check(key == want_key, f"[background] {name}: violations, "
-                  f"rules, responses and report totals "
-                  f"{key[:3]} differ from its matrix's {want_key[:3]}"
-                  f"{'' if key[3] == want_key[3] else ' (report totals)'}")
+        want_key = matrix_key(m, sc.cps.rule_refs)
+        check(key == want_key, f"[background] {name}: violations, rules, "
+              f"responses and report totals {key[:3]} differ from its "
+              f"matrix's {want_key[:3]}"
+              f"{'' if key[3] == want_key[3] else ' (report totals)'}")
         log(f"[background] {name}: {rows} resources, scan {scan_s:.3f} s "
             f"= evaluate "
             f"{split['scan_evaluate']:.3f} + responses "
@@ -3341,19 +3456,16 @@ def background_phase(library_docs: list, mesh_1d, n: int = 10_000) -> dict:
             f"{aggregate_s:.3f} s; "
             f"{result.violations} violations, {result.rules_evaluated} rule "
             f"results, {len(result.responses)} responses, report totals of "
-            f"{len(totals)} policies "
-            + ("equal across lanes" if rows == n else "as its matrix states")
-            + f"; launches {launches}; "
+            f"{len(totals)} policies as its matrix states; launches "
+            f"{launches}; "
             + (f"sha256 {EXPECTED_EVAL_SHA[:8]}…" if rows == n else
-               f"matrix equal to the 1D lane's first {rows} rows")
+               f"matrix equal to the incremental lane's first {rows} rows")
             + (f"; K7's program a shard, counts equal to the plain "
                f"version's, between events: {checked.times()}"
                if mesh is not None else ""))
         out[name] = {"launches": launches, "scan_s": scan_s}
-        if name == "mesh 1D":
-            m_1d = m
         if name == "incremental":
-            inc = (sc, reports)
+            m_inc, inc = m, (sc, reports)
         del sc, reports, result
         gc.collect()
 
@@ -4408,6 +4520,217 @@ def actions_phase(n_pods: int = 1000, n_namespaces: int = 1000) -> dict:
     return out
 
 
+# ------------------------------------------------------------- analysis
+# the JAX package's certify gate (deploy/certify_smoke.py:158-170): run_fuzz
+# at its defaults (batch 24, seed 20260805, pipeline and stream legs)
+ANALYSIS_FUZZ_CASES = 1000
+# the JAX package's analysis plane on the CPU over the same policies
+# (tests/test_torch_analysis.py holds these to it): certify_policies'
+# statuses and analyze_policies' codes, for the library and its
+# autogen'd form; the refresh's statuses are the autogen'd form's
+EXPECTED_CERTIFY = {
+    "library 250": {"incomplete": 168, "certified": 80, "host": 2},
+    "autogen'd 670": {"incomplete": 504, "certified": 160, "host": 6}}
+EXPECTED_LINT = {
+    "library 250": {"KT101": 2, "KT102": 2, "KT110": 250},
+    "autogen'd 670": {"KT101": 6, "KT102": 2, "KT110": 250}}
+# the JAX CLI's exit code and summary lines on the same files
+# (write_cli_inputs; tests/test_torch_cli.py holds these to it)
+ANALYSIS_PODS = 8
+EXPECTED_CLI = {
+    "lint --self": (0, ["lint: 8 policies, 0 errors, 2 warnings, 9 info"]),
+    "lint --certify": (0, [
+        "lint: 250 policies, 0 errors, 22 warnings, 420 info",
+        "certify: certified=80, escalation_cells=80, host=2, "
+        "incomplete=168, states_checked=1400"]),
+    "apply": (1, ["pass: 1314, fail: 366, warn: 0, error: 0, skip: 0"])}
+
+
+def write_cli_inputs(tmp: str) -> dict:
+    """The library (one file a policy) and ANALYSIS_PODS Pods written
+    under ``tmp``; the argv of each EXPECTED_CLI entry over them."""
+    lib_dir = os.path.join(tmp, "library")
+    os.mkdir(lib_dir)
+    for i, d in enumerate(_synth_policy_docs(250)):     # JSON is YAML
+        with open(os.path.join(lib_dir, f"p{i:03d}.yaml"), "w") as f:
+            json.dump(d, f)
+    pods_file = os.path.join(tmp, "pods.yaml")
+    with open(pods_file, "w") as f:
+        f.write("".join(f"---\n{json.dumps(make_pod(i))}\n"
+                        for i in range(ANALYSIS_PODS)))
+    return {"lint --self": ["lint", "--self"],
+            "lint --certify": ["lint", "--certify", lib_dir],
+            "apply": ["apply", lib_dir, "-r", pods_file]}
+
+
+def run_cli(argv: list) -> tuple:
+    """``python -m kyverno_tpu_torch.cli *argv`` from the repo's root:
+    (exit code, stdout lines, seconds, stderr)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "kyverno_tpu_torch.cli",
+                          *argv], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    return out.returncode, out.stdout.splitlines(), \
+        time.perf_counter() - t0, out.stderr
+
+
+def analysis_phase(cases: int = ANALYSIS_FUZZ_CASES) -> dict:
+    """Phase 10b: the analysis plane on the card (module docstring).
+    Returns the fuzz's launches and K6 dispatches."""
+    import importlib.util
+    import tempfile
+
+    from kyverno_tpu_torch.analysis import analyze_policies, certify_policies
+    from kyverno_tpu_torch.analysis.difffuzz import run_fuzz
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.models import CompiledPolicySet, Verdict
+    from kyverno_tpu_torch.models.engine import IncrementalCompiler
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane, policycache
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache
+
+    phase0 = time.perf_counter()
+    # the verdict memo is process-wide: the fuzz's sets start from none
+    hostlane.host_cache().clear()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    report = run_fuzz(cases=cases, device="cuda")
+    fuzz_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    for d in report.diagnostics()[:8]:
+        log(f"[analysis] {d.format()[:2000]}")
+    check(report.ok(), f"[analysis] the fuzz found {len(report.divergences)} "
+          "divergence(s)")
+    check(report.cases >= cases and report.device_cells > 0
+          and report.messages_checked > 0 and report.stream_rows > 0,
+          f"[analysis] fuzz report {report}")
+    for k in EVALUATE_KERNELS:
+        check(launches[k] > 0, f"[analysis] {k} was not launched by the fuzz")
+    check(report.stream_dispatches > 0, "[analysis] the stream leg's set "
+          "dispatched nothing through K6")
+    check(report.stream_timeouts == 0 and report.stream_circuit_open == 0
+          and report.stream_refused == 0, f"[analysis] the stream leg's "
+          f"screens: {report.stream_timeouts} gave up at their deadline, the "
+          f"breaker opened {report.stream_circuit_open} times and turned "
+          f"{report.stream_refused} rows away")
+    log(f"[analysis] difffuzz on the card: {report.cases} cases, "
+        f"{report.device_cells} device-decided cells, "
+        f"{report.escalated_cells} escalated, {report.messages_checked} "
+        f"messages checked, {report.stream_rows} stream rows, no divergence "
+        f"in {fuzz_s:.3f} s; launches {launches}; the stream leg's K6 "
+        f"dispatches {report.stream_dispatches}, no screen timeout, no "
+        f"breaker opening, no row turned away")
+
+    # certify and lint over the library and the set the server serves
+    docs = _synth_policy_docs(250)
+    steps = policy_steps()
+    autogen, errors = autogen_policies(docs, steps)
+    check(not errors, f"[analysis] policy webhook errors {errors[:3]}")
+    for label, pols in (("library 250", [load_policy(d) for d in docs]),
+                        ("autogen'd 670", autogen)):
+        t0 = time.perf_counter()
+        cert = certify_policies(pols)
+        cert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lint = analyze_policies(pols)
+        lint_s = time.perf_counter() - t0
+        codes = {}
+        for d in lint.diagnostics:
+            codes[d.code] = codes.get(d.code, 0) + 1
+        check(not cert.divergences, f"[analysis] {label}: KT401 "
+              f"{[d.format() for d in cert.divergences[:3]]}")
+        check(cert.counts() == EXPECTED_CERTIFY[label],
+              f"[analysis] {label}: certify {cert.counts()}")
+        check(codes == EXPECTED_LINT[label], f"[analysis] {label}: lint "
+              f"{codes}")
+        log(f"[analysis] {label}: certify_policies {cert.counts()} "
+            f"({cert.states_checked} states, no KT401) in {cert_s:.3f} s; "
+            f"analyze_policies {len(lint.diagnostics)} diagnostics {codes} "
+            f"in {lint_s:.3f} s")
+
+    # the CLI, as a user runs it; its file loaders need PyYAML
+    if importlib.util.find_spec("yaml") is None:
+        log("[analysis] CLI: not run, PyYAML is absent on this machine "
+            "(the CLI's loaders read YAML)")
+    else:
+        pods = [make_pod(i) for i in range(ANALYSIS_PODS)]
+        with tempfile.TemporaryDirectory() as tmp:
+            for label, argv in write_cli_inputs(tmp).items():
+                rc, lines, secs, err = run_cli(argv)
+                want_rc, want_lines = EXPECTED_CLI[label]
+                check(rc == want_rc and all(w in lines for w in want_lines),
+                      f"[analysis] {label}: exit {rc}, {lines[-3:]} {err[-500:]}")
+                log(f"[analysis] python -m kyverno_tpu_torch.cli {label}: "
+                    f"exit {rc}, {len(lines)} lines, {want_lines} "
+                    f"({secs:.3f} s)")
+        # apply's failures are the card's FAIL cells on the same Pods
+        lib = CompiledPolicySet([load_policy(d) for d in docs])
+        m = np.asarray(lib.evaluate(pods))
+        fails = int((m == Verdict.FAIL).sum())
+        check(f"fail: {fails}," in EXPECTED_CLI["apply"][1][0],
+              f"[analysis] evaluate() on the card has {fails} FAIL cells")
+        log(f"[analysis] evaluate() of the library on the card over the "
+            f"{ANALYSIS_PODS} Pods: {fails} FAIL cells, apply's failures")
+
+    # KTPU_CERTIFY on the card: an incremental refresh over the 670 rules,
+    # then one-policy refreshes with the certifier on and off, in turns
+    ic = IncrementalCompiler(device="cuda")
+    t0 = time.perf_counter()
+    cps = ic.refresh(autogen)
+    first_s = time.perf_counter() - t0
+    cert = ic.last_refresh_certify
+    check(cps.device.type == "cuda" and not cert.get("divergent")
+          and cert == EXPECTED_CERTIFY["autogen'd 670"],
+          f"[analysis] refresh on {cps.device}: certified {cert}")
+    log(f"[analysis] IncrementalCompiler on {cps.device}: the 670 rules' "
+        f"first refresh {first_s:.3f} s (plan {cps.plan_s:.3f} s), "
+        f"last_refresh_certify {cert}")
+    times = {"on": [], "off": []}
+    pols = list(autogen)
+    for i, mode in enumerate(("on", "off", "off", "on", "on", "off")):
+        pols[i] = autogen_policies([docs[i]], steps)[0][0]
+        if mode == "off":
+            os.environ["KTPU_CERTIFY"] = "0"
+        try:
+            t0 = time.perf_counter()
+            ic.refresh(pols)
+            times[mode].append(time.perf_counter() - t0)
+        finally:
+            os.environ.pop("KTPU_CERTIFY", None)
+        check(ic.last_refresh["recompiled"] == 1,
+              f"[analysis] a one-policy refresh {ic.last_refresh}")
+        if mode == "on":
+            check(not ic.last_refresh_certify.get("divergent")
+                  and not ic.last_refresh_certify.get("unchecked"),
+                  f"[analysis] certified {ic.last_refresh_certify}")
+    log(f"[analysis] one-policy refreshes of the 670 rules on the card, s: "
+        f"certifier on {[round(x, 4) for x in times['on']]}, off "
+        f"{[round(x, 4) for x in times['off']]}")
+
+    # the policy cache's admission lint, on and off
+    lint_s = {}
+    for on in (True, False, False, True):
+        saved = policycache.LINT_ON_ADMISSION
+        policycache.LINT_ON_ADMISSION = on
+        try:
+            cache = PolicyCache()
+            t0 = time.perf_counter()
+            for p in autogen:
+                cache.add(p)
+            lint_s.setdefault(on, []).append(time.perf_counter() - t0)
+        finally:
+            policycache.LINT_ON_ADMISSION = saved
+        check(len(cache.lint_reports) == (len(autogen) if on else 0),
+              f"[analysis] {len(cache.lint_reports)} lint reports")
+    log(f"[analysis] PolicyCache.add of the {len(autogen)} autogen'd "
+        f"policies, s: admission lint on {[round(x, 3) for x in lint_s[True]]}"
+        f", off {[round(x, 3) for x in lint_s[False]]}")
+    log(f"[analysis] phase wall {time.perf_counter() - phase0:.3f} s; "
+        f"{nvidia_smi_line()}")
+    return {"launches": launches, "k6": report.stream_dispatches,
+            "fuzz_s": fuzz_s}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4437,6 +4760,11 @@ def main() -> int:
                     help="build, then only the [webhook] phase")
     ap.add_argument("--controller", action="store_true",
                     help="build, then only the [controller] phase")
+    ap.add_argument("--pool-workers", type=int, default=None, metavar="N",
+                    help="with --admission: size the oracle pool at N "
+                         "workers (default: the pool's own, cores - 1)")
+    ap.add_argument("--analysis", action="store_true",
+                    help="build, then only the [analysis] phase")
     ap.add_argument("--all-cards", action="store_true",
                     help="build, then only the mesh scan over every card of "
                          "the host against the one-card scan (needs 2 or more)")
@@ -4491,9 +4819,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     if args.admission:
-        global COLD_FLUSH
+        global COLD_FLUSH, POOL_WORKERS
         if args.cold_flush is not None:
             COLD_FLUSH = args.cold_flush == "on"
+        POOL_WORKERS = args.pool_workers
         library_docs = _synth_policy_docs(250)
         ballast = fill_heap(FULL_RUN_HEAP) if args.heap else []
         gc.collect()
@@ -4528,7 +4857,13 @@ def main() -> int:
             f"bursts {sum(b['gc2_ms'] for b in BURST_STATS):.1f} ms, the "
             f"largest "
             f"{max((b['gc2_max_ms'] for b in BURST_STATS), default=0.0):.1f} "
-            f"ms")
+            f"ms; oracle pool workers {args.pool_workers or 'default'}; "
+            f"stalls of {STALL_MS} ms or more in the bursts, total ms: "
+            f"during a collector's pause "
+            f"{sum(b['stall_gc_ms'] for b in BURST_STATS):.1f}, outside one "
+            f"{sum(b['stall_other_ms'] for b in BURST_STATS):.1f}; per burst "
+            f"(outside, during): "
+            f"{[(b['stall_other_ms'], b['stall_gc_ms']) for b in BURST_STATS]}")
         log(f"[admission] {len(failed)} of {args.admission} runs failed "
             f"{failed}; {nvidia_smi_line()}")
         if failed:
@@ -4546,6 +4881,13 @@ def main() -> int:
         return 0
     if args.controller:
         controller_phase()
+        log(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.analysis:
+        analysis_phase()
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
@@ -4658,6 +5000,7 @@ def main() -> int:
         pipelined_phase(lib_cps, 1000, chunk=256)
         autogen_phase(1000)
         actions_phase(200, 200)
+        analysis_phase(200)
         webhook_phase(_synth_policy_docs(250), quick=True)
         check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
               f"native flattener fallbacks {native_flatten.FALLBACKS}")
@@ -4732,21 +5075,26 @@ def main() -> int:
         f"{int(scan_tot[0].sum())}, passes {int(scan_tot[1].sum())}, host rows "
         f"{scan_host_rows}; {nvidia_smi_line()}")
 
+    mark("main")
     # ---- 5. evaluate(): the device verdicts, then the host lane
     eval_launches = evaluate_phase(cps, 10_000, anchor, device_v=verdicts)
 
     # ---- 6. evaluate_pipelined(): chunks overlapped with the host lane
+    mark("evaluate")
     pipe_launches = pipelined_phase(cps, 10_000, chunk=1024)
+    mark("pipelined")
     check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
           f"native flattener fallbacks {native_flatten.FALLBACKS}")
 
     # ---- 7. admission: the policy cache, the batcher, K6 and the pool
     admission = admission_phase(library_docs)
+    mark("admission")
 
     # ---- 7b. webhook: the same path behind the port's WebhookServer
     t0 = time.perf_counter()
     webhook = webhook_phase(library_docs)
     log(f"[webhook] phase wall {time.perf_counter() - t0:.3f} s")
+    mark("webhook")
 
     # ---- 7c. controller: two replicas of the controller process, their
     # webhooks over HTTP, the leader's scan, the stream plane, a profile
@@ -4754,10 +5102,12 @@ def main() -> int:
     t0 = time.perf_counter()
     controller = controller_phase()
     log(f"[controller] phase wall {time.perf_counter() - t0:.3f} s")
+    mark("controller")
 
     # ---- 8. mutate: BASELINE config 4 through the BatchMutator, its gate
     # (K1 -> eval_rules a chunk, then the host lane) on the card
     mutate = mutate_phase()
+    mark("mutate")
 
     # ---- 9-10. autogen: the library as the server autogens it, screened
     # on the card; then the host planes of verifyImages, generate, OpenAPI
@@ -4767,6 +5117,13 @@ def main() -> int:
     actions_phase()
     log(f"[autogen] phase wall {t1 - t0:.3f} s; [actions] phase wall "
         f"{time.perf_counter() - t1:.3f} s")
+    mark("autogen and actions")
+
+    # ---- 10b. analysis: the differential fuzz on the card (K1 ->
+    # eval_rules, evaluate_pipelined, K6), the certifier and the lint over
+    # the library, the CLI, and the certifier on an incremental refresh
+    analysis = analysis_phase()
+    mark("analysis")
 
     # ---- 11. the background scan path: the scanner's lanes with reports
     # and a delta pass; K7 on the 2D (4, 1) mesh of the card, then on the
@@ -4776,8 +5133,10 @@ def main() -> int:
 
     mesh_1d = make_mesh([torch.device("cuda", 0)])
     background = background_phase(library_docs, mesh_1d)
+    mark("background")
     mesh2d_launches, mesh2d_matrix = mesh2d_phase(cps, mesh_1d)
     mesh = mesh_phase(cps, mesh_1d, mesh2d_matrix)
+    mark("mesh2d and mesh")
     del mesh2d_matrix
     gc.collect()
 
@@ -4885,6 +5244,7 @@ def main() -> int:
                           "http": controller["http"]["launches"].get(name),
                           "stream": controller["stream"]["launches"].get(
                               name)},
+                      "analysis_launches": analysis["launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],
@@ -4991,6 +5351,8 @@ def main() -> int:
         if name in KERNEL_SOURCES:
             src, repl = KERNEL_SOURCES[name]
             kernels.append({**row, "source": src, "replaces": repl})
+    mark("scan and times")
+    log(f"[clock] {CLOCK}")
     log(f"{smi}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

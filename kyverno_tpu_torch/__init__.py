@@ -39,8 +39,17 @@ Layer map:
                                   verdict reduction, scan counts, per-rule
                                   counts), each beside its plain PyTorch
                                   version
-  - ``kyverno_tpu_torch.utils``   wildcards, quantities, durations and a
-                                  self-contained P-256 ECDSA (``ecdsa``)
+  - ``kyverno_tpu_torch.analysis`` static analysis of policies (KT1xx-
+                                  KT3xx lint), the KT4xx certifier, the
+                                  KT5xx switch lint and the differential
+                                  fuzz that holds the card to the oracle
+  - ``kyverno_tpu_torch.cli``     ``python -m kyverno_tpu_torch.cli``:
+                                  apply, test, validate, render-chart,
+                                  lint, version
+  - ``kyverno_tpu_torch.utils``   wildcards, quantities, durations, a
+                                  self-contained P-256 ECDSA (``ecdsa``),
+                                  the chart renderer (``helmlite``) and
+                                  the compile-cache switches
   - ``kyverno_tpu_torch.convert`` carry compiled state from numpy
 """
 

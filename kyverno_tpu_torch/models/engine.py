@@ -35,6 +35,7 @@ card and no explicit CPU request the constructor raises.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -60,6 +61,8 @@ from .compiler import (
 )
 from .flatten import FlatBatch
 from .ir import compile_rule_ir
+
+logger = logging.getLogger(__name__)
 
 
 class Verdict(IntEnum):
@@ -759,8 +762,8 @@ class IncrementalCompiler:
     width (verdicts are sliced back to ``n_rules_logical``). Every set it
     returns is a :class:`CompiledPolicySet` on ``device`` (its plan built
     there); :meth:`refresh_sharded` also cuts the population into policy
-    shards (:class:`ShardedPolicySet`). The JAX package's certification
-    of the spliced segments is not here.
+    shards (:class:`ShardedPolicySet`). Each splice is certified
+    (:meth:`_certify_spliced`, KT4xx, behind ``KTPU_CERTIFY``).
 
     Not thread-safe on its own; PolicyCache serializes access under its
     lock."""
@@ -776,6 +779,7 @@ class IncrementalCompiler:
         self.stats = {"refreshes": 0, "segments_reused": 0,
                       "segments_recompiled": 0, "segments_dropped": 0}
         self.last_refresh: dict = {}
+        self.last_refresh_certify: dict = {}
 
     @staticmethod
     def _policy_key(policy) -> str:
@@ -837,6 +841,7 @@ class IncrementalCompiler:
                                    rule_bucket=self.rule_bucket)
         cps = CompiledPolicySet(policies, device=self.device,
                                 _parts=(rule_refs, rule_irs, tensors))
+        self._certify_spliced(tensors)
         self.stats["segments_reused"] += reused
         self.stats["segments_recompiled"] += len(recompiled_keys)
         self.stats["segments_dropped"] += len(dropped)
@@ -849,6 +854,44 @@ class IncrementalCompiler:
         self._last = cps
         self._last_sig = sig
         return cps
+
+    def _certify_spliced(self, tensors: PolicyTensors) -> None:
+        """KT4xx certification of the freshly spliced tensors, gated on
+        KTPU_CERTIFY. Only rules not yet stamped are certified (cached
+        segments carry their stamp across refreshes), so a storm of
+        single-policy updates pays one rule's worth of abstract
+        enumeration per splice, not the population's. Never raises: a
+        certifier failure must not take down admission; it surfaces as
+        the ``kyverno_certified_rules{status="divergent"}`` gauge and an
+        error log instead."""
+        try:
+            if not featureplane.enabled("KTPU_CERTIFY"):
+                return
+            from ..analysis.certify import certify_tensors
+
+            result = certify_tensors(
+                tensors, rule_filter=lambda ir: not ir.certified,
+                probe_discharge=False)
+            by_key = {(ir.policy_name, ir.rule_name): ir
+                      for ir in tensors.rules}
+            for key, status in result.statuses.items():
+                ir = by_key.get(key)
+                if ir is not None:
+                    ir.certified = status
+            for d in result.diagnostics:
+                if d.code == "KT401":
+                    logger.error("certify: %s", d.format())
+            counts: dict[str, int] = {}
+            for ir in tensors.rules:
+                counts[ir.certified or "unchecked"] = (
+                    counts.get(ir.certified or "unchecked", 0) + 1)
+            self.last_refresh_certify = counts
+            from ..runtime.metrics import record_certified_rules, registry
+
+            record_certified_rules(registry(), counts)
+        except Exception:
+            logger.exception("certification of spliced segments failed "
+                             "(admission unaffected)")
 
     def compile_candidate(self, policy) -> CompiledPolicySet:
         """Isolated single-policy compile for the dry-run service: the

@@ -1183,11 +1183,21 @@ class AdmissionBatcher:
             if cold and self.cold_flush_fallback and not is_probe:
                 # the first flush of a shape bucket — release the waiters
                 # to the oracle now and let this flush warm the bucket in
-                # the background for the next burst
-                with self._lock:
-                    self.stats["cold_release"] = (
-                        self.stats.get("cold_release", 0) + 1)
-                for *_, fut in items:
+                # the background for the next burst. Wire rows stay: they
+                # have no JSON body the oracle could walk (released, they
+                # would escalate with no verdicts), and on the card a cold
+                # bucket is a K6 slot's first use, not a compile. A
+                # stream flush of more distinct rows than any before it
+                # lands on a larger string-table bucket, so this is no
+                # rarity under a stream burst.
+                released = [fut for r, _, fut in items
+                            if not isinstance(r, PackedRow)
+                            and not fut.done()]
+                if released:
+                    with self._lock:
+                        self.stats["cold_release"] = (
+                            self.stats.get("cold_release", 0) + 1)
+                for fut in released:
                     if not fut.done():
                         # cold-fallback release: the device did NOT answer
                         if ft is not None:

@@ -32,6 +32,9 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
     _S("KTPU_INCREMENTAL", "kyverno_tpu_torch.models.compiler",
        "tests/test_torch_incremental.py", "1",
        "segment splicing, epoch-keyed memo survival, rule bucketing"),
+    _S("KTPU_CERTIFY", "kyverno_tpu_torch.models.engine",
+       "tests/test_torch_analysis.py", "1",
+       "KT4xx cross-layer certification of spliced segments on refresh"),
     # -- flatten plane
     _S("KTPU_NATIVE", "kyverno_tpu_torch.models.native_flatten",
        "tests/test_torch_native_flatten.py", "1",

@@ -7,8 +7,8 @@ implemented directly; the format is the stable text/plain 0.0.4 protocol).
 A periodic reset clears the registry like PromConfig's cron (metrics.go:17).
 
 The JAX package's recorders of planes the port does not have yet (the
-analysis plane's lint findings, the fleet fabric, the workload plane's
-replay and dry-run) come with those planes.
+fleet fabric, the workload plane's replay and dry-run) come with those
+planes.
 """
 
 from __future__ import annotations
@@ -755,6 +755,28 @@ def attribution_snapshot(limit: int = 0) -> dict:
 
 
 # ------------------------------------------------------- lint / certify
+
+
+def record_lint_finding(registry: MetricsRegistry, code: str,
+                        severity: str) -> None:
+    """One static-analysis finding (KT1xx-KT5xx); the analyzer calls
+    this per diagnostic so dashboards can rate() on lint regressions."""
+    registry.inc_counter("kyverno_lint_findings_total",
+                         {"code": code, "severity": severity})
+
+
+def record_certified_rules(registry: MetricsRegistry,
+                           counts: dict) -> None:
+    """KT4xx certification outcome of the last splice, one gauge series
+    per status ("certified" | "incomplete" | "host" | "divergent" |
+    "unchecked"). Absent statuses are zeroed so a rule population
+    shrinking out of "divergent" is visible as 0, not as a stale
+    series."""
+    for status in ("certified", "incomplete", "host", "divergent",
+                   "unchecked"):
+        registry.set_gauge("kyverno_certified_rules",
+                           {"status": status},
+                           float(counts.get(status, 0)))
 
 
 def lint_findings_snapshot(registry: MetricsRegistry) -> dict:

@@ -6,14 +6,16 @@ of each (kind, type, namespace) population, rebuilt lazily on change and
 incrementally by default (one ``IncrementalCompiler`` per population):
 the admission batcher's compiled sets, each on the cache's device.
 
-The JAX package's warn-only admission lint comes with the analysis
-plane; the compile bookkeeping (``compile_stats``, ``compile_totals``)
-and its churn metrics are here.
+Every policy entering the cache runs through the warn-only admission
+lint (``LINT_ON_ADMISSION``, the analysis plane); the compile
+bookkeeping (``compile_stats``, ``compile_totals``) and its churn
+metrics are here.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
 from enum import IntFlag
@@ -21,6 +23,14 @@ from enum import IntFlag
 from ..api.types import ClusterPolicy
 
 logger = logging.getLogger(__name__)
+
+# Warn-only admission lint: every policy entering the cache runs through
+# the static analyzer (kyverno_tpu_torch/analysis). Diagnostics are logged
+# and kept on the cache for inspection — a broken policy is still admitted
+# (Kyverno semantics: the API server accepted it; refusing here would
+# silently drop enforcement). Disable via env for perf-sensitive tests.
+LINT_ON_ADMISSION = os.environ.get(
+    "KYVERNO_TPU_LINT_ON_ADMISSION", "1") not in ("0", "false", "")
 
 
 class PolicyType(IntFlag):
@@ -54,6 +64,8 @@ class PolicyCache:
         self._compiled = {}
         self._generation = 0
         self._listeners: list = []
+        # policy key -> AnalysisReport from the warn-only admission lint
+        self.lint_reports: dict[str, object] = {}
         # (ptype, kind, namespace) -> IncrementalCompiler: per-population
         # segment caches + append-only dictionaries (KTPU_INCREMENTAL=1)
         self._incremental: dict[tuple, object] = {}
@@ -108,7 +120,35 @@ class PolicyCache:
                         ).append(key)
             self._generation += 1
             self._compiled.clear()
+        if LINT_ON_ADMISSION:
+            self._lint_admitted(key, policy)
         self._fire("SET", policy)
+
+    def _lint_admitted(self, key: str, policy: ClusterPolicy) -> None:
+        """Warn-only static analysis of a just-admitted policy. Never
+        blocks or raises: the cache must keep serving lookups even if the
+        analyzer trips on an exotic policy."""
+        try:
+            from ..analysis import Severity, analyze_policies
+            from ..models.ir import EscalationReason
+            from .metrics import (record_device_decidability,
+                                  record_host_rule_info, registry)
+
+            report = analyze_policies([policy], include_tensors=False)
+            self.lint_reports[key] = report
+            for d in report.diagnostics:
+                if d.severity >= Severity.WARNING:
+                    logger.warning("policy lint: %s", d.format())
+                if d.code == "KT101":
+                    record_host_rule_info(
+                        registry(), d.policy, d.rule,
+                        d.reason or EscalationReason.UNSUPPORTED_CONSTRUCT.value)
+            score = report.device_decidability.get(policy.name)
+            if score is not None:
+                record_device_decidability(registry(), policy.name, score)
+        except Exception:
+            logger.exception("policy lint failed for %s (policy admitted)",
+                             key)
 
     def remove(self, policy: ClusterPolicy) -> None:
         with self._lock:
@@ -122,6 +162,7 @@ class PolicyCache:
 
     def _remove_locked(self, key: str) -> None:
         self._policies.pop(key, None)
+        self.lint_reports.pop(key, None)
         for type_map in self._kind_map.values():
             for ptype in list(type_map):
                 type_map[ptype] = [k for k in type_map[ptype] if k != key]

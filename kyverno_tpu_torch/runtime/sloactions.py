@@ -9,10 +9,9 @@ kill-switchable, reversible on recovery, and reported — never silent:
 
 1. **shed** (``KTPU_SLO_SHED``) — drop low-severity enforce policies from
    the deny path. Candidates are policies whose static-analysis findings
-   stay below ERROR (lint severities; the port has no analysis plane
-   yet, so every policy is a candidate), ranked by per-policy
-   attribution impact (FAIL/ERROR verdict counts from the metrics
-   attribution plane) so the least-blocking policies shed first.
+   stay below ERROR (lint severities, analysis/diagnostics.py), ranked by
+   per-policy attribution impact (FAIL/ERROR verdict counts from the
+   metrics attribution plane) so the least-blocking policies shed first.
    The shed set is explicit: exposed on ``/healthz``, gauged in
    ``kyverno_slo_shed_policies``, and stamped into replay manifests.
 2. **geometry** (``KTPU_SLO_GEOMETRY``) — switch the admission batcher to
@@ -340,6 +339,7 @@ class DegradationController:
         self.shed: list[str] = []
         self._policy_cache = None
         self._shed_generation = None
+        self._lint_cache: tuple = (None, {})
         self._last_snapshot: dict = {}
         self._state_seconds = {"healthy": 0.0, "degraded": 0.0}
         # bounded logs: enter/exit records for manifests & /healthz
@@ -354,9 +354,10 @@ class DegradationController:
 
     def attach(self, policy_cache) -> None:
         """Give the shed action a policy source (the serving cache whose
-        generation counter versions the shed computation)."""
+        generation counter versions the lint/shed computations)."""
         with self._lock:
             self._policy_cache = policy_cache
+            self._lint_cache = (None, {})
 
     def ensure_ticker(self) -> None:
         """Start the idle ticker (daemon) so degraded time is accounted
@@ -537,11 +538,24 @@ class DegradationController:
             pass
 
     def _lint_severities(self, gen, policies) -> dict:
-        """{policy name: max lint severity int}. The JAX package computes
-        it once per policy generation with its static analyzer; the port
-        has no analysis plane yet, so every policy ranks as severity 0
-        and the shed order is attribution impact alone."""
-        return {}
+        """{policy name: max lint severity int}, computed once per
+        policy generation (analysis is static; generation versions it)."""
+        cached_gen, sevs = self._lint_cache
+        if cached_gen == gen:
+            return sevs
+        sevs = {}
+        try:
+            from ..analysis.analyzer import analyze_policies
+
+            report = analyze_policies(policies, include_tensors=False)
+            for d in report.diagnostics:
+                if d.policy:
+                    sevs[d.policy] = max(sevs.get(d.policy, 0),
+                                         int(d.severity))
+        except Exception:
+            sevs = {}
+        self._lint_cache = (gen, sevs)
+        return sevs
 
     def shed_active_names(self) -> frozenset:
         """Enforce policies currently downgraded out of the deny path

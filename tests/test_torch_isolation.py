@@ -288,3 +288,69 @@ def test_controller_modules_function_imports_reach_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+SLICE_13_MODULES = ("analysis", "analysis.diagnostics",
+                    "analysis.reachability", "analysis.escalation",
+                    "analysis.invariants", "analysis.certify",
+                    "analysis.analyzer", "analysis.featurelint",
+                    "analysis.difffuzz", "cli", "cli.common", "cli.values",
+                    "cli.apply_cmd", "cli.validate_cmd", "cli.test_cmd",
+                    "cli.chart_cmd", "cli.lint_cmd", "cli.__main__",
+                    "utils.helmlite")
+
+
+def test_analysis_and_cli_modules_are_checked():
+    mods = _port_modules()
+    for m in SLICE_13_MODULES:
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def _loaded_after(imports: list[str], bad: str) -> list[str]:
+    """The modules among ``bad`` (a Python expression over a module's
+    top-level name ``top``) that importing ``imports`` in a fresh
+    interpreter loads."""
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {imports!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules\n"
+        f"    if (lambda top: {bad})(m.split('.')[0])}})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_slice_13_modules_load_no_jax_and_no_jax_package():
+    assert _loaded_after(
+        [f"kyverno_tpu_torch.{m}" for m in SLICE_13_MODULES],
+        "top in ('jax', 'jaxlib', 'kyverno_tpu')") == []
+
+
+def test_lint_path_loads_no_torch():
+    """The lint is host-only: the CLI's lint verb, the analysis package
+    and the compiler, IR and flattener it reads load no torch (the
+    models package loads its engine on first use)."""
+    assert _loaded_after(
+        ["kyverno_tpu_torch.cli.lint_cmd", "kyverno_tpu_torch.analysis",
+         "kyverno_tpu_torch.models.compiler", "kyverno_tpu_torch.models.ir",
+         "kyverno_tpu_torch.models.flatten"],
+        "top in ('torch', 'jax')") == []
+    code = ("import sys\n"
+            "from kyverno_tpu_torch.models import CompiledPolicySet, Verdict\n"
+            "from kyverno_tpu_torch.models.engine import CompiledPolicySet as C\n"
+            "assert CompiledPolicySet is C and 'torch' in sys.modules\n"
+            "assert int(Verdict.HOST) == 5\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_cli_and_helmlite_load_no_yaml():
+    """The card's machine may lack PyYAML: importing the CLI (every verb)
+    and the chart renderer loads none; the verbs import it where they
+    read or write YAML."""
+    assert _loaded_after(
+        [f"kyverno_tpu_torch.{m}" for m in SLICE_13_MODULES
+         if m.startswith("cli") or m == "utils.helmlite"],
+        "top == 'yaml'") == []

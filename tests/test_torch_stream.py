@@ -311,3 +311,79 @@ def test_clients_and_servers_answer_alike_across_packages(transport, frame):
     assert True in allowed and False in allowed
     for s in ("jax", "torch"):
         assert not stacks[s].ss.plane.stats.get("frame_errors")
+
+
+# ------------------------------------------- a cold flush of wire rows
+
+
+def _library_cache():
+    """The 250-policy library, enforced, in a policy cache on the CPU."""
+    cache = torch_policycache.PolicyCache(device="cpu")
+    for d in chip_smoke._synth_policy_docs(250):
+        cache.add(torch_load_policy(dict(
+            d, spec=dict(d["spec"], validationFailureAction="enforce"))))
+    return cache
+
+
+def test_cold_flush_answers_its_wire_rows():
+    """With ``cold_flush_fallback`` on, the first flush of a shape bucket
+    releases its JSON waiters to the oracle (``cold_release``) and still
+    answers its wire rows with the device matrix's verdicts: a wire row
+    has no body the oracle could walk. Under the 250-policy library, 9
+    distinct rows need a larger string table than 8, so a stream flush of
+    9 after flushes of 8 meets a cold bucket."""
+    from concurrent.futures import Future
+
+    enf = torch_policycache.PolicyType.VALIDATE_ENFORCE
+    cache = _library_cache()
+    b = torch_batch.AdmissionBatcher(
+        cache, window_s=0.002, burst_threshold=1, dispatch_cost_init_s=0.0,
+        oracle_cost_init_s=1.0, cold_flush_fallback=True,
+        result_cache_ttl_s=0.0)
+    try:
+        cps = cache.compiled(enf, "Pod", "default")
+        pods = [chip_smoke.make_pod(i) for i in range(9)]
+        for i, p in enumerate(pods):
+            p["metadata"]["name"] = f"row-{i}"
+        rows = torch_stream.flatten_rows_for_wire(cps, pods)
+        want = chip_smoke.device_rows(cps, cps.evaluate_device(
+            cps.flatten_packed(pods)))
+        shapes = []
+        for k in (8, 9):
+            items = [(r, None, Future()) for r in rows[:k]]
+            items.append((copy.deepcopy(pods[0]), None, Future()))
+            b._flush(cps, items)
+            shapes.append(set(b._seen_shapes[cps]))
+            assert items[-1][2].result(0) == (
+                torch_batch.ATTENTION, [], False)
+            for j, (_, _, fut) in enumerate(items[:-1]):
+                status, vrow, device = fut.result(0)
+                assert device and vrow
+                assert [[p, r, int(v), m] for p, r, v, m in vrow] == want[j]
+        assert len(shapes[0]) == 1 and len(shapes[1]) == 2
+        assert b.stats["cold_release"] == 2
+        # a cold flush of wire rows alone releases nothing
+        items = [(r, None, Future()) for r in rows[:1]]
+        b._flush(cps, items)
+        assert len(b._seen_shapes[cps]) == 3
+        assert items[0][2].result(0)[2] is True
+        assert b.stats["cold_release"] == 2
+    finally:
+        b.stop()
+
+
+def test_chip_smoke_cold_bucket_rows_on_the_cpu():
+    """``chip_smoke.cold_bucket_rows``, the ``[controller]`` check that a
+    fresh batcher's cold flushes answer ROW frames, on the CPU."""
+    cache = _library_cache()
+    cps = cache.compiled(torch_policycache.PolicyType.VALIDATE_ENFORCE,
+                         "Pod", "default")
+    pods = [chip_smoke.make_pod(i) for i in range(16)]
+    for i, p in enumerate(pods):
+        p["metadata"]["name"] = f"row-{i}"
+    got = chip_smoke.cold_bucket_rows(
+        cache, cps, torch_stream.flatten_rows_for_wire(cps, pods),
+        chip_smoke.device_rows(cps, cps.evaluate_device(
+            cps.flatten_packed(pods))))
+    assert got["stream_rows"] == 16 and got["buckets"] >= 1
+    assert got["cold_release"] == 0
