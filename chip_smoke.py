@@ -20,6 +20,10 @@ its plain PyTorch version.
     python3 chip_smoke.py --webhook      # build + the [webhook] phase alone
     python3 chip_smoke.py --controller   # build + the [controller] phase alone
     python3 chip_smoke.py --analysis     # build + the [analysis] phase alone
+    python3 chip_smoke.py --fleet        # build + the [fleet] phase alone
+    python3 chip_smoke.py --workload     # build + the [workload] phase alone
+    python3 chip_smoke.py --chaos        # build + the [chaos] phase alone
+                                         # (the three flags combine)
     python3 chip_smoke.py --admission 8 --pool-workers 4  # [admission]
                                          # with the oracle pool at 4 workers
 
@@ -119,7 +123,7 @@ Phases:
                /policyvalidate and /policymutate, whose autogen rules are
                the [autogen] steps'; p50, p99 and requests/s a lane
  7c. controller the controller process (kyverno_tpu_torch.server): the
-               library (enforce) as ClusterPolicies and 1,000
+               library (enforce) as ClusterPolicies and 250
                autogen_resource(i) in a FakeCluster, two Controller
                replicas on it. The leader registers the webhooks, runs
                the migrations and, kicked by the policy load, scans with
@@ -201,6 +205,45 @@ Phases:
                refresh certified (KTPU_CERTIFY) with no divergent rule,
                one-policy refreshes timed with the certifier on and off,
                and the policy cache's admission lint timed on and off
+10c. fleet    the fleet plane at the library's width: the library
+               (enforce) behind three replicas of
+               workload.replay.build_fleet_stacks on the card sharing one
+               fabric hub, a 512-event trace (8 namespaces, 64 body
+               templates, 256 names, four of the library's policies
+               landing again every 128 events) through run_fleet, each
+               leg warmed, then with the launch counters set to 0: the
+               kill switch (KTPU_FABRIC=0, one replica and three, the hub
+               seeing only the sync handshakes), the fabric with no
+               affinity (cross-replica hits), the churn (the hub's tiers
+               purged fleet-wide, one and three replicas equal), the
+               socket transport (the same decisions), manifests of two
+               topologies incomparable. Every leg's decisions and digest
+               equal to an oracle stack's (no batcher), K6 dispatches in
+               every replica, K1 and eval_rules launched and no other
+               kernel, no flush error, no HOST cell, no flattener
+               fallback. Then three FleetScanCoordinators split 8 ranges
+               of 1,000 mixed resources: merged range digests equal to an
+               unpartitioned scan's, and again after a member stops and
+               the survivors take its ranges over
+10d. workload the workload plane: one stack of the library replays a
+               churn trace through its webhook, stream_json, stream_row
+               and background legs (the admission digests equal and the
+               oracle webhook's, the background matrix flagging exactly
+               the denied resources; ROW frames escalate every row with a
+               HOST cell, so the ROW leg is held to the webhook over the
+               library's device-decidable policies); a 13,000-event trace
+               through the background leg builds a corpus of 10,000 or
+               more; a known-tightening candidate dry-run on the card (K1
+               -> eval_rules) newly fails exactly a plant computed
+               without the engine, and the scanner's fingerprint, the
+               matrix bytes and the batcher's result-cache fingerprint
+               do not move; KTPU_DRYRUN=0 refuses (HTTP 403,
+               DryRunDisabled) with a live answer unchanged; the CLI's
+               dryrun on the trace file and with --url against the
+               scanner's /debug/dryrun
+10e. chaos    run_scenario("oracle_brownout", 24 events, 0.35 s) with the
+               SLO actions on and off, on stacks on the card: every check
+               of the JAX package's chaos gate
 11. background the background scan path, each run with the launch
                counters set to 0 just before and read just after.
                [background]: BackgroundScanner over the library with a
@@ -208,8 +251,8 @@ Phases:
                over 10,000 resources, its responses and verdict_matrix()
                stating the pinned resolved matrix; the single lane
                (KTPU_INCREMENTAL=0) and the 1D mesh of the card over the
-               first 2,000 (their 10,000 are [evaluate]'s and [mesh]'s
-               paths) and the 2D (4, 1) mesh over the first 2,000 (its
+               first 1,000 (their 10,000 are [evaluate]'s and [mesh]'s
+               paths) and the 2D (4, 1) mesh over the first 1,000 (its
                10,000 are [mesh2d]'s), each matrix equal to the
                incremental lane's first rows; each lane's violations,
                rule results, responses and aggregate()'s per-policy
@@ -1450,10 +1493,12 @@ def split_line(split: dict) -> str:
 
 
 # the first rows of the 10,000 that [background]'s 2D (4, 1) lane scans
-BACKGROUND_2D_ROWS = 2_000
+# (cut from 2,000 for the time limit)
+BACKGROUND_2D_ROWS = 1_000
 # the single and 1D mesh lanes scan the first BACKGROUND_LANE_ROWS (cut
-# for the time limit; the incremental lane scans all n)
-BACKGROUND_LANE_ROWS = 2_000
+# from 10,000 to 2,000 to 1,000 for the time limit; the incremental
+# lane scans all n)
+BACKGROUND_LANE_ROWS = 1_000
 # the objects the garbage collector tracks when a full run reaches
 # [admission] (383,731 on an H100 machine): --heap fills an
 # --admission run's heap to this size
@@ -1467,6 +1512,26 @@ BURST_STATS: list = []
 POOL_WORKERS = None
 # a scheduling-lag sample this late (ms) is a stall
 STALL_MS = 10.0
+
+
+def favored_inputs(batcher, est_batch: int, n_policies: int) -> dict:
+    """What ``AdmissionBatcher._device_favored`` reads, read at once, with
+    its answer for a batch of ``est_batch`` over ``n_policies``: the cost
+    model that sends a burst to the device or to the oracle."""
+    with batcher._lock:
+        snap = {"est_batch": est_batch, "n_policies": n_policies,
+                "burst_threshold": batcher.burst_threshold,
+                "batch_size_ema": round(batcher._batch_size_ema, 3),
+                "oracle_policy_cost_ms":
+                    round(batcher._oracle_policy_cost * 1e3, 6),
+                "savings_frac": batcher._savings_frac,
+                "flush_cpu_cost_ms": round(batcher._flush_cpu_cost * 1e3, 6),
+                "dispatch_cost_ms": round(batcher._dispatch_cost * 1e3, 6),
+                "pending_flushes": batcher._pending_flushes,
+                "window_ms": round(batcher._window() * 1e3, 6),
+                "circuit_open": time.monotonic() < batcher._circuit_open_until}
+    snap["favored"] = batcher._device_favored(est_batch, n_policies)
+    return snap
 
 
 def fill_heap(target: int) -> list:
@@ -1663,6 +1728,10 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                     lag_at.append((t1, t2))
 
             sampler = threading.Thread(target=lag_sampler, daemon=True)
+            # the cost model's inputs as the timed burst begins
+            favored = favored_inputs(
+                batcher, ADMISSION_THREADS,
+                len(cache.compiled(enf, "Pod", "default").policies))
             _build.reset_launches()
             gc.callbacks.append(on_gc)
             sampler.start()
@@ -1734,7 +1803,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                     "pool_misses": pool.misses - misses0,
                     "lag": (percentiles(lag)[1] if lag else 0.0,
                             max(lag, default=0.0)),
-                    "stall": stall,
+                    "stall": stall, "favored": favored,
                     "rps": n_req / burst_s,
                     "device_rps": len(by["device"]) / burst_s}
 
@@ -1799,7 +1868,8 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                   f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms; stalls of "
                   f"{STALL_MS} ms or more (count, total ms, largest ms) "
                   f"during a collector's pause {res['stall']['gc']}, "
-                  f"outside one {res['stall']['other']}")
+                  f"outside one {res['stall']['other']}; _device_favored's "
+                  f"inputs as the burst began {res['favored']}")
             # every answer without a device row is accounted for: a flush
             # never fails, and each ATTENTION with no cells is a screen
             # timeout or a flush's release of its waiter (a cold bucket)
@@ -1867,7 +1937,8 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 f"{res['lag'][1]:.3f} ms; its stalls of {STALL_MS} ms or "
                 f"more (count, total ms, largest ms) during a collector's "
                 f"pause {res['stall']['gc']}, outside one "
-                f"{res['stall']['other']}")
+                f"{res['stall']['other']}; _device_favored's inputs as the "
+                f"burst began {res['favored']}")
             runs.setdefault(label, []).append(res)
         out["burst"] = runs["donate on"][0]
         log(f"[admission] K6 slots allocated {engine.K6_ALLOC['slots'] - a0['slots']} "
@@ -2473,7 +2544,9 @@ def webhook_phase(library_docs: list, quick: bool = False) -> dict:
     return out
 
 
-CONTROLLER_RESOURCES = 1_000
+# cut from 10,000 to 2,000 to 1,000 to 250 for the script's time limit,
+# the last cut to make room for [fleet], [workload] and [chaos]
+CONTROLLER_RESOURCES = 250
 STREAM_JSON, STREAM_ROWS = 256, 256
 STREAM_BLOCKS, STREAM_BLOCK_ROWS = 16, 64
 PROFILE_S = 2.0
@@ -4731,6 +4804,802 @@ def analysis_phase(cases: int = ANALYSIS_FUZZ_CASES) -> dict:
             "fuzz_s": fuzz_s}
 
 
+# ---------------------------------------------------------------------
+# The fleet plane and the workload plane: [fleet], [workload], [chaos]
+
+# cut from 1,024 events for the script's time limit: each leg's wall
+# is its events over 30-75 events a second
+FLEET_EVENTS = 512
+FLEET_REPLICAS = 3
+FLEET_PARTITIONS = 8
+FLEET_SEED = 20261018
+WORKLOAD_EVENTS = 256
+CORPUS_EVENTS = 13_000
+CORPUS_MIN = 10_000
+CHAOS_EVENTS = 24
+
+
+def enforce_docs(docs: list) -> list:
+    """The library's policies in enforce mode, as the admission phases
+    serve them."""
+    return [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
+            for d in docs]
+
+
+def fleet_body(namespace: str, name: str, variant: int) -> dict:
+    """The workload trace's synthetic Pod (``workload.trace``'s default
+    body) with memory requests on two templates in three: the library's
+    require-requests rules pass on those, so the stream mixes allowed and
+    denied admissions. With the default body every Pod is denied and an
+    allowed-bit digest would say nothing."""
+    tag = "latest" if variant % 4 == 3 else f"v{variant % 7}"
+    container = {"name": "main",
+                 "image": f"registry.local/app-{variant}:{tag}"}
+    if variant % 3:
+        container["resources"] = {"requests": {
+            "memory": f"{64 * (1 + variant % 4)}Mi"}}
+    return {"apiVersion": "v1", "kind": "Pod",
+            "metadata": {"name": name, "namespace": namespace,
+                         "labels": {"app": f"app-{variant}",
+                                    "team": namespace}},
+            "spec": {"containers": [container]}}
+
+
+def churn_docs(library_docs: list) -> list:
+    """Four of the library's policies, the first of each Pod family that
+    denies (disallow-latest-tag, require-requests, deny-latest-named) and
+    one that passes (require-name): a trace's POLICY events land them
+    again, which bumps every replica's policy generation and purges the
+    fabric's tiers without moving a verdict."""
+    out = []
+    for family in ("disallow-latest-tag", "require-requests",
+                   "deny-latest-named", "require-name"):
+        out.append(next(d for d in library_docs
+                        if d["metadata"]["name"].rsplit("-v", 1)[0]
+                        == family))
+    return out
+
+
+def fleet_trace(library_docs: list, events: int = FLEET_EVENTS,
+                seed: int = FLEET_SEED):
+    """The [fleet] trace: 8 Zipf-skewed namespaces, 64 body templates,
+    256 pod names, and four of the library's policies landing again every
+    quarter of the events."""
+    from kyverno_tpu_torch.workload.trace import synthesize
+
+    return synthesize(events=events, namespaces=8, distinct_bodies=64,
+                      name_pool=256, policy_churn_every=max(8, events // 4),
+                      policy_docs=churn_docs(library_docs), seed=seed,
+                      make_body=fleet_body)
+
+
+_VIOLATION = re.compile(r"policy [\w.-]+/[\w.-]+")
+
+
+def decision_map(result: dict) -> str:
+    """A replay leg's decisions, event by event: the allowed bit and the
+    sorted (policy/rule) pairs the denial names. The denial's prose is
+    the lane's: a device row names each rule without the failing path,
+    the oracle adds it (ROADMAP, deny text), so the map leaves it out."""
+    return json.dumps({str(seq): [v["allowed"], sorted(set(
+        _VIOLATION.findall(v.get("detail") or "")))]
+        for seq, v in result["verdicts"].items()}, sort_keys=True)
+
+
+class SetLog:
+    """The compiled sets a policy cache hands out (its batcher's flushes
+    run on them), for their K6 dispatch counts (``donation_stats``)."""
+
+    def __init__(self, cache):
+        self.sets = {}
+        orig = cache.compiled
+
+        def compiled(*a, **k):
+            cps = orig(*a, **k)
+            if cps is not None:
+                self.sets[id(cps)] = cps
+            return cps
+
+        cache.compiled = compiled
+
+    def dispatches(self) -> int:
+        return sum(c.donation_stats["dispatches"]
+                   for c in list(self.sets.values()))
+
+
+def oracle_fleet(policies: list, device) -> dict:
+    """A one-replica fleet whose stack has no batcher: its webhook answers
+    every frame from the CPU oracle. ``replay.run_fleet`` drives it as it
+    drives the replicas, policy churn included, so its digest is the
+    reference every fleet leg is held to."""
+    from kyverno_tpu_torch.fleet.fabric import FabricHub
+    from kyverno_tpu_torch.fleet.router import Replica, ReplicaRouter
+    from kyverno_tpu_torch.runtime.client import FakeCluster
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache
+    from kyverno_tpu_torch.runtime.stream_server import StreamAdmissionPlane
+    from kyverno_tpu_torch.runtime.webhook import WebhookServer
+
+    cache = PolicyCache(device=device)
+    for p in policies:
+        cache.add(p)
+    webhook = WebhookServer(policy_cache=cache, client=FakeCluster(),
+                            device=device)
+    plane = StreamAdmissionPlane(webhook, None, cache)
+    return {"hub": FabricHub(), "server": None, "clients": [], "replicas": 1,
+            "stacks": [{"policy_cache": cache, "webhook": webhook}],
+            "router": ReplicaRouter([Replica(
+                "oracle", lambda p: plane.handle_payload(p, "fleet"))])}
+
+
+def host_cells_left(stack: dict) -> int:
+    """HOST cells in the decisions a replica's batcher holds (its result
+    cache): every one should have been resolved by the host lane."""
+    from kyverno_tpu_torch.models import Verdict
+
+    batcher = stack["batcher"]
+    with batcher._lock:
+        entries = list(batcher._result_cache.values())
+    return sum(1 for e in entries for t in e[2] if t[2] == Verdict.HOST)
+
+
+def fleet_leg(label: str, policies: list, trace, replicas: int,
+              affinity: bool, device, ref: dict) -> dict:
+    """One fleet run: ``replicas`` stacks on ``device`` sharing one hub,
+    each warmed on every namespace of the trace, then the trace through
+    ``run_fleet`` with the launch counters set to 0 just before. Held to
+    the oracle fleet's decisions (``ref``); every replica's batcher makes
+    K6 dispatches, K1 and eval_rules launch and no other kernel, no flush
+    fails and no HOST cell is left."""
+    from kyverno_tpu_torch.models import native_flatten
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime.policycache import PolicyType
+    from kyverno_tpu_torch.workload import replay
+
+    enf = PolicyType.VALIDATE_ENFORCE
+    t0 = time.perf_counter()
+    fleet = replay.build_fleet_stacks(policies, replicas=replicas,
+                                      device=device)
+    logs = [SetLog(s["policy_cache"]) for s in fleet["stacks"]]
+    try:
+        first = {}
+        for ev in trace.events:
+            if ev.op != "POLICY":
+                first.setdefault(ev.namespace, trace.body_of(ev))
+        for stack in fleet["stacks"]:
+            for ns, body in sorted(first.items()):
+                stack["batcher"].warmup(enf, "Pod", ns, body)
+        warm_s = time.perf_counter() - t0
+        k6_0 = [log_.dispatches() for log_ in logs]
+        native_flatten.reset_fallbacks()
+        _build.reset_launches()
+        out = replay.run_fleet(trace, fleet, workers=8, affinity=affinity)
+        launches = dict(_build.LAUNCHES)
+        out["k6"] = [log_.dispatches() - k for log_, k in zip(logs, k6_0)]
+        out["topology"] = replay.current_topology(fleet)
+        out["launches"] = launches
+        out["flush_error"] = sum(s["batcher"].stats.get("flush_error", 0)
+                                 for s in fleet["stacks"])
+        out["host_left"] = sum(host_cells_left(s) for s in fleet["stacks"])
+        out["fallbacks"] = dict(native_flatten.FALLBACKS)
+        out["fabric_stats"] = [s["batcher"].stats.get("fabric", 0)
+                               for s in fleet["stacks"]]
+    finally:
+        replay.stop_fleet_stacks(fleet)
+    out["warm_s"] = warm_s
+    n_ev = sum(1 for e in trace.events if e.op != "POLICY")
+    check(not out["errors"] and out["processed"] == n_ev,
+          f"[fleet] {label}: {out['processed']} of {n_ev} events, errors "
+          f"{out['errors']}")
+    check(decision_map(out) == ref["map"]
+          and out["verdict_digest"] == ref["verdict_digest"],
+          f"[fleet] {label}: decisions differ from the oracle's (digest "
+          f"{out['verdict_digest']}, the oracle's {ref['verdict_digest']})")
+    check(all(k >= 1 for k in out["k6"]),
+          f"[fleet] {label}: K6 dispatches by replica {out['k6']}")
+    check(all(launches[k] > 0 for k in EVALUATE_KERNELS)
+          and all(v == 0 for k, v in launches.items()
+                  if k not in EVALUATE_KERNELS),
+          f"[fleet] {label}: launches {launches}")
+    check(out["flush_error"] == 0 and out["host_left"] == 0,
+          f"[fleet] {label}: {out['flush_error']} flushes failed, "
+          f"{out['host_left']} HOST cells left in the decisions")
+    check(all(v == 0 for v in out["fallbacks"].values()),
+          f"[fleet] {label}: native flattener fallbacks {out['fallbacks']}")
+    hub = out["hub"]
+    log(f"[fleet] {label}: {replicas} replica(s), "
+        f"{'digest' if affinity else 'sequence'} routing, fabric "
+        f"{out['topology']['fabric']} over {out['topology']['transport']}: "
+        f"{out['processed']} events, p50 {out['latency_ms_p50']:.3f} ms, p99 "
+        f"{out['latency_ms_p99']:.3f} ms, {out['achieved_per_s']} events/s; "
+        f"{out['denied']} denied; fabric hits {out['fabric_hits']} (hit rate "
+        f"{out['fabric_hit_rate']}), batchers' fabric answers "
+        f"{out['fabric_stats']}; hub entries {hub['entries']}, epoch "
+        f"{hub['epoch']}, gets {hub['gets']}, puts {hub['puts']}, "
+        f"invalidations {hub['invalidations']}; K6 dispatches by replica "
+        f"{out['k6']}; launches {launches}; router {out['router']['routed']} "
+        f"routed, {out['router']['failovers']} failovers; built and warmed "
+        f"in {warm_s:.3f} s; digest {out['verdict_digest']} equal to the "
+        f"oracle's")
+    return out
+
+
+def partition_scan(policies: list, resources: list, device) -> dict:
+    """Three FleetScanCoordinators over a FakeCluster split
+    KTPU_SCAN_PARTITIONS ranges of ``resources`` by named leases; the
+    merged range digests equal an unpartitioned scan's. Then a member
+    that owns ranges stops (no release): once its leases expire the
+    survivors take its ranges over, the full set is covered again and the
+    digests still agree."""
+    from kyverno_tpu_torch.fleet import scanparts
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import leaderelection as le
+    from kyverno_tpu_torch.runtime import metrics
+    from kyverno_tpu_torch.runtime.background import BackgroundScanner
+    from kyverno_tpu_torch.runtime.client import FakeCluster
+
+    n_parts = scanparts.scan_partition_count()
+    check(n_parts == FLEET_PARTITIONS, f"[fleet] KTPU_SCAN_PARTITIONS read "
+          f"as {n_parts}")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    baseline = BackgroundScanner(policies, device=device)
+    baseline.scan(resources)
+    base_s = time.perf_counter() - t0
+    base = scanparts.merge_range_digests(
+        scanparts.matrix_range_digests(baseline, n_parts))
+    launches = dict(_build.LAUNCHES)
+    saved = (le.LEASE_DURATION_S, le.RENEW_DEADLINE_S)
+    lease_s = le.LEASE_DURATION_S = 0.25
+    le.RENEW_DEADLINE_S = 0.2
+    coords = {}
+    try:
+        cluster = FakeCluster()
+        coords = {name: scanparts.FleetScanCoordinator(cluster,
+                                                       identity=name)
+                  for name in ("r0", "r1", "r2")}
+        scanners = {name: BackgroundScanner(policies, device=device)
+                    for name in coords}
+        for _ in range(3):      # the leader elects, publishes; members enroll
+            for c in coords.values():
+                c.tick()
+        owned = {n: set(c.owned_partitions()) for n, c in coords.items()}
+        check(set().union(*owned.values()) == set(range(n_parts))
+              and sum(len(o) for o in owned.values()) == n_parts,
+              f"[fleet] partitions owned {owned}")
+        t0 = time.perf_counter()
+        digests = [scanparts.scan_partitions(
+            scanners[n], resources, c.owned_partitions(), n_parts)[1]
+            for n, c in coords.items()]
+        parts_s = time.perf_counter() - t0
+        merged = scanparts.merge_range_digests(*digests)
+        check(merged == base, f"[fleet] partitioned digest {merged}, "
+              f"unpartitioned {base}")
+        reg = metrics.registry()
+        rows = {p: reg.gauge_value("kyverno_scan_partition_rows",
+                                   {"range": str(p)}) for p in range(n_parts)}
+        check(sum(v or 0 for v in rows.values()) == len(resources),
+              f"[fleet] per-range row gauges {rows}")
+        # a member that owns ranges and does not lead stops ticking right
+        # after a round that renewed its leases: they must expire before
+        # anyone takes over
+        victim = next((n for n, c in coords.items()
+                       if owned[n] and not c.elector.is_leader()),
+                      next(n for n in coords if owned[n]))
+        for c in coords.values():
+            c.tick()
+        dead = coords.pop(victim)
+        t_kill = time.perf_counter()
+        covered = False
+        while time.perf_counter() - t_kill < 10.0 and not covered:
+            time.sleep(0.05)
+            for c in coords.values():
+                c.tick()
+            owned2 = {n: set(c.owned_partitions())
+                      for n, c in coords.items()}
+            covered = (set().union(*owned2.values()) == set(range(n_parts))
+                       and sum(len(o) for o in owned2.values()) == n_parts)
+        takeover_s = time.perf_counter() - t_kill
+        check(covered, f"[fleet] after {victim} stopped the survivors own "
+              f"{owned2}")
+        digests2 = [scanparts.scan_partitions(
+            scanners[n], resources, c.owned_partitions(), n_parts)[1]
+            for n, c in coords.items()]
+        merged2 = scanparts.merge_range_digests(*digests2)
+        check(merged2 == base, f"[fleet] after the takeover the digest is "
+              f"{merged2}, unpartitioned {base}")
+        dead.stop()
+    finally:
+        for c in coords.values():
+            c.stop()
+        le.LEASE_DURATION_S, le.RENEW_DEADLINE_S = saved
+    log(f"[fleet] partitioned scan over {len(resources)} mixed resources, "
+        f"{n_parts} ranges, three coordinators: owned "
+        f"{ {n: sorted(o) for n, o in owned.items()} }, rows by range "
+        f"{ {p: int(v or 0) for p, v in rows.items()} }; merged digest "
+        f"{merged} equal to the unpartitioned scan's ({base_s:.3f} s; the "
+        f"three partitions {parts_s:.3f} s; its launches {launches}); "
+        f"{victim} stopped, its ranges {sorted(owned[victim])} taken over in "
+        f"{takeover_s:.3f} s (leases of {lease_s} s), owned "
+        f"{ {n: sorted(o) for n, o in owned2.items()} }, digest {merged2} "
+        f"equal")
+    return {"takeover_s": takeover_s, "base_s": base_s, "parts_s": parts_s,
+            "launches": launches}
+
+
+def fleet_phase(library_docs: list, events: int = FLEET_EVENTS,
+                scan_rows: int = BACKGROUND_LANE_ROWS,
+                device: str = "cuda") -> dict:
+    """[fleet]: the library (enforce) behind FLEET_REPLICAS replicas of
+    ``workload.replay.build_fleet_stacks`` sharing one fabric hub, the
+    legs of the fleet plane's contract (kill switch, fabric parity and
+    sharing, churn invalidation, the socket transport, topology-aware
+    manifests), each held to an oracle stack's decisions, then the
+    partitioned scan and its takeover."""
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.runtime import hostlane
+    from kyverno_tpu_torch.runtime import metrics
+    from kyverno_tpu_torch.runtime.obs_http import handle_obs_get
+    from kyverno_tpu_torch.workload import replay
+    from kyverno_tpu_torch.workload.chaos import env_overrides
+
+    docs = enforce_docs(library_docs)
+    policies = [load_policy(d) for d in docs]
+    trace = fleet_trace(docs, events=events)
+    st = trace.stats()
+    log(f"[fleet] trace: {st['events']} events ({st['by_op']}), "
+        f"{st['distinct_bodies']} distinct bodies, {st['namespaces']} "
+        f"namespaces; {len(policies)} policies (enforce), churn "
+        f"{[d['metadata']['name'] for d in churn_docs(docs)]}")
+    out = {}
+    reg = metrics.registry()
+    with env_overrides({"KTPU_REPLAY": "1", "KTPU_FABRIC": "0",
+                        "KTPU_FABRIC_TRANSPORT": "inproc",
+                        "KTPU_SCAN_PARTITIONS": "0"}):
+        # the reference: one stack with no batcher, the oracle answers
+        t0 = time.perf_counter()
+        ofleet = oracle_fleet(policies, device)
+        try:
+            ref = replay.run_fleet(trace, ofleet, workers=8)
+        finally:
+            ofleet["stacks"][0]["webhook"].stop()
+            hostlane.resolver().attach_pool(None, None)
+        ref["map"] = decision_map(ref)
+        allowed = sum(1 for v in ref["verdicts"].values() if v["allowed"])
+        check(ref["denied"] > 0 and allowed > 0 and not ref["errors"],
+              f"[fleet] the oracle's stream: {ref['denied']} denied, "
+              f"{allowed} allowed, errors {ref['errors']}")
+        log(f"[fleet] oracle stack (no batcher): {ref['processed']} events, "
+            f"{ref['denied']} denied, {allowed} allowed, p50 "
+            f"{ref['latency_ms_p50']:.3f} ms, p99 {ref['latency_ms_p99']:.3f} "
+            f"ms, {ref['achieved_per_s']} events/s "
+            f"({time.perf_counter() - t0:.3f} s); digest "
+            f"{ref['verdict_digest']}")
+        out["oracle"] = ref
+        # 1. kill switch: one replica and three, the hub left alone
+        with env_overrides({"KTPU_FABRIC": "0"}):
+            off1 = fleet_leg("kill switch", policies, trace, 1, True,
+                             device, ref)
+            off3 = fleet_leg("kill switch", policies, trace, FLEET_REPLICAS,
+                             True, device, ref)
+        for o, n in ((off1, 1), (off3, FLEET_REPLICAS)):
+            check(o["hub"]["puts"] == 0 and o["hub"]["hits"] == 0
+                  and o["hub"]["gets"] == n and o["fabric_hits"] == 0,
+                  f"[fleet] kill switch: the hub saw {o['hub']}")
+        # 2. the fabric on, repeats spread over the replicas
+        with env_overrides({"KTPU_FABRIC": "1"}):
+            on3 = fleet_leg("fabric, no affinity", policies, trace,
+                            FLEET_REPLICAS, False, device, ref)
+            check(on3["fabric_hits"] > 0 and on3["hub"]["puts"] > 0,
+                  f"[fleet] fabric on: hits {on3['fabric_hits']}, hub "
+                  f"{on3['hub']}")
+            check((reg.counter_total("kyverno_fabric_frames_total") or 0) > 0
+                  and (reg.counter_total("kyverno_fabric_hits_total")
+                       or 0) > 0, "[fleet] kyverno_fabric_* counters")
+            health = json.loads(handle_obs_get("/healthz")[1])
+            check(health.get("fleet", {}).get("enabled") is True,
+                  f"[fleet] /healthz fleet block {health.get('fleet')}")
+            # 3. the churn purges the hub fleet-wide; one and three agree
+            ch1 = fleet_leg("churn", policies, trace, 1, True, device, ref)
+            ch3 = fleet_leg("churn", policies, trace, FLEET_REPLICAS, True,
+                            device, ref)
+            for o in (ch1, ch3, on3):
+                check(o["hub"]["invalidations"] > 0 and o["hub"]["epoch"] > 0
+                      and o["hub"]["purged"] > 0,
+                      f"[fleet] churn: the hub {o['hub']}")
+            check(ch1["verdict_digest"] == ch3["verdict_digest"],
+                  "[fleet] churn: one and three replicas differ")
+            # 4. the hub behind a framed loopback socket
+            with env_overrides({"KTPU_FABRIC_TRANSPORT": "socket"}):
+                sock3 = fleet_leg("socket transport", policies, trace,
+                                  FLEET_REPLICAS, False, device, ref)
+            check(decision_map(sock3) == decision_map(on3)
+                  and sock3["hub"]["frames"] > FLEET_REPLICAS
+                  and sock3["fabric_hits"] > 0,
+                  f"[fleet] socket: frames {sock3['hub']['frames']}, hits "
+                  f"{sock3['fabric_hits']}")
+        # 5. manifests of different topologies diff as incomparable
+        m1 = replay.run_manifest(trace, [off1], topology=off1["topology"])
+        m3 = replay.run_manifest(trace, [on3], topology=on3["topology"])
+        diff = replay.diff_manifests(m1, m3)
+        leg = diff["legs"]["fleet_stream"]
+        check(leg.get("verdict_parity") is True
+              and leg.get("skipped") == "topology mismatch"
+              and diff["topology"]["comparable"] is False,
+              f"[fleet] manifest diff {leg}, {diff['topology']}")
+        log(f"[fleet] manifests of one replica (fabric off) and three "
+            f"(fabric on): verdict parity {leg['verdict_parity']}, numeric "
+            f"deltas {leg['skipped']}, comparable "
+            f"{diff['topology']['comparable']}")
+        # 6. the partitioned scan and its takeover
+        with env_overrides({"KTPU_SCAN_PARTITIONS": str(FLEET_PARTITIONS)}):
+            out["scan"] = partition_scan(
+                policies, [mixed_resource(i) for i in range(scan_rows)],
+                device)
+    hostlane.host_cache().attach_fabric(None)
+    launches = {k: sum(o["launches"][k] for o in (off1, off3, on3, ch1, ch3,
+                                                   sock3))
+                for k in off1["launches"]}
+    out.update(legs={"kill switch 1": off1, "kill switch 3": off3,
+                     "fabric 3": on3, "churn 1": ch1, "churn 3": ch3,
+                     "socket 3": sock3}, launches=launches)
+    for o in out["legs"].values():
+        o.pop("verdicts", None)
+    return out
+
+
+def planted_failures(resources) -> list:
+    """The resources FREEZE_APP_3 fails, found without the engine: a Pod
+    with a container image of the app-3 template."""
+    return sorted(
+        "/".join((r.get("kind", ""), (r.get("metadata") or {}).get(
+            "namespace", ""), (r.get("metadata") or {}).get("name", "")))
+        for r in resources
+        if any(str(c.get("image", "")).startswith("registry.local/app-3:")
+               for c in (r.get("spec") or {}).get("containers") or ()))
+
+
+# a known-tightening candidate: its glob keeps K1 in the dry-run's path
+FREEZE_APP_3 = {
+    "apiVersion": "kyverno.io/v1", "kind": "ClusterPolicy",
+    "metadata": {"name": "freeze-app-3"},
+    "spec": {"validationFailureAction": "enforce", "background": True,
+             "rules": [{
+                 "name": "freeze-app-3-r0",
+                 "match": {"resources": {"kinds": ["Pod"]}},
+                 "validate": {"message": "app-3 template frozen",
+                              "pattern": {"spec": {"containers": [
+                                  {"image": "!registry.local/app-3:*"}]}}}}]}}
+
+
+def workload_phase(library_docs: list, events: int = WORKLOAD_EVENTS,
+                   corpus_events: int = CORPUS_EVENTS,
+                   corpus_min: int = CORPUS_MIN,
+                   device: str = "cuda") -> dict:
+    """[workload]: one stack of the library (enforce) replays a churn
+    trace through its webhook, stream_json, stream_row and background
+    legs, held to each other and to an oracle webhook; a corpus of at
+    least ``corpus_min`` resources replayed through the background leg;
+    a known-tightening candidate dry-run on the card against it, its
+    blast radius equal to a plant computed without the engine and the
+    live state unmoved; KTPU_DRYRUN=0 refused over HTTP and in process
+    with a live answer unchanged; the CLI's ``dryrun`` on a trace file
+    and against the phase's server."""
+    import importlib.util
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from kyverno_tpu_torch.api.load import load_policy
+    from kyverno_tpu_torch.models import native_flatten
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.runtime import hostlane
+    from kyverno_tpu_torch.runtime.client import FakeCluster
+    from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
+    from kyverno_tpu_torch.runtime.webhook import (VALIDATING_WEBHOOK_PATH,
+                                                   WebhookServer)
+    from kyverno_tpu_torch.workload import replay
+    from kyverno_tpu_torch.workload.chaos import env_overrides
+    from kyverno_tpu_torch.workload.dryrun import (DryRunDisabled, dry_run,
+                                                   set_scan_source)
+    from kyverno_tpu_torch.workload.trace import synthesize
+
+    docs = enforce_docs(library_docs)
+    policies = [load_policy(d) for d in docs]
+    out = {}
+    tr = synthesize(events=events, namespaces=8, name_pool=64,
+                    distinct_bodies=32, policy_docs=churn_docs(docs),
+                    policy_churn_every=max(8, events // 4), seed=11,
+                    make_body=fleet_body)
+    with env_overrides({"KTPU_REPLAY": "1", "KTPU_DRYRUN": "1",
+                        "KTPU_FABRIC": "0"}):
+        # ---- cross-leg parity, and the webhook leg against the oracle
+        ocache = PolicyCache(device=device)
+        for p in policies:
+            ocache.add(p)
+        owebhook = WebhookServer(policy_cache=ocache, client=FakeCluster(),
+                                 device=device)
+        try:
+            ref = replay.ReplayDriver(webhook=owebhook).run(tr, "webhook",
+                                                            workers=8)
+        finally:
+            owebhook.stop()
+            hostlane.resolver().attach_pool(None, None)
+        stack = replay.build_stack(policies, device=device)
+        drv = replay.ReplayDriver.from_stack(stack)
+        bstack = None
+        try:
+            native_flatten.reset_fallbacks()
+            legs, leg_launches = {}, {}
+            for leg in ("webhook", "stream_json", "stream_row"):
+                _build.reset_launches()
+                legs[leg] = drv.run(tr, leg, workers=8)
+                leg_launches[leg] = dict(_build.LAUNCHES)
+            _build.reset_launches()
+            bg = drv.run(tr, "background")
+            leg_launches["background"] = dict(_build.LAUNCHES)
+            # a ROW frame is pre-tokenized: the server has no body for the
+            # oracle, so a row with a HOST cell escalates (both packages).
+            # The library's host-only policies put HOST cells in every Pod
+            # row: over the library the ROW leg escalates every event, and
+            # over its device-decidable policies it answers as the webhook
+            cps = stack["policy_cache"].compiled(
+                PolicyType.VALIDATE_ENFORCE, "Pod", tr.events[0].namespace)
+            host_only = sorted({r.policy.name for r in cps.rule_refs
+                                if cps.tensors.rule_host_only[r.rule_index]})
+            row = legs.pop("stream_row")
+            check(bool(host_only) == (row["denied"] == row["events"]),
+                  f"[workload] stream_row over the library: {row['denied']} "
+                  f"of {row['events']} not allowed, host-only policies "
+                  f"{host_only}")
+            dstack = replay.build_stack([p for p in policies
+                                         if p.name not in host_only],
+                                        device=device)
+            try:
+                ddrv = replay.ReplayDriver.from_stack(dstack)
+                dweb = ddrv.run(tr, "webhook", workers=8)
+                _build.reset_launches()
+                drow = ddrv.run(tr, "stream_row", workers=8)
+                leg_launches["stream_row device-decidable"] = dict(
+                    _build.LAUNCHES)
+            finally:
+                replay.stop_stack(dstack)
+            check(drow["verdict_digest"] == dweb["verdict_digest"]
+                  and 0 < drow["denied"] < drow["events"],
+                  f"[workload] stream_row over the {len(policies) - len(host_only)} "
+                  f"device-decidable policies: digest {drow['verdict_digest']}, "
+                  f"the webhook's {dweb['verdict_digest']}")
+            digests = {leg: r["verdict_digest"] for leg, r in legs.items()}
+            check(len(set(digests.values())) == 1
+                  and digests["webhook"] == ref["verdict_digest"],
+                  f"[workload] digests {digests}, the oracle's "
+                  f"{ref['verdict_digest']}")
+            legs["stream_row"] = row
+            legs["stream_row device-decidable"] = drow
+            web = legs["webhook"]
+            check(web["denied"] > 0 and web["denied"] < web["events"],
+                  f"[workload] {web['denied']} of {web['events']} denied")
+            check(all(not r["errors"] and r["processed"] == r["events"]
+                      for r in legs.values()),
+                  f"[workload] errors "
+                  f"{ {k: r['errors'] for k, r in legs.items()} }")
+            check(bg["failing_resources"] == web["failing_resources"]
+                  == ref["failing_resources"] and bg["violations"] > 0,
+                  f"[workload] the background leg flags "
+                  f"{len(bg['failing_resources'])} resources, the stream "
+                  f"denied {len(web['failing_resources'])}")
+            for leg, la in leg_launches.items():
+                check(all(la[k] > 0 for k in EVALUATE_KERNELS),
+                      f"[workload] {leg} launches {la}")
+            check(all(v == 0 for v in native_flatten.FALLBACKS.values()),
+                  f"[workload] flattener fallbacks {native_flatten.FALLBACKS}")
+            log(f"[workload] stream_row over the library: all {row['events']} "
+                f"rows escalated (host-only policies {host_only}); over the "
+                f"{len(policies) - len(host_only)} device-decidable policies "
+                f"its digest {drow['verdict_digest']} is that stack's "
+                f"webhook leg's")
+            for leg, r in legs.items():
+                log(f"[workload] {leg} leg: {r['processed']} events, p50 "
+                    f"{r['latency_ms_p50']:.3f} ms, p99 "
+                    f"{r['latency_ms_p99']:.3f} ms, {r['achieved_per_s']} "
+                    f"events/s, queue depth max {r['queue_depth_max']}, "
+                    f"{r['denied']} denied, {r['timeout_retries']} retries "
+                    f"after a screen timeout; launches {leg_launches[leg]}; "
+                    f"digest {r['verdict_digest']}")
+            log(f"[workload] background leg: {bg['processed']} watch events, "
+                f"{bg['delta_scans']} delta scans, {bg['rows_evaluated']} rows "
+                f"and {bg['cols_evaluated']} columns evaluated, "
+                f"{bg['violations']} violations, {bg['achieved_per_s']} "
+                f"events/s ({bg['duration_s']} s); launches "
+                f"{leg_launches['background']}; it flags the "
+                f"{len(bg['failing_resources'])} resources the stream denied, "
+                f"and the oracle webhook's digest {ref['verdict_digest']} is "
+                f"every admission leg's")
+            out["legs"] = {k: {kk: vv for kk, vv in r.items()
+                               if kk != "verdicts"} for k, r in legs.items()}
+            out["background"] = bg
+            out["leg_launches"] = leg_launches
+            # the live answer the kill switch must leave alone: an allowed
+            # one, whose text no lane writes differently
+            seq = min(s_ for s_, v in ref["verdicts"].items()
+                      if v["allowed"])
+            review = replay.admission_review(
+                tr.events[seq], tr.body_of(tr.events[seq]), seq)
+
+            # ---- the corpus: a long trace through the background leg
+            big = synthesize(events=corpus_events, namespaces=6,
+                             distinct_bodies=48, update_fraction=0.12,
+                             delete_fraction=0.02, seed=3)
+            bstack = replay.build_stack(policies, device=device)
+            t0 = time.perf_counter()
+            replay.ReplayDriver.from_stack(bstack).run(big, "background")
+            corpus_s = time.perf_counter() - t0
+            scanner, batcher = bstack["scanner"], bstack["batcher"]
+            keys = list(scanner._state["keys"])
+            corpus = len(keys)
+            check(corpus >= corpus_min, f"[workload] corpus of {corpus} rows")
+            planted = planted_failures(scanner._state["resources"][k]
+                                       for k in keys)
+            fp_scan = scanner.state_fingerprint()
+            fp_cache = batcher.cache_fingerprint()
+            keys_b, cols_b, mat_b = scanner.verdict_matrix()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            report = dry_run(FREEZE_APP_3, scanner=scanner)
+            dry_s = time.perf_counter() - t0
+            dry_launches = dict(_build.LAUNCHES)
+            check(sorted(report["newly_failing_resources"]) == planted
+                  and report["newly_failing"] == len(planted) > 0
+                  and report["resources_evaluated"] == corpus
+                  and report["compile_lane"] == "incremental_isolated",
+                  f"[workload] dry-run: {report['newly_failing']} newly "
+                  f"failing of {report['resources_evaluated']}, planted "
+                  f"{len(planted)}")
+            check(all(dry_launches[k] > 0 for k in EVALUATE_KERNELS),
+                  f"[workload] the dry-run's launches {dry_launches}")
+            keys_a, cols_a, mat_a = scanner.verdict_matrix()
+            check(scanner.state_fingerprint() == fp_scan
+                  and batcher.cache_fingerprint() == fp_cache
+                  and keys_a == keys_b and cols_a == cols_b
+                  and mat_a.tobytes() == mat_b.tobytes(),
+                  "[workload] the dry-run moved the live state")
+            log(f"[workload] corpus: {corpus_events} events through the "
+                f"background leg in {corpus_s:.3f} s, {corpus} live "
+                f"resources; dry-run of {FREEZE_APP_3['metadata']['name']} "
+                f"on {scanner.device}: {report['newly_failing']} newly "
+                f"failing, equal to the plant, over "
+                f"{report['resources_evaluated']} resources in {dry_s:.3f} s "
+                f"(the report says {report['duration_s']} s), lane "
+                f"{report['compile_lane']}, launches {dry_launches}; the "
+                f"scanner's fingerprint, the matrix bytes and the batcher's "
+                f"result-cache fingerprint unmoved")
+            out.update(corpus=corpus, corpus_s=corpus_s, dry_s=dry_s,
+                       dry_launches=dry_launches,
+                       newly_failing=report["newly_failing"])
+
+            # ---- the CLI: offline on a trace file, then --url
+            obs = scanner.serve_observability(port=0)
+            url = f"http://127.0.0.1:{obs.server_port}"
+            if importlib.util.find_spec("yaml") is None:
+                log("[workload] CLI: not run, PyYAML is absent on this "
+                    "machine (the CLI's loaders read YAML)")
+            else:
+                with tempfile.TemporaryDirectory() as tmp:
+                    cand = os.path.join(tmp, "candidate.yaml")
+                    with open(cand, "w") as f:
+                        json.dump(FREEZE_APP_3, f)       # JSON is YAML
+                    trace_file = os.path.join(tmp, "trace.jsonl")
+                    big.write_jsonl(trace_file)
+                    for label, argv in (
+                            ("--trace", ["dryrun", cand, "--trace",
+                                         trace_file, "--json", "--device",
+                                         device]),
+                            ("--url", ["dryrun", cand, "--url", url,
+                                       "--json"])):
+                        rc, lines, secs, err = run_cli(argv)
+                        got = json.loads("\n".join(lines)) if rc == 1 \
+                            else {}
+                        check(rc == 1 and sorted(got.get(
+                            "newly_failing_resources", ())) == planted,
+                              f"[workload] dryrun {label}: exit {rc}, "
+                              f"{err[-500:]}")
+                        log(f"[workload] python -m kyverno_tpu_torch.cli "
+                            f"dryrun {label}: exit {rc}, "
+                            f"{got['newly_failing']} newly failing over "
+                            f"{got['resources_evaluated']} resources, lane "
+                            f"{got['compile_lane']} ({secs:.3f} s)")
+
+            # ---- KTPU_DRYRUN=0: refused, a live answer unchanged
+            before = json.dumps(stack["webhook"].handle(
+                VALIDATING_WEBHOOK_PATH, review), sort_keys=True)
+            with env_overrides({"KTPU_DRYRUN": "0"}):
+                try:
+                    dry_run(FREEZE_APP_3, scanner=scanner)
+                    refused = False
+                except DryRunDisabled:
+                    refused = True
+                req = urllib.request.Request(
+                    url + "/debug/dryrun", method="POST",
+                    data=json.dumps({"policy": FREEZE_APP_3}).encode(),
+                    headers={"Content-Type": "application/json"})
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        status = resp.status
+                except urllib.error.HTTPError as e:
+                    status = e.code
+            after = json.dumps(stack["webhook"].handle(
+                VALIDATING_WEBHOOK_PATH, review), sort_keys=True)
+            check(refused and status == 403 and before == after
+                  and scanner.state_fingerprint() == fp_scan,
+                  f"[workload] KTPU_DRYRUN=0: refused in process {refused}, "
+                  f"HTTP {status}, live answer unchanged {before == after}")
+            log(f"[workload] KTPU_DRYRUN=0: DryRunDisabled in process, HTTP "
+                f"{status} on /debug/dryrun, the live admission answer byte "
+                f"for byte the same across the refused attempt")
+        finally:
+            set_scan_source(None)
+            if bstack is not None:
+                bstack["scanner"].stop_observability()
+                replay.stop_stack(bstack)
+            replay.stop_stack(stack)
+    return out
+
+
+def chaos_phase(events: int = CHAOS_EVENTS, device: str = "cuda") -> dict:
+    """[chaos]: ``run_scenario("oracle_brownout")`` with the SLO actions
+    on and then off, on stacks on the card, held to every check of the
+    JAX package's chaos gate."""
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.workload.chaos import run_scenario
+
+    out = {}
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rep = run_scenario("oracle_brownout", events=events, delay_s=0.35,
+                       workers=6, actions="1", device=device)
+    rep_s = time.perf_counter() - t0
+    failures = [f"check {k}" for k, ok in rep["checks"].items() if not ok]
+    if not rep["action_log"]:
+        failures.append("no actions logged")
+    failures += [f"malformed log {e}" for e in rep["action_log"]
+                 if "t" not in e or e["event"] not in ("enter", "exit")]
+    if not (rep["manifest"].get("slo") or {}).get("action_log"):
+        failures.append("the manifest has no action log")
+    t0 = time.perf_counter()
+    par = run_scenario("oracle_brownout", events=events, delay_s=0.35,
+                       workers=6, actions="0", device=device)
+    par_s = time.perf_counter() - t0
+    failures += [f"kill switch: check {k}" for k in (
+        "no_actions_engaged", "episode_digest_matches",
+        "recovery_digest_matches", "degraded_seen")
+        if not par["checks"].get(k)]
+    launches = dict(_build.LAUNCHES)
+    degraded = [t for t in rep["transitions"] if t["state"] == "degraded"]
+    recovery_s = [round(t["exit_t"] - t["enter_t"], 3) for t in degraded
+                  if "exit_t" in t]
+    check(not failures, f"[chaos] {failures}; brownout {rep['checks']}, "
+          f"p99 episode {rep['episode_p99_ms']} ms (budget "
+          f"{rep['p99_budget_ms']} ms), baseline {rep['baseline_p99_ms']} "
+          f"ms, recovery {rep['recovery_p99_ms']} ms; kill switch "
+          f"{par['checks']}")
+    check(all(launches[k] > 0 for k in EVALUATE_KERNELS),
+          f"[chaos] launches {launches}")
+    log(f"[chaos] oracle_brownout, {events} events, actions on: every check "
+        f"{sorted(rep['checks'])} held ({rep_s:.3f} s); p99 baseline "
+        f"{rep['baseline_p99_ms']} ms, episode {rep['episode_p99_ms']} ms "
+        f"(budget {rep['p99_budget_ms']} ms), recovery "
+        f"{rep['recovery_p99_ms']} ms; actions "
+        f"{sorted({e['action'] for e in rep['action_log']})}, shed "
+        f"{rep['shed']}; degraded for {recovery_s} s before it recovered")
+    log(f"[chaos] oracle_brownout, KTPU_SLO_ACTIONS=0: every check "
+        f"{sorted(par['checks'])} held ({par_s:.3f} s); p99 baseline "
+        f"{par['baseline_p99_ms']} ms, episode {par['episode_p99_ms']} ms; "
+        f"launches over both {launches}")
+    out.update(launches=launches, recovery_s=recovery_s,
+               episode_p99_ms=rep["episode_p99_ms"],
+               baseline_p99_ms=rep["baseline_p99_ms"])
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4765,6 +5634,12 @@ def main() -> int:
                          "workers (default: the pool's own, cores - 1)")
     ap.add_argument("--analysis", action="store_true",
                     help="build, then only the [analysis] phase")
+    ap.add_argument("--fleet", action="store_true",
+                    help="build, then only the [fleet] phase")
+    ap.add_argument("--workload", action="store_true",
+                    help="build, then only the [workload] phase")
+    ap.add_argument("--chaos", action="store_true",
+                    help="build, then only the [chaos] phase")
     ap.add_argument("--all-cards", action="store_true",
                     help="build, then only the mesh scan over every card of "
                          "the host against the one-card scan (needs 2 or more)")
@@ -4888,6 +5763,21 @@ def main() -> int:
         return 0
     if args.analysis:
         analysis_phase()
+        log(nvidia_smi_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": dev_name,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.fleet or args.workload or args.chaos:
+        for flag, phase in (("fleet", fleet_phase), ("workload", workload_phase),
+                            ("chaos", chaos_phase)):
+            if getattr(args, flag):
+                t0 = time.perf_counter()
+                if flag == "chaos":
+                    phase()
+                else:
+                    phase(_synth_policy_docs(250))
+                log(f"[{flag}] phase wall {time.perf_counter() - t0:.3f} s")
         log(nvidia_smi_line())
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": dev_name,
@@ -5125,6 +6015,24 @@ def main() -> int:
     analysis = analysis_phase()
     mark("analysis")
 
+    # ---- 10c. the fleet plane (three replicas of the library sharing one
+    # fabric hub, the partitioned scan), the workload plane (replay legs,
+    # the dry-run against a 10,000-resource corpus, the CLI's dryrun) and
+    # the SLO loop under an oracle brownout; [chaos] last of the three, on
+    # a machine whose earlier pools are stopped
+    t0 = time.perf_counter()
+    fleet = fleet_phase(library_docs)
+    log(f"[fleet] phase wall {time.perf_counter() - t0:.3f} s")
+    mark("fleet")
+    t0 = time.perf_counter()
+    workload = workload_phase(library_docs)
+    log(f"[workload] phase wall {time.perf_counter() - t0:.3f} s")
+    mark("workload")
+    t0 = time.perf_counter()
+    chaos = chaos_phase()
+    log(f"[chaos] phase wall {time.perf_counter() - t0:.3f} s")
+    mark("chaos")
+
     # ---- 11. the background scan path: the scanner's lanes with reports
     # and a delta pass; K7 on the 2D (4, 1) mesh of the card, then on the
     # 1D mesh at two chunks (the host memo holds the first 10,000 until
@@ -5245,6 +6153,12 @@ def main() -> int:
                           "stream": controller["stream"]["launches"].get(
                               name)},
                       "analysis_launches": analysis["launches"].get(name),
+                      "fleet_launches": fleet["launches"].get(name),
+                      "workload_launches": {
+                          "legs": {leg: la.get(name) for leg, la in
+                                   workload["leg_launches"].items()},
+                          "dryrun": workload["dry_launches"].get(name)},
+                      "chaos_launches": chaos["launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": bound_ms, "bound_by": "bytes",
                       "library_ms": None, "bytes": bytes_of[name],

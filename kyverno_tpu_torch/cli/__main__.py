@@ -1,7 +1,4 @@
-"""CLI dispatcher (mirrors kyverno/pkg/kyverno/main.go:18 CLI()).
-
-The JAX package's ``dryrun`` verb comes with the workload plane it
-drives (``workload/``), which the port does not have yet."""
+"""CLI dispatcher (mirrors kyverno/pkg/kyverno/main.go:18 CLI())."""
 
 from __future__ import annotations
 
@@ -9,7 +6,8 @@ import argparse
 import sys
 
 from .. import __version__
-from . import apply_cmd, chart_cmd, lint_cmd, test_cmd, validate_cmd
+from . import (apply_cmd, chart_cmd, dryrun_cmd, lint_cmd, test_cmd,
+               validate_cmd)
 
 
 def main(argv=None) -> int:
@@ -20,6 +18,7 @@ def main(argv=None) -> int:
     parser.add_argument("--version", action="version", version=__version__)
     subparsers = parser.add_subparsers(dest="command")
     apply_cmd.register(subparsers)
+    dryrun_cmd.register(subparsers)
     lint_cmd.register(subparsers)
     test_cmd.register(subparsers)
     validate_cmd.register(subparsers)

@@ -247,6 +247,22 @@ class PolicyTensors:
         before any verdict matrix reaches a caller."""
         return self.n_rules if self.n_rules_logical < 0 else self.n_rules_logical
 
+    def decidability_summary(self) -> dict:
+        """Compiled-set device-decidability: how many live rules the
+        device lattice decides vs. how many detour through the CPU
+        oracle. The dry-run blast-radius report carries this so whoever
+        approves a rollout sees whether the candidate rides the fast
+        path before enforcement."""
+        live = self.n_rules_live
+        host = int(np.asarray(self.rule_host_only[:live]).sum())
+        return {
+            "rules": live,
+            "host_only": host,
+            "device_decidable": live - host,
+            "device_fraction": round((live - host) / live, 4)
+            if live else 1.0,
+        }
+
     @property
     def memo_space(self) -> str:
         """Key space for flatten-row memos: the dictionary lineage when

@@ -14,8 +14,10 @@ KTPU_INCREMENTAL=0 ``single`` (one evaluate), ``pipelined``
 (evaluate_pipelined) or ``serial_chunks`` (KTPU_FLATTEN_PIPELINE=0) above
 one chunk. The scanner runs on ``cuda`` unless the caller passes
 ``device="cpu"`` or a mesh of CPU devices. ``serve_observability``
-starts the /metrics /healthz /debug/traces listener; the JAX package's
-dry-run corpus registration and its fleet hooks are not here.
+starts the /metrics /healthz /debug/traces listener and registers the
+scanner as the dry-run corpus (workload/dryrun.py). With a fleet fabric
+attached, a policy refresh that recompiles or drops segments purges the
+shared tiers fleet-wide (fleet/fabric.py).
 
 Delta scanning (KTPU_INCREMENTAL, default on): the scanner persists the
 verdict matrix between passes, keyed by (resource key) x (policy, rule).
@@ -137,6 +139,10 @@ class BackgroundScanner:
         self.delta_stats = {"full_scans": 0, "delta_scans": 0,
                             "cols_evaluated": 0, "rows_evaluated": 0}
         self._obs = None
+        # fleet fabric client (fleet/fabric.attach_stack); a policy
+        # refresh that recompiles or drops segments purges the shared
+        # tiers fleet-wide
+        self._fabric = None
         self._apply_policies(policies)
 
     def serve_observability(self, host: str = "127.0.0.1",
@@ -145,12 +151,14 @@ class BackgroundScanner:
         listener (runtime/obs_http.ObservabilityServer) — scanner-only
         processes have no webhook port to scrape. Port 0 picks a free
         port (read it back from the returned server's ``server_port``).
-        Idempotent per scanner. (The JAX package also registers the
-        scanner as the dry-run corpus here; the port has no dry-run
-        service yet.)"""
+        Idempotent per scanner."""
         if self._obs is None:
             from .obs_http import ObservabilityServer
+            from ..workload.dryrun import set_scan_source
 
+            # a scanner exposing an obs port is the natural dry-run
+            # corpus: POST /debug/dryrun evaluates against its state
+            set_scan_source(self)
             self._obs = ObservabilityServer(host=host, port=port)
             self._obs.start()
         return self._obs
@@ -195,8 +203,15 @@ class BackgroundScanner:
     def update_policies(self, policies: list) -> dict:
         """Replace the scanned policy set. With incremental compilation
         only segments whose policy object changed recompile; the refresh
-        summary (recompiled/dropped keys) seeds the next delta pass."""
-        return self._apply_policies(policies)
+        summary (recompiled/dropped keys) seeds the next delta pass —
+        and, with a fabric attached, drives fleet-wide invalidation of
+        the shared tiers (a pure-reuse refresh purges nothing)."""
+        refresh = self._apply_policies(policies)
+        if self._fabric is not None:
+            from ..fleet import fabric as fabric_mod
+
+            fabric_mod.publish_refresh(self._fabric, refresh)
+        return refresh
 
     def note_resource(self, event: str, resource: dict) -> None:
         """Resource watch feed: the row goes dirty for the next delta

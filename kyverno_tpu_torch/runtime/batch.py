@@ -30,8 +30,10 @@ This is the JAX package's batcher. Its SLO-actions plane
 (runtime/sloactions.py) scales the coalescing window, lowers the pad
 floor and suspends the late-join graft while its geometry profile is
 engaged, and every flush feeds the metrics registry; both sit behind a
-``try`` and neither changes a verdict. The JAX package's fleet
-fabric (decisions shared across replicas) is not here.
+``try`` and neither changes a verdict. With a fleet fabric attached
+(``fleet/fabric.attach_stack``) and ``KTPU_FABRIC`` on, a local
+result-cache miss reads through to decisions other replicas computed,
+and every decision this batcher caches is published there.
 """
 
 from __future__ import annotations
@@ -235,6 +237,10 @@ class AdmissionBatcher:
         from .resourcecache import FlattenRowCache
 
         self._row_cache = FlattenRowCache(max_rows=row_cache_max)
+        # fleet fabric client (fleet/fabric.attach_stack); None = the
+        # single-replica build, and KTPU_FABRIC gates every consult even
+        # when attached
+        self._fabric = None
         # warmup seeds by population, replayed on policy change so the
         # post-update first burst finds warm shape buckets and a primed
         # memo (re-warm runs on its own thread: warmup blocks on the
@@ -421,7 +427,13 @@ class AdmissionBatcher:
         memo rows refreshed BEFORE the next admission burst arrives.
         Coalesced — a storm of updates triggers one re-warm pass at a
         time — and run on a dedicated thread (never the flush pool:
-        warmup waits on flush-pool futures)."""
+        warmup waits on flush-pool futures). With a fabric attached the
+        churn also purges the shared decision/host tiers fleet-wide —
+        every replica's stale rows, not just ours."""
+        if self._fabric is not None:
+            from ..fleet import fabric as fabric_mod
+
+            fabric_mod.publish_policy_change(self._fabric, event, policy)
         with self._lock:
             if self._stopped or not self._warm_seeds or self._rewarm_pending:
                 return
@@ -499,6 +511,11 @@ class AdmissionBatcher:
         status = CLEAN if clean else ATTENTION
         with self._lock:
             self._cache_store(key, status, row)
+        if self._fabric is not None:
+            from ..fleet import fabric as fabric_mod
+
+            fabric_mod.decision_fabric_put(self, ptype, kind, namespace,
+                                           resource, env, status, row)
 
     def cache_fingerprint(self) -> str:
         """Digest of every live decision the batcher holds: result-cache
@@ -563,6 +580,26 @@ class AdmissionBatcher:
                     rec.add_span(trace, "screen", now_pc, now_pc,
                                  lane="result_cache", status=hit[1])
                     return hit[1], hit[2]
+                if self._fabric is not None:
+                    # local miss → fleet fabric read-through: a decision
+                    # another replica already computed for this exact
+                    # (policy set, body, env) serves at cache speed here
+                    from ..fleet import fabric as fabric_mod
+
+                    far = fabric_mod.decision_fabric_get(
+                        self, ptype, kind, namespace, resource, env)
+                    if far is not None:
+                        status, row = far
+                        with self._lock:
+                            self.stats["fabric"] = (
+                                self.stats.get("fabric", 0) + 1)
+                            self.stats["clean" if status == CLEAN
+                                       else "attention"] += 1
+                            self._cache_store(cache_key, status, row)
+                        now_pc = time.perf_counter()
+                        rec.add_span(trace, "screen", now_pc, now_pc,
+                                     lane="fabric", status=status)
+                        return status, row
         fut: Future = Future()
         now = time.monotonic()
         with self._lock:
@@ -699,6 +736,12 @@ class AdmissionBatcher:
                 self.stats["flush_fallback"] = (
                     self.stats.get("flush_fallback", 0) + 1)
             self.stats["clean" if status == CLEAN else "attention"] += 1
+        if (device_answered and cache_key is not None
+                and self._fabric is not None):
+            from ..fleet import fabric as fabric_mod
+
+            fabric_mod.decision_fabric_put(self, ptype, kind, namespace,
+                                           resource, env, status, row)
         return status, row
 
     # ----------------------------------------------------- streaming lane

@@ -71,6 +71,26 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
        "tests/test_torch_mesh.py", "",
        "mesh geometry: unset = 1D data mesh, 'PxD' = 2D policy x data, "
        "'auto' = factor the device count, '1d' = force 1D"),
+    # -- fleet plane (multi-replica verdict fabric + partitioned scan)
+    _S("KTPU_FABRIC", "kyverno_tpu_torch.fleet.fabric",
+       "tests/test_torch_fleet.py", "0",
+       "master switch for the fleet verdict fabric (off = attached "
+       "fabric ignored; single-replica decisions bit-for-bit)"),
+    _S("KTPU_FABRIC_TRANSPORT", "kyverno_tpu_torch.fleet.fabric",
+       "tests/test_torch_fleet.py", "inproc",
+       "fabric transport selection (inproc|socket); parity held both "
+       "ways by the fleet tests and chip_smoke's [fleet]"),
+    _S("KTPU_SCAN_PARTITIONS", "kyverno_tpu_torch.fleet.scanparts",
+       "tests/test_torch_fleet.py", "0",
+       "namespace-hash scan partition count (0 = unpartitioned scan; "
+       "parity gate: merged range digests == unpartitioned digest)"),
+    # -- workload plane (trace replay + rollout dry-run)
+    _S("KTPU_REPLAY", "kyverno_tpu_torch.workload.replay",
+       "tests/test_torch_workload.py", "1",
+       "audit-trace replay injection (webhook/stream/background legs)"),
+    _S("KTPU_DRYRUN", "kyverno_tpu_torch.workload.dryrun",
+       "tests/test_torch_workload.py", "1",
+       "policy-rollout dry-run service (POST /debug/dryrun, CLI)"),
     # -- observability plane
     _S("KTPU_TRACE", "kyverno_tpu_torch.runtime.tracing",
        "tests/test_torch_pipeline.py", "1",
@@ -177,6 +197,13 @@ def raw(name: str) -> str:
         raise KeyError(f"undeclared feature switch {name!r}; declare it "
                        "in runtime/featureplane.py")
     return os.environ.get(name, spec.default)
+
+
+def is_set(name: str) -> bool:
+    """Whether the switch is explicitly present in the environment."""
+    if name not in REGISTRY:
+        raise KeyError(f"undeclared feature switch {name!r}")
+    return name in os.environ
 
 
 def enabled(name: str) -> bool:

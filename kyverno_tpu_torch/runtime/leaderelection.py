@@ -6,9 +6,8 @@ acquire/renew a coordination.k8s.io Lease through the client; the holder
 runs the leader-only controllers (background scan, generate controller,
 webhook registration), everyone serves webhooks.
 
-One elector can guard *multiple named leases* (the JAX package's
-fleet plane uses this for per-partition scan-range ownership; the port
-has no fleet plane yet): the constructor ``name``
+One elector can guard *multiple named leases* (fleet/scanparts.py uses
+this for per-partition scan-range ownership): the constructor ``name``
 is the primary lease — ``is_leader()``/``on_started_leading``/
 ``on_stopped_leading`` keep their historical single-lease semantics —
 and :meth:`add_lease`/:meth:`drop_lease` enroll secondary names renewed

@@ -5,10 +5,6 @@ vectors with the same names — exposed in text format on /metrics
 (prometheus_client is not baked into the image, so the exposition is
 implemented directly; the format is the stable text/plain 0.0.4 protocol).
 A periodic reset clears the registry like PromConfig's cron (metrics.go:17).
-
-The JAX package's recorders of planes the port does not have yet (the
-fleet fabric, the workload plane's replay and dry-run) come with those
-planes.
 """
 
 from __future__ import annotations
@@ -47,6 +43,11 @@ BUCKET_OVERRIDES = {
     "kyverno_stream_request_duration_seconds": (
         0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
         0.5, 1.0, 2.5),
+    # replay latency is measured from the *scheduled* arrival, so the
+    # ladder must cover queue-wait tails well past the per-event cost
+    "kyverno_replay_latency_seconds": (
+        0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+        0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
 }
 
 
@@ -878,6 +879,56 @@ def record_events(registry: MetricsRegistry, emitted: int = 0,
                              float(dropped))
 
 
+# ------------------------------------- workload plane (replay / dry-run)
+
+
+def record_replay_events(registry: MetricsRegistry, leg: str,
+                         n: int = 0, dropped: int = 0) -> None:
+    """Per-leg replay delivery counters (workload/replay.py): events the
+    worker pool processed vs events the bounded queue shed."""
+    if n:
+        registry.inc_counter("kyverno_replay_events_total",
+                             {"leg": leg}, float(n))
+    if dropped:
+        registry.inc_counter("kyverno_replay_events_dropped_total",
+                             {"leg": leg}, float(dropped))
+
+
+def record_replay_latency(registry: MetricsRegistry, leg: str,
+                          seconds: float) -> None:
+    """One replayed event's latency from its *scheduled* arrival —
+    queue wait included, so backlog is visible (open-loop semantics)."""
+    registry.observe("kyverno_replay_latency_seconds", {"leg": leg},
+                     seconds)
+
+
+def record_replay_queue_depth(registry: MetricsRegistry, leg: str,
+                              depth: int) -> None:
+    """Dispatcher-side queue depth sampled at every release."""
+    registry.set_gauge("kyverno_replay_queue_depth", {"leg": leg},
+                       float(depth))
+
+
+def record_dryrun_request(registry: MetricsRegistry, status: str,
+                          seconds: float) -> None:
+    """One dry-run evaluation (workload/dryrun.py): count by outcome +
+    wall time."""
+    registry.inc_counter("kyverno_dryrun_requests_total",
+                         {"status": status})
+    registry.observe("kyverno_dryrun_duration_seconds", {}, seconds)
+
+
+def record_dryrun_blast_radius(registry: MetricsRegistry, policy: str,
+                               newly_failing: int,
+                               newly_passing: int) -> None:
+    """Blast-radius gauges of the most recent dry-run per candidate —
+    what a rollout dashboard plots before flipping enforcement."""
+    registry.set_gauge("kyverno_dryrun_newly_failing",
+                       {"policy": policy}, float(newly_failing))
+    registry.set_gauge("kyverno_dryrun_newly_passing",
+                       {"policy": policy}, float(newly_passing))
+
+
 # ------------------------------------------------------------- profiling
 
 
@@ -985,8 +1036,59 @@ def mesh_geometry_snapshot() -> dict:
             "shard_rules": dict(_MESH_GEOMETRY["shard_rules"])}
 
 
+def record_fabric_frame(registry: MetricsRegistry, op: str,
+                        tier: str) -> None:
+    """One CACHE_GET/PUT/INVALIDATE frame handled by a fabric hub."""
+    registry.inc_counter("kyverno_fabric_frames_total",
+                         {"op": op, "tier": tier or "all"})
+
+
+def record_fabric_lookup(registry: MetricsRegistry, tier: str,
+                         hit: bool) -> None:
+    """One client-side fabric lookup outcome, per cache tier. Hit rate
+    across replicas is the fabric's reason to exist — a repeated-body
+    lane with zero cross-replica hits means keys stopped being
+    content-addressed somewhere."""
+    name = ("kyverno_fabric_hits_total" if hit
+            else "kyverno_fabric_misses_total")
+    registry.inc_counter(name, {"tier": tier})
+
+
+def record_fabric_invalidation(registry: MetricsRegistry, tier: str,
+                               purged: int) -> None:
+    """One epoch-bumping invalidation and how many rows it purged."""
+    registry.inc_counter("kyverno_fabric_invalidations_total",
+                         {"tier": tier or "all"})
+    if purged:
+        registry.inc_counter("kyverno_fabric_purged_rows_total",
+                             {"tier": tier or "all"}, float(purged))
+
+
+def record_fabric_failover(registry: MetricsRegistry,
+                           replica: str) -> None:
+    """One router failover away from a replica (error, F_ERROR reply,
+    or open breaker at submit time)."""
+    registry.inc_counter("kyverno_fabric_failovers_total",
+                         {"replica": replica})
+
+
+def record_scan_partition_rows(registry: MetricsRegistry, part: int,
+                               rows: int) -> None:
+    """``kyverno_scan_partition_rows{range}`` — rows this replica scanned
+    in one partition on its last partitioned pass; the spread across
+    ranges is the namespace-hash balance an operator checks before
+    raising KTPU_SCAN_PARTITIONS."""
+    registry.set_gauge("kyverno_scan_partition_rows",
+                       {"range": str(part)}, float(rows))
+
+
 def fleet_snapshot() -> dict:
-    """The /healthz fleet block. The JAX package returns its fabric's
-    hub/client stats, and ``{"enabled": False}`` where the fleet plane
-    does not load; the port has no fleet plane yet."""
-    return {"enabled": False}
+    """The /healthz fleet block: fabric hub/client stats and scan
+    coordinator state. Import is lazy and failure-proof so /healthz
+    keeps answering on builds where the fleet plane never loaded."""
+    try:
+        from ..fleet import fabric as _fabric
+
+        return _fabric.health_snapshot()
+    except Exception:
+        return {"enabled": False}

@@ -29,10 +29,10 @@ kube-apiserver-facing port also answers scrapes) and a standalone
     device-memory snapshot; ``?seconds=N`` starts a bounded
     torch.profiler window capture (409 while one is running).
 ``/debug/dryrun``
-    Policy-rollout dry-run. Waits for the port's ``workload.dryrun``; it
-    answers as the JAX package's does with ``KTPU_DRYRUN=0`` and no scan
-    source: GET 200 ``{"enabled": false, "scan_source": false, ...}``,
-    POST 403.
+    Policy-rollout dry-run (workload/dryrun.py): GET = service status,
+    POST ``{"policy": <ClusterPolicy doc>}`` = blast-radius report for
+    the candidate against the registered scan corpus, with zero live
+    impact. 403 while KTPU_DRYRUN=0.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from . import featureplane
 from . import metrics as metrics_mod
 from . import tracing
 
@@ -52,11 +53,6 @@ _started_at = time.time()
 # version stamp on the /debug/* JSON payloads — replay-manifest diffing
 # keys on it instead of sniffing the layout
 DEBUG_SCHEMA_VERSION = 1
-
-# the route whose module the port does not have yet (workload.dryrun):
-# fixed answers, as the JAX route gives with its module off
-DRYRUN_SCHEMA_VERSION = 1
-DRYRUN_DISABLED = "dry-run service disabled (workload.dryrun is not ported)"
 
 
 def _stream_enabled() -> bool:
@@ -123,7 +119,8 @@ def handle_obs_get(path: str, registry=None):
             # scan-plane mesh geometry: selected axes, device
             # inventory, per-shard rule distribution
             "mesh": metrics_mod.mesh_geometry_snapshot(),
-            # fleet plane: ``{"enabled": false}`` in the port
+            # fleet plane: fabric hub/client counters and scan
+            # partition coordinator state
             "fleet": metrics_mod.fleet_snapshot(),
         }).encode()
         return 200, body, "application/json"
@@ -180,8 +177,11 @@ def handle_obs_get(path: str, registry=None):
                        "traces": rec.export(n, slowest=slowest)}
         return 200, json.dumps(payload).encode(), "application/json"
     if route == "/debug/dryrun":
-        payload = {"schema_version": DRYRUN_SCHEMA_VERSION,
-                   "enabled": False, "scan_source": False,
+        from ..workload import dryrun as dryrun_mod
+
+        payload = {"schema_version": dryrun_mod.DRYRUN_SCHEMA_VERSION,
+                   "enabled": featureplane.enabled("KTPU_DRYRUN"),
+                   "scan_source": dryrun_mod.scan_source() is not None,
                    "usage": 'POST {"policy": <ClusterPolicy doc>, '
                             '"sample_limit": 5}'}
         return 200, json.dumps(payload).encode(), "application/json"
@@ -193,14 +193,41 @@ def handle_obs_post(path: str, body: bytes, registry=None):
     ``None`` means "not an observability endpoint". Currently one
     route: ``/debug/dryrun`` evaluates a candidate policy's blast
     radius against the registered scan source without touching live
-    decisions; in the port it answers 403, as the JAX route does while
-    KTPU_DRYRUN=0."""
+    decisions (workload/dryrun.py; 403 while KTPU_DRYRUN=0)."""
     raw = path.split("?", 1)[0].split("#", 1)[0]
     route = re.sub(r"/{2,}", "/", raw).rstrip("/") or "/"
     if route != "/debug/dryrun":
         return None
-    return (403, json.dumps({"error": DRYRUN_DISABLED}).encode(),
+    from ..workload import dryrun as dryrun_mod
+
+    try:
+        req = json.loads(body or b"{}")
+    except ValueError:
+        return (400, json.dumps({"error": "body must be JSON"}).encode(),
+                "application/json")
+    doc = req.get("policy") if isinstance(req, dict) else None
+    if not isinstance(doc, dict):
+        return (400, json.dumps(
+            {"error": 'missing "policy" (a ClusterPolicy doc)'}).encode(),
             "application/json")
+    try:
+        sample_limit = int(req.get("sample_limit", 5))
+    except (TypeError, ValueError):
+        sample_limit = 5
+    try:
+        report = dryrun_mod.dry_run(doc, sample_limit=sample_limit)
+    except dryrun_mod.DryRunDisabled as e:
+        return (403, json.dumps({"error": str(e)}).encode(),
+                "application/json")
+    except ValueError as e:
+        # no registered scan corpus (or an unloadable candidate)
+        return (503, json.dumps({"error": str(e)}).encode(),
+                "application/json")
+    except Exception as e:
+        return (500, json.dumps(
+            {"error": f"{type(e).__name__}: {e}"}).encode(),
+            "application/json")
+    return 200, json.dumps(report).encode(), "application/json"
 
 
 class ObservabilityServer:

@@ -214,8 +214,7 @@ class FlattenRowCache:
     and entries are MemoRow (models/flatten.py) carrying their epoch:
     ``get_row``/``put_row`` revalidate rows across policy updates by
     delta-flattening only the appended paths, so a policy-update storm
-    keeps the memo warm instead of flushing it. The JAX package's
-    cross-replica read-through (its fleet fabric) is not here."""
+    keeps the memo warm instead of flushing it."""
 
     def __init__(self, max_rows: int = 4096):
         from collections import OrderedDict
@@ -226,6 +225,55 @@ class FlattenRowCache:
         self.hits = 0
         self.misses = 0
         self.extended = 0         # epoch-refreshed survivals within hits
+        # fleet wiring (fleet/fabric.attach_stack): cross-replica
+        # read-through on the fingerprint-keyed tier; dormant while
+        # unattached or KTPU_FABRIC is off
+        self.fabric = None
+        self.fabric_hits = 0
+
+    def attach_fabric(self, client) -> None:
+        self.fabric = client
+
+    def _fabric_row(self, tensors, digest: bytes):
+        """Cross-replica miss fill. The fabric keys on
+        ``tensors.fingerprint`` — the content digest of exactly what
+        flattening consumes — NOT memo_space (the incremental lineage is
+        a per-process uuid), so a fingerprint-exact PackedRow fetched
+        from another replica is byte-valid here with no epoch
+        revalidation. Any failure is a plain miss."""
+        if self.fabric is None or digest is None:
+            return None
+        try:
+            from ..fleet import fabric as fabric_mod
+
+            if not fabric_mod.fabric_enabled():
+                return None
+            fp = getattr(tensors, "fingerprint", None)
+            if not fp:
+                return None
+            blob = self.fabric.get("flatten",
+                                   fabric_mod.flatten_key(fp, digest))
+            if blob is None:
+                return None
+            return fabric_mod.decode_flatten_row(blob)
+        except Exception:
+            return None
+
+    def _memoize_fabric_row(self, key: tuple, row, tensors):
+        """A fabric-fetched row enters the local memo at the current
+        dictionary coordinates (fingerprint-exact = current-epoch-exact)
+        and counts as a hit."""
+        from ..models.flatten import MemoRow
+
+        with self._lock:
+            self.hits += 1
+            self.fabric_hits += 1
+            self._rows[key] = MemoRow(row=row, n_paths=tensors.n_paths,
+                                      epoch=tensors.dict_epoch)
+            self._rows.move_to_end(key)
+            while len(self._rows) > self.max_rows:
+                self._rows.popitem(last=False)
+        return row
 
     @staticmethod
     def digest(resource: dict, request: dict | None = None) -> bytes | None:
@@ -284,6 +332,9 @@ class FlattenRowCache:
             else:
                 memo = None
         if memo is None:
+            row = self._fabric_row(tensors, digest)
+            if row is not None:
+                return self._memoize_fabric_row(key, row, tensors)
             with self._lock:
                 self.misses += 1
             return None
@@ -292,6 +343,10 @@ class FlattenRowCache:
         if refreshed is None:
             with self._lock:
                 self._rows.pop(key, None)
+            row = self._fabric_row(tensors, digest)
+            if row is not None:
+                return self._memoize_fabric_row(key, row, tensors)
+            with self._lock:
                 self.misses += 1
             return None
         with self._lock:
@@ -308,13 +363,25 @@ class FlattenRowCache:
                 n_paths: int, epoch: int,
                 fingerprint: str | None = None) -> None:
         """Store a freshly-split PackedRow with its dictionary coordinates
-        so later epochs can revalidate instead of re-flattening.
-        ``fingerprint`` keys the JAX package's cross-replica tier, which
-        the port does not have; it is accepted and unused."""
+        so later epochs can revalidate instead of re-flattening. With a
+        ``fingerprint`` and an attached fabric, the bare row is also
+        published to the shared tier (fingerprint-keyed — replicas
+        revalidate nothing, so the MemoRow envelope stays local)."""
         from ..models.flatten import MemoRow
 
         self.put(space, digest, MemoRow(row=row, n_paths=n_paths,
                                         epoch=epoch))
+        if fingerprint and digest is not None and self.fabric is not None:
+            try:
+                from ..fleet import fabric as fabric_mod
+
+                if fabric_mod.fabric_enabled():
+                    self.fabric.put(
+                        "flatten", fabric_mod.flatten_key(fingerprint,
+                                                          digest),
+                        fabric_mod.encode_flatten_row(row))
+            except Exception:
+                pass
 
     def survival_ratio(self) -> float:
         with self._lock:
@@ -330,6 +397,7 @@ class FlattenRowCache:
             total = self.hits + self.misses
             return {"rows": len(self._rows), "hits": self.hits,
                     "misses": self.misses, "extended": self.extended,
+                    "fabric_hits": self.fabric_hits,
                     "survival_ratio": (self.hits / total if total
                                        else 0.0)}
 
@@ -372,6 +440,14 @@ class HostVerdictCache:
         self.hits = 0
         self.misses = 0
         self.expired = 0
+        # fleet wiring (fleet/fabric.attach_stack): cross-replica
+        # read-through keyed the same (policy digest, rule, body digest)
+        # way; dormant while unattached or KTPU_FABRIC is off
+        self.fabric = None
+        self.fabric_hits = 0
+
+    def attach_fabric(self, client) -> None:
+        self.fabric = client
 
     @staticmethod
     def body_digest(resource: dict, context: dict | None = None) -> bytes | None:
@@ -405,7 +481,8 @@ class HostVerdictCache:
         return d
 
     def get(self, key: tuple) -> tuple | None:
-        """(verdict, message) or None; expiry counts as a miss."""
+        """(verdict, message) or None; expiry counts as a miss. A local
+        miss consults the attached fabric before giving up."""
         now = time.monotonic()
         with self._lock:
             cell = self._cells.get(key)
@@ -417,8 +494,44 @@ class HostVerdictCache:
                     return (verdict, msg)
                 del self._cells[key]
                 self.expired += 1
+        hit = self._fabric_cell(key)
+        if hit is not None:
+            return hit
+        with self._lock:
             self.misses += 1
         return None
+
+    def _fabric_cell(self, key: tuple) -> tuple | None:
+        """Cross-replica miss fill: the fabric value carries an absolute
+        expiry, so the remaining validity window transfers (an expired
+        remote verdict is a plain miss). Any failure is a miss."""
+        if self.fabric is None:
+            return None
+        try:
+            from ..fleet import fabric as fabric_mod
+
+            if not fabric_mod.fabric_enabled():
+                return None
+            fkey = fabric_mod.host_key(key)
+            if fkey is None:
+                return None
+            blob = self.fabric.get("host", fkey)
+            if blob is None:
+                return None
+            verdict, msg, remaining = fabric_mod.decode_host_verdict(blob)
+            if remaining <= 0:
+                return None
+            with self._lock:
+                self.hits += 1
+                self.fabric_hits += 1
+                self._cells[key] = (time.monotonic() + remaining,
+                                    verdict, msg)
+                self._cells.move_to_end(key)
+                while len(self._cells) > self.max_cells:
+                    self._cells.popitem(last=False)
+            return (verdict, msg)
+        except Exception:
+            return None
 
     def put(self, key: tuple, verdict, message: str, ttl_s: float) -> None:
         with self._lock:
@@ -426,6 +539,19 @@ class HostVerdictCache:
             self._cells.move_to_end(key)
             while len(self._cells) > self.max_cells:
                 self._cells.popitem(last=False)
+        if self.fabric is not None:
+            try:
+                from ..fleet import fabric as fabric_mod
+
+                if fabric_mod.fabric_enabled():
+                    fkey = fabric_mod.host_key(key)
+                    if fkey is not None:
+                        self.fabric.put(
+                            "host", fkey,
+                            fabric_mod.encode_host_verdict(
+                                verdict, message, ttl_s))
+            except Exception:
+                pass
 
     def __len__(self) -> int:
         with self._lock:
@@ -436,6 +562,7 @@ class HostVerdictCache:
             total = self.hits + self.misses
             return {"cells": len(self._cells), "hits": self.hits,
                     "misses": self.misses, "expired": self.expired,
+                    "fabric_hits": self.fabric_hits,
                     "hit_ratio": (self.hits / total if total else 0.0)}
 
     def clear(self) -> None:

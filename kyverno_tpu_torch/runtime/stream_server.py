@@ -71,9 +71,16 @@ F_ADMIT_BLOCK = 0x03
 F_VERDICT = 0x81
 F_ERROR = 0x7F
 
-# The JAX package's fleet verdict fabric shares this codec with request
-# types 0x10-0x12 and reply types 0x82-0x83 (its module is not ported):
-# no frame type here may take those numbers.
+# Fleet verdict-fabric frames (fleet/fabric.py) share this codec: the
+# request types live below 0x40 and the reply types above 0x80 so
+# neither collides with F_TRACE_BIT masking (only _TRACEABLE admission
+# types honor the bit) or with F_ERROR's numeric bit pattern. Bodies
+# are tier/key/value encodings owned by fleet/fabric.py.
+F_CACHE_GET = 0x10
+F_CACHE_PUT = 0x11
+F_CACHE_INVALIDATE = 0x12
+F_CACHE_OK = 0x82
+F_CACHE_MISS = 0x83
 
 # Optional trace-context carriage: admission frames may set this bit on
 # ftype, in which case the body is prefixed with ``u16 tplen|traceparent``

@@ -381,17 +381,12 @@ def test_certify_switch_declared_with_jax_default():
 
 # the JAX switches the port does not declare: the persistent compile
 # cache's (the port's kernel cache is the hash-named build directory of
-# ops/_build.py, with nothing to switch), and those of the modules still
-# to be ported (bench.py, fleet/, workload/)
+# ops/_build.py, with nothing to switch), and that of bench.py, the JAX
+# package's benchmark script
 NOT_DECLARED = {
     "KTPU_COMPILE_CACHE": "kyverno_tpu.utils.compilecache",
     "KTPU_COMPILE_CACHE_DIR": "kyverno_tpu.utils.compilecache",
-    "KTPU_BENCH_CONFIGS": "bench",
-    "KTPU_DRYRUN": "kyverno_tpu.workload.dryrun",
-    "KTPU_REPLAY": "kyverno_tpu.workload.replay",
-    "KTPU_FABRIC": "kyverno_tpu.fleet.fabric",
-    "KTPU_FABRIC_TRANSPORT": "kyverno_tpu.fleet.fabric",
-    "KTPU_SCAN_PARTITIONS": "kyverno_tpu.fleet.scanparts"}
+    "KTPU_BENCH_CONFIGS": "bench"}
 
 
 def test_jax_switches_the_port_does_not_declare():

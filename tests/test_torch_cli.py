@@ -231,13 +231,16 @@ def test_apply_writes_mutated_resources_equal_to_jax(corpus, tmp_path,
 
 
 def test_cli_main_registers_the_ported_verbs(capsys):
-    """``dryrun`` comes with the workload plane; every other verb of the
-    JAX CLI is registered, under the same program name."""
-    with pytest.raises(SystemExit):
-        torch_main(["--help"])
-    out = capsys.readouterr().out
-    assert out.startswith("usage: kyverno-tpu ")
-    assert "{apply,lint,test,validate,render-chart,version}" in out
+    """Every verb of the JAX CLI, ``dryrun`` included, is registered under
+    the same program name: the two ``--help`` outputs are the same."""
+    helps = []
+    for main in (jax_main, torch_main):
+        with pytest.raises(SystemExit):
+            main(["--help"])
+        helps.append(capsys.readouterr().out)
+    assert helps[1].startswith("usage: kyverno-tpu ")
+    assert "{apply,dryrun,lint,test,validate,render-chart,version}" in helps[1]
+    assert helps[1] == helps[0]
 
 
 # ------------------------------------- chip_smoke.py's [analysis] pins

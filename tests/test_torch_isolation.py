@@ -5,10 +5,11 @@ no source of the port (Python, CUDA or C++) names a path under the JAX
 package's ``native/`` or ``kyverno_tpu/`` directories, what an
 oracle-pool worker imports loads no torch, the generate, verifyImages
 and policy modules load neither PyYAML nor cryptography, importing the
-webhook and the observability routes loads no profiling or workload
-module, no port module imports a fleet module, and what the controller
-process's modules import, inside their functions too, reaches neither
-jax nor the JAX package."""
+webhook and the observability routes loads no profiling module (serving
+``/debug/dryrun`` loads the dry-run service, as the JAX route does), no
+module outside the fleet plane imports a fleet module when it is
+imported, and what the controller process's modules import, inside
+their functions too, reaches neither jax nor the JAX package."""
 
 import ast
 
@@ -108,47 +109,74 @@ def test_webhook_modules_are_checked():
 
 def test_webhook_and_obs_routes_load_no_profiling_or_workload():
     """Importing the webhook and the observability routes loads no
-    ``profiling`` module (``/debug/profile`` imports it when it is
-    served, as the JAX route does); serving every route, /debug/profile
-    and /debug/dryrun included, loads no ``workload`` or ``fleet`` module
-    (later slices), nor jax or the JAX package."""
+    ``profiling`` and no ``workload`` module. Serving every route but
+    /debug/profile loads no ``profiling`` module either (/debug/profile
+    imports it when it is served, as the JAX route does), and serving
+    /debug/dryrun loads the dry-run service, ``workload.dryrun``, as the
+    JAX route does. Nothing loads jax or the JAX package."""
     code = (
         "import json, sys\n"
         "import kyverno_tpu_torch.runtime.webhook\n"
         "from kyverno_tpu_torch.runtime import obs_http\n"
-        "bad = [m for m in sys.modules if 'profiling' in m.split('.')]\n"
+        "def loaded(part):\n"
+        "    return [m for m in sys.modules\n"
+        "            if m.split('.')[0] == 'kyverno_tpu_torch'\n"
+        "            and part in m.split('.')]\n"
+        "out = {'import': loaded('profiling') + loaded('workload')}\n"
         "for path in ('/metrics', '/healthz', '/debug/traces',\n"
-        "             '/debug/policies', '/debug/profile',\n"
-        "             '/debug/dryrun'):\n"
+        "             '/debug/policies', '/debug/dryrun'):\n"
         "    obs_http.handle_obs_get(path)\n"
-        "obs_http.handle_obs_post('/debug/dryrun', b'{}')\n"
-        "print(json.dumps(bad + [m for m in sys.modules\n"
-        "    if m.split('.')[0] in ('jax', 'kyverno_tpu')\n"
-        "    or m.split('.')[0] == 'kyverno_tpu_torch' and {\n"
-        "    'workload', 'fleet'} & set(m.split('.'))]))\n")
+        "out['post'] = obs_http.handle_obs_post('/debug/dryrun', b'{}')[0]\n"
+        "out['routes'] = loaded('profiling')\n"
+        "out['dryrun'] = 'kyverno_tpu_torch.workload.dryrun' in sys.modules\n"
+        "obs_http.handle_obs_get('/debug/profile')\n"
+        "out['profile'] = loaded('profiling')\n"
+        "out['jax'] = [m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('jax', 'kyverno_tpu')]\n"
+        "print(json.dumps(out))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["import"] == [] and got["routes"] == [] and got["jax"] == []
+    # an empty body is refused before any corpus is read
+    assert got["post"] == 400 and got["dryrun"]
+    assert "kyverno_tpu_torch.runtime.profiling" in got["profile"]
+
+
+def _module_level_imports(path: str) -> list[str]:
+    """The modules a source's top-level import statements name (imports
+    inside functions are left out), relative names kept as written."""
+    out = []
+    for node in ast.parse(open(path, encoding="utf-8").read()).body:
+        if isinstance(node, ast.Import):
+            out.extend(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            mod = "." * node.level + (node.module or "")
+            out.append(mod)
+            out.extend(f"{mod}.{a.name}" for a in node.names)
+    return out
 
 
 def test_no_port_module_imports_fleet():
-    """The fleet plane waits for a later slice: no source of the port
-    names a ``fleet`` module in an import, and importing every port
-    module loads none."""
+    """The fleet plane is dormant until a fabric is attached or a fleet
+    function runs: no module outside ``fleet/`` names a fleet module in a
+    top-level import (the hooks in the batcher, the memos, the scanner,
+    ``metrics.fleet_snapshot`` and the replay harness import it inside
+    the function that uses it), and importing every port module but the
+    fleet package's loads none."""
     pkg = os.path.dirname(kyverno_tpu_torch.__file__)
     for dirpath, _, files in os.walk(pkg):
+        if os.path.basename(dirpath) == "fleet":
+            continue
         for f in files:
             if not f.endswith(".py"):
                 continue
-            for line in open(os.path.join(dirpath, f)):
-                s = line.strip()
-                if s.startswith(("import ", "from ")):
-                    words = s.replace(",", " ").split()
-                    assert not any(w == "fleet" or ".fleet" in w
-                                   or w.startswith("fleet.")
-                                   for w in words), (f, s)
-    mods = _port_modules()
+            for name in _module_level_imports(os.path.join(dirpath, f)):
+                parts = name.lstrip(".").split(".")
+                assert "fleet" not in parts, (f, name)
+    mods = [m for m in _port_modules()
+            if "fleet" not in m.split(".")]
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -354,3 +382,40 @@ def test_cli_and_helmlite_load_no_yaml():
         [f"kyverno_tpu_torch.{m}" for m in SLICE_13_MODULES
          if m.startswith("cli") or m == "utils.helmlite"],
         "top == 'yaml'") == []
+
+
+SLICE_14_MODULES = ("fleet", "fleet.fabric", "fleet.router",
+                    "fleet.scanparts", "workload", "workload.trace",
+                    "workload.replay", "workload.dryrun", "workload.chaos",
+                    "cli.dryrun_cmd")
+
+
+def test_fleet_and_workload_modules_are_checked():
+    mods = _port_modules()
+    for m in SLICE_14_MODULES:
+        assert f"kyverno_tpu_torch.{m}" in mods
+
+
+def test_fleet_and_workload_function_imports_reach_no_jax():
+    """Everything the fleet and workload modules and the ``dryrun`` verb
+    import, inside their functions too, loads neither jax nor the JAX
+    package, and the trace and router modules load no torch."""
+    names = set()
+    for m in SLICE_14_MODULES:
+        if m in ("fleet", "workload"):
+            continue
+        names |= _imported_names(f"kyverno_tpu_torch.{m}")
+    assert "kyverno_tpu_torch.runtime.stream_server" in names
+    assert _loaded_after(sorted(n for n in names if _is_module(n)),
+                         "top in ('jax', 'jaxlib', 'kyverno_tpu')") == []
+    assert _loaded_after(["kyverno_tpu_torch.workload.trace"],
+                         "top in ('torch', 'jax')") == []
+
+
+def _is_module(name: str) -> bool:
+    import importlib.util
+
+    try:
+        return importlib.util.find_spec(name) is not None
+    except (ImportError, ValueError):
+        return False

@@ -123,8 +123,16 @@ def test_build_info_names_the_engine():
     assert 'engine="jax"' in jax_metrics.MetricsRegistry().expose()
 
 
-def test_fleet_snapshot_is_off_in_the_port():
-    assert torch_metrics.fleet_snapshot() == {"enabled": False}
+def test_fleet_snapshot_is_off_in_the_port(monkeypatch):
+    """With ``KTPU_FABRIC`` unset (its default, off) the /healthz fleet
+    block says so, with the transport switch's value, as the JAX one."""
+    monkeypatch.delenv("KTPU_FABRIC", raising=False)
+    monkeypatch.delenv("KTPU_FABRIC_TRANSPORT", raising=False)
+    got, want = torch_metrics.fleet_snapshot(), jax_metrics.fleet_snapshot()
+    assert got["enabled"] is False
+    assert {k: got[k] for k in ("enabled", "transport")} == \
+        {k: want[k] for k in ("enabled", "transport")} == \
+        {"enabled": False, "transport": "inproc"}
 
 
 @pytest.mark.parametrize("mint,read", [(jax_tracing, torch_tracing),

@@ -238,7 +238,7 @@ def _both(fn):
 
 def _stats(cache):
     s = dict(cache.stats())
-    s.pop("fabric_hits", None)          # the JAX package's fleet tier
+    s.pop("fabric_hits", None)          # the fleet tier's (0 here)
     return s
 
 

@@ -486,3 +486,57 @@ def mirror_battery(relpath: str, subs=(), drop=()) -> dict:
         elif hasattr(obj, "_fixture_function_marker"):
             out[name] = obj
     return out
+
+
+# ------------------------------------------- the fleet and workload planes
+
+FLEET_SEED = 20261018
+
+
+def fleet_docs(n_per_family: int = 2) -> list:
+    """The first ``n_per_family`` policies of each family of the 250-policy
+    library, in enforce mode: 16, the host-only family's two included."""
+    out, seen = [], {}
+    for d in chip_smoke.enforce_docs(chip_smoke._synth_policy_docs(250)):
+        family = d["metadata"]["name"].rsplit("-v", 1)[0]
+        if seen.get(family, 0) < n_per_family:
+            seen[family] = seen.get(family, 0) + 1
+            out.append(d)
+    return out
+
+
+def fleet_trace(mod, events: int = 120):
+    """A seeded churn trace of ``workload.trace`` module ``mod`` (either
+    package's) over :func:`fleet_docs`: three namespaces, 12 body
+    templates (``chip_smoke.fleet_body``), 24 pod names, and four of the
+    library's policies landing again every third of the events."""
+    return mod.synthesize(events=events, namespaces=3, distinct_bodies=12,
+                          name_pool=24, policy_churn_every=events // 3,
+                          policy_docs=chip_smoke.churn_docs(fleet_docs()),
+                          seed=FLEET_SEED, make_body=chip_smoke.fleet_body)
+
+
+def count_plain_launches(monkeypatch) -> None:
+    """Rehearse a chip_smoke phase on the CPU. There the wrappers run their
+    plain versions and count no launch, so count the calls the device path
+    makes (``ops.eval``'s ``eval_rules`` and ``glob_match_matrix``); and the
+    plain versions make the batcher's dispatch cost large, so keep its
+    screens on the device lane, as on the card."""
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.ops import eval as ev
+    from kyverno_tpu_torch.runtime.batch import AdmissionBatcher
+
+    rules, glob_ = ev.eval_rules, ev.glob_match_matrix
+
+    def counted_rules(*a, **k):
+        _build.note_launch("eval_rules")
+        return rules(*a, **k)
+
+    def counted_glob(*a, **k):
+        _build.note_launch("glob_nfa")
+        return glob_(*a, **k)
+
+    monkeypatch.setattr(ev, "eval_rules", counted_rules)
+    monkeypatch.setattr(ev, "glob_match_matrix", counted_glob)
+    monkeypatch.setattr(AdmissionBatcher, "_device_favored",
+                        lambda self, *a, **k: True)
