@@ -1429,16 +1429,15 @@ def k6_split(cps, batch, n: int = 50) -> dict:
     """``evaluate_device_async(batch).get()`` split by phase, K6 (donate)
     and the plain route, medians of ``n`` calls each. ``wall`` is the
     call with its ``get()`` on the host clock, untimed inside. Then the
-    same calls with ``engine.PHASE_TIMING`` on time their own steps:
-    ``staging`` (the host copy into pinned memory), ``h2d``,
-    ``launches`` (K1 -> eval_rules; the card waits for their host
-    wrappers) and ``d2h`` between CUDA events on the card, ``read`` (the
-    verdicts out of pinned memory, or the slice of the copied matrix)
-    and ``dispatch`` (until the call returned its handle) on the host.
-    ``timed`` is the host time of such a call with its ``get()`` (the
-    events and clocks make it slower than ``wall``), and ``wrapper``
-    that time less the five steps: packing the blob, the slot, the
-    handle, the locks and the events."""
+    same calls with ``engine.PHASE_TIMING`` on time their own steps
+    (``engine._Phases.ms``): ``call`` (the one call into the runtime, on
+    the host), ``replay`` (K6: the graph's H2D, K1, eval_rules and D2H)
+    or ``launch`` and ``d2h`` (the plain route) between CUDA events on
+    the card, ``read`` and ``dispatch`` (until the call returned its
+    handle) on the host. ``timed`` is the host time of such a call with
+    its ``get()`` (the events and clocks make it slower than ``wall``),
+    and ``wrapper`` that time less the steps: packing the blob, the
+    slot, the handle, the locks and the events."""
     from kyverno_tpu_torch.models import engine
 
     blob, shp = batch.packed_blob()
@@ -1465,8 +1464,10 @@ def k6_split(cps, batch, n: int = 50) -> dict:
         finally:
             engine.PHASE_TIMING = False
         for r in runs:
-            r["wrapper"] = r["timed"] - sum(r[k] for k in (
-                "staging", "h2d", "launches", "d2h", "read"))
+            # the steps are K6's (staging, replay, read) or the plain
+            # route's (h2d, launches, d2h, read); dispatch spans them
+            r["wrapper"] = r["timed"] - sum(
+                v for k, v in r.items() if k not in ("dispatch", "timed"))
         d = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
         d["wall"] = statistics.median(ts)
         split[key] = d
@@ -1481,15 +1482,132 @@ def k6_split(cps, batch, n: int = 50) -> dict:
             "bound_ms": bound}
 
 
+# the phase split's steps, as the two routes name them (with the names
+# of the steps before K6's one-call dispatch, for an older tree's split):
+# host, then the card
+SPLIT_STEPS = {"call": "the call into the runtime (host)",
+               "staging": "host staging", "replay":
+               "the graph's replay on the card (H2D, launches, D2H)",
+               "launch": "H2D + launches on the card", "h2d": "H2D",
+               "launches": "launches", "d2h": "D2H", "read": "read"}
+
+
 def split_line(split: dict) -> str:
     return "; ".join(
         f"{'K6 (donate)' if k == 'on' else 'plain route'}: wall "
         f"{d['wall']:.4f}; timed inside, {d['timed']:.4f} = wrapper "
-        f"{d['wrapper']:.4f} + host staging {d['staging']:.4f} + H2D "
-        f"{d['h2d']:.4f} + launches {d['launches']:.4f} + D2H "
-        f"{d['d2h']:.4f} + read {d['read']:.4f} (returned after "
-        f"{d['dispatch']:.4f})"
+        f"{d['wrapper']:.4f} + " + " + ".join(
+            f"{v} {d[s_]:.4f}" for s_, v in SPLIT_STEPS.items() if s_ in d)
+        + f" (returned after {d['dispatch']:.4f})"
         for k, d in (("on", split["on"]), ("off", split["off"])))
+
+
+def fit_shape(batch, shp):
+    """``batch`` padded with dead rows, slots and strings (zero fill, as
+    the flattener pads) to the shape bucket ``shp`` = (B, P, E, V), or
+    None where it does not fit."""
+    from kyverno_tpu_torch.models.flatten import PackedBatch
+
+    B, P, E, V = shp
+    b, p, e, _ = batch.cells.shape
+    v = int(batch.dictv.shape[0])
+    if b > B or p != P or e > E or v > V:
+        return None
+    return PackedBatch(
+        n=B, e=E,
+        cells=np.pad(batch.cells, [(0, B - b), (0, 0), (0, E - e), (0, 0)]),
+        bmeta=np.pad(batch.bmeta, (0, B - b)),
+        str_bytes=np.pad(batch.str_bytes, [(0, V - v), (0, 0)]),
+        dictv=np.pad(batch.dictv, [(0, V - v), (0, 0)]))
+
+
+def replay_against_direct(cps, label: str, salt: str, n: int = 32) -> dict:
+    """Every K6 shape bucket of ``cps`` through ``n`` batches of different
+    contents (1 to 16 resources, padded to the bucket): K6's replay of
+    a slot's CUDA graph against the direct launches (K1 -> eval_rules on a
+    device copy of the same blob), with zero tolerance. Each dispatch must
+    be a replay (a reused slot), and each of the two routes must count one
+    launch of K1 and one of eval_rules a batch. The block size and bytes
+    that each slot's capture chose are held to the plan's account of
+    them. Returns {shape: (batches, slots, (tb, bytes) of the slots)}."""
+    import torch
+    from kyverno_tpu_torch.ops import _build
+    from kyverno_tpu_torch.ops import eval as ev
+    from kyverno_tpu_torch.runtime.batch import AdmissionBatcher
+
+    live = cps.tensors.n_rules_live
+    with cps._k6_lock:
+        shapes = sorted(cps._k6)
+    check(shapes, f"{label} no K6 bucket to check")
+    out = {}
+    # 1 to 16 resources a batch, drawn from three families in turn: salted
+    # admission Pods (many strings), plain make_pod(i) (fewer; k copies of
+    # one, which fit the smallest string tables) and mixed resources
+    def candidates():
+        for i in range(64 * n):
+            k = 1 + i % 16
+            family = i // 16 % 4
+            if family == 0:
+                yield [admission_request(i + j, salt)[0] for j in range(k)]
+            elif family == 1:
+                yield [make_pod(i + j) for j in range(k)]
+            elif family == 2:
+                yield [make_pod(i // 64)] * k
+            else:
+                yield [mixed_resource(i + j) for j in range(k)]
+
+    for shp in shapes:
+        batches, seen = [], set()
+        for docs in candidates():
+            b = fit_shape(AdmissionBatcher._pad_admission(
+                cps.flatten_packed(docs), floor=1)[0], shp)
+            if b is None:
+                continue
+            key = hashlib.sha256(np.ascontiguousarray(
+                b.packed_blob()[0]).tobytes()).digest()
+            if key not in seen:
+                seen.add(key)
+                batches.append(b)
+                if len(batches) == n:
+                    break
+        check(len(batches) == n, f"{label} only {len(batches)} batches of "
+              f"different contents fit the K6 bucket {shp}")
+        d0 = dict(cps.donation_stats)
+        l0 = dict(_build.LAUNCHES)
+        for b in batches:
+            got = cps.evaluate_device_async(b, donate=True).get()
+            blob = torch.from_numpy(np.ascontiguousarray(
+                b.packed_blob()[0]).view(np.int32)).to(cps.device)
+            want = ev.evaluate_blob(cps.plan, blob, *shp)[:, :live]
+            same(f"{label} K6 replay against the direct launches at {shp}",
+                 torch.from_numpy(got), want.cpu())
+        d = {k: cps.donation_stats[k] - d0[k] for k in d0}
+        check(d == {"dispatches": n, "donated_buffers": n},
+              f"{label} the bucket {shp}'s dispatches were not all replays "
+              f"of a slot: {d}")
+        moved = {k: _build.LAUNCHES[k] - l0[k] for k in l0}
+        check(moved == {"glob_nfa": 2 * n, "eval_rules": 2 * n,
+                        "eval_rules_scan": 0, "eval_rules_counts": 0,
+                        "scan_counts": 0},
+              f"{label} {n} replays and {n} direct calls at {shp} counted "
+              f"{moved}")
+        with cps._k6_lock:
+            ring = list(cps._k6[shp])
+        for slot in ring:
+            tb, nbytes = (int(x) for x in slot.launch)
+            check(slot.kernels == EVALUATE_KERNELS, f"{label} a slot at {shp} "
+                  f"captured {slot.kernels}")
+            check(nbytes == cps.plan.smem_bytes(shp[2], tb),
+                  f"{label} a slot's capture at {shp} chose {nbytes} bytes a "
+                  f"block at {tb} resources, the plan counts "
+                  f"{cps.plan.smem_bytes(shp[2], tb)}")
+        out[shp] = (n, len(ring), sorted({tuple(int(x) for x in s_.launch)
+                                          for s_ in ring}))
+    log(f"{label} K6 replay against the direct launches (K1 -> eval_rules), "
+        f"{n} batches of different contents a bucket, zero tolerance: every "
+        f"verdict equal; bucket: (batches, slots, (resources a block, bytes "
+        f"a block) of their captures): {out}")
+    return out
 
 
 # the first rows of the 10,000 that [background]'s 2D (4, 1) lane scans
@@ -1527,11 +1645,156 @@ def favored_inputs(batcher, est_batch: int, n_policies: int) -> dict:
                 "savings_frac": batcher._savings_frac,
                 "flush_cpu_cost_ms": round(batcher._flush_cpu_cost * 1e3, 6),
                 "dispatch_cost_ms": round(batcher._dispatch_cost * 1e3, 6),
+                # what _device_favored reads: the cost after its idle decay
+                "dispatch_estimate_ms": round(batcher._dispatch_estimate(
+                    time.monotonic()) * 1e3, 6),
                 "pending_flushes": batcher._pending_flushes,
                 "window_ms": round(batcher._window() * 1e3, 6),
                 "circuit_open": time.monotonic() < batcher._circuit_open_until}
+    feed = batcher.dispatch_cost_feeds[-1] if batcher.dispatch_cost_feeds \
+        else None
+    snap["cost_feed"] = None if feed is None else {
+        "feed": feed[1], "sample_ms": round(feed[2] * 1e3, 3),
+        "cost_ms": round(feed[3] * 1e3, 3),
+        "s_ago": round(time.monotonic() - feed[0], 3)}
     snap["favored"] = batcher._device_favored(est_batch, n_policies)
     return snap
+
+
+# a dispatch this slow (ms, from the call to its verdicts read) is logged
+# with its phase split, the collector's pauses and the threads beside it
+SLOW_DISPATCH_MS = 100.0
+# every slow dispatch of an --admission run, for its summary
+SLOW_DISPATCHES: list = []
+
+
+class _TimedHandle:
+    """An evaluate_device_async handle that notes when its verdicts were
+    first read."""
+
+    def __init__(self, handle, rec: dict):
+        self._handle, self._rec = handle, rec
+
+    def get(self):
+        v = self._handle.get()
+        self._rec.setdefault("t_got", time.perf_counter())
+        return v
+
+    def __getattr__(self, name):
+        return getattr(self._handle, name)
+
+
+class DispatchLog:
+    """While entered, every ``evaluate_device_async`` call (the admission
+    flushes', probes' and warm-ups') is noted: its route, thread, the
+    interpreter's switch interval and the oracle threads alive as it
+    began, when it returned its handle and when its verdicts were read;
+    ``engine.PHASE_TIMING`` is on, so each call on the card also times
+    its own steps. The collector's pauses are noted beside them.
+    ``in_oracle`` counts the client threads inside the inline oracle."""
+
+    def __init__(self):
+        self.calls, self.pauses, self._gc = [], [], {}
+        self.in_oracle = 0
+        self._lock = threading.Lock()
+
+    def oracle(self, delta: int) -> None:
+        with self._lock:
+            self.in_oracle += delta
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc[threading.get_ident()] = time.perf_counter()
+        else:
+            t0 = self._gc.pop(threading.get_ident(), None)
+            if t0 is not None:
+                self.pauses.append((info["generation"], t0,
+                                    time.perf_counter()))
+
+    def __enter__(self):
+        from kyverno_tpu_torch.models import engine
+
+        self.engine = engine
+        orig = self._orig = engine.CompiledPolicySet.evaluate_device_async
+        calls = self.calls
+
+        def timed(cps, batch, donate=False):
+            rec = {"t0": time.perf_counter(),
+                   "thread": threading.current_thread().name,
+                   "route": ("k6" if donate and engine.donation_enabled()
+                             else "plain"),
+                   "switch_s": sys.getswitchinterval(),
+                   "hostlane_threads": sum(
+                       1 for t in threading.enumerate()
+                       if t.name.startswith("ktpu-hostlane")),
+                   "in_oracle": self.in_oracle,
+                   "shape": batch.packed_blob()[1]}
+            h = orig(cps, batch, donate=donate)
+            rec["t_ret"] = time.perf_counter()
+            rec["handle"] = h
+            calls.append(rec)
+            return _TimedHandle(h, rec)
+
+        engine.CompiledPolicySet.evaluate_device_async = timed
+        engine.PHASE_TIMING = True
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._on_gc)
+        self.engine.PHASE_TIMING = False
+        self.engine.CompiledPolicySet.evaluate_device_async = self._orig
+
+    def report(self, label: str, traces: list, batcher, since: float) -> dict:
+        """Log every call since ``since`` (perf_counter) slower than
+        SLOW_DISPATCH_MS with its split and surroundings, and the
+        dispatch-cost feeds of that window over the same mark; return the
+        calls' counts and dispatch ms by route."""
+        spans = [(sp, tr) for tr in traces for sp in tr.spans
+                 if sp.name in ("device_dispatch", "cold_dispatch")]
+        mono0 = time.monotonic() - (time.perf_counter() - since)
+        by = {}
+        for rec in [c for c in self.calls if c["t0"] >= since]:
+            t1 = rec.get("t_got", rec["t_ret"])
+            ms = (t1 - rec["t0"]) * 1e3
+            by.setdefault(rec["route"], []).append(ms)
+            if ms <= SLOW_DISPATCH_MS:
+                continue
+            try:
+                split = rec["handle"].phases()
+            except Exception as e:          # noted, not raised
+                split = f"not read: {e!r}"
+            gcs = {}
+            for g, p0, p1 in self.pauses:
+                if p0 < t1 and rec["t0"] < p1:
+                    n, tot = gcs.get(g, (0, 0.0))
+                    gcs[g] = (n + 1, round(tot + (p1 - p0) * 1e3, 3))
+            flush = next((tr for sp, tr in spans if sp.tid == rec["thread"]
+                          and abs(sp.t0 - rec["t0"]) < 0.01), None)
+            slow = {"burst": label, "route": rec["route"],
+                    "thread": rec["thread"], "ms": round(ms, 3),
+                    "until_handle_ms": round((rec["t_ret"] - rec["t0"])
+                                             * 1e3, 3),
+                    "after_handle_ms": round((t1 - rec["t_ret"]) * 1e3, 3),
+                    "split": split, "gc": gcs, "switch_s": rec["switch_s"],
+                    "hostlane_threads": rec["hostlane_threads"],
+                    "in_oracle": rec["in_oracle"], "shape": rec["shape"],
+                    "flush": (None if flush is None else {
+                        "probe": flush.labels.get("probe"),
+                        "batch": flush.labels.get("batch"),
+                        "spans": span_summary([flush])})}
+            SLOW_DISPATCHES.append(slow)
+            log(f"[admission] slow dispatch ({SLOW_DISPATCH_MS} ms or more): "
+                f"{slow}")
+        feeds = [(round(t - mono0, 3), f, round(x * 1e3, 3), round(v * 1e3, 3))
+                 for t, f, x, v in list(batcher.dispatch_cost_feeds)
+                 if t >= mono0 and x * 1e3 > SLOW_DISPATCH_MS]
+        if feeds:
+            log(f"[admission] {label}: dispatch-cost feeds over "
+                f"{SLOW_DISPATCH_MS} ms (s into the window, feed, sample ms, "
+                f"cost after ms): {feeds}")
+        return {k: (len(v), round(statistics.median(v), 3),
+                    round(max(v), 3)) for k, v in by.items()}
 
 
 def fill_heap(target: int) -> list:
@@ -1576,6 +1839,9 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
           "KTPU_INCREMENTAL is off")
     enforce = [dict(d, spec=dict(d["spec"], validationFailureAction="enforce"))
                for d in library_docs]
+    from kyverno_tpu_torch.runtime import metrics
+
+    mem0 = metrics.cuda_memory_stats(0)
     cache = PolicyCache()
     for d in enforce:
         cache.add(load_policy(d))
@@ -1600,6 +1866,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
     rec = tracing.recorder()
     cores = os.cpu_count()
     out = {}
+    dlog = DispatchLog()
     try:
         t0 = time.perf_counter()
         pool.ensure(*cache.snapshot())
@@ -1638,9 +1905,13 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 t2 = time.perf_counter()
                 if status == ORACLE or (status == ATTENTION and not row):
                     cur = cache.compiled(enf, "Pod", "default")
-                    cur._oracle_verdicts(
-                        pod, list(range(cur.tensors.n_rules_live)),
-                        context=payload)
+                    dlog.oracle(1)
+                    try:
+                        cur._oracle_verdicts(
+                            pod, list(range(cur.tensors.n_rules_live)),
+                            context=payload)
+                    finally:
+                        dlog.oracle(-1)
                 t3 = time.perf_counter()
             answers.append((pod, payload, status, row, (t2 - t1) * 1e3,
                             (t3 - t1) * 1e3))
@@ -1678,6 +1949,11 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             raise AssertionError("[admission] flushes still running after 60 s")
 
         def burst(salt):
+            since = time.perf_counter()
+            with dlog:
+                return burst_logged(salt, since)
+
+        def burst_logged(salt, since):
             pool.ensure(*cache.snapshot())
             for p, c in [admission_request(i, f"{salt}s") for i in range(32)]:
                 one(p, c, [])
@@ -1692,6 +1968,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             reqs = [admission_request(i, salt) for i in range(n_req)]
             answers = []
             quiesce()
+            warm_traces = rec.traces(256) + rec.slowest(32)
             rec.clear()
             if COLD_FLUSH is not None:
                 # begin the timed burst on a cold shape bucket: forget the
@@ -1780,7 +2057,10 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             every = percentiles([a for *_, a, _ in answers])
             live = [int(tr.labels.get("batch", 0)) for tr in flushes
                     if tr.labels.get("probe") != "probe"]
-            return {"answers": answers, "burst_s": burst_s,
+            dispatch = dlog.report(salt, warm_traces + rec.traces(256)
+                                   + rec.slowest(32),
+                                   batcher, since)
+            return {"dispatch": dispatch, "answers": answers, "burst_s": burst_s,
                     "launches": launches, "flushes": len(flushes),
                     "spans": span_summary(flushes),
                     "gc": {g: (len([p for q, p in pauses if q == g]),
@@ -1865,7 +2145,9 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                   f"{res['pool_hits']} calls, {res['pool_misses']} pool "
                   f"misses (a timeout or a refusal); garbage-collector "
                   f"pauses {res['gc']}; scheduling lag p99, max "
-                  f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms; stalls of "
+                  f"{res['lag'][0]:.3f}, {res['lag'][1]:.3f} ms; "
+                  f"evaluate_device_async calls by route {res['dispatch']}; "
+                  f"stalls of "
                   f"{STALL_MS} ms or more (count, total ms, largest ms) "
                   f"during a collector's pause {res['stall']['gc']}, "
                   f"outside one {res['stall']['other']}; _device_favored's "
@@ -1938,9 +2220,14 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 f"more (count, total ms, largest ms) during a collector's "
                 f"pause {res['stall']['gc']}, outside one "
                 f"{res['stall']['other']}; _device_favored's inputs as the "
-                f"burst began {res['favored']}")
+                f"burst began {res['favored']}; evaluate_device_async calls "
+                f"in the burst and its warm rounds by route (count, median "
+                f"ms, largest ms): {res['dispatch']}")
             runs.setdefault(label, []).append(res)
         out["burst"] = runs["donate on"][0]
+        out["replay"] = replay_against_direct(
+            cache.compiled(enf, "Pod", "default"), "[admission]",
+            f"{run}rvd")
         log(f"[admission] K6 slots allocated {engine.K6_ALLOC['slots'] - a0['slots']} "
             f"in {engine.K6_ALLOC['seconds'] - a0['seconds']:.4f} s "
             f"(the cold cost of a shape bucket's K6 buffers)")
@@ -2046,6 +2333,9 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
         batcher.stop()
         resolver.attach_pool(None, None)
         pool.stop()
+    log(f"[admission] metrics.cuda_memory_stats(0) before the phase {mem0}, "
+        f"after it {metrics.cuda_memory_stats(0)}; K6 slots allocated "
+        f"{engine.K6_ALLOC['slots']} in this process")
     return out
 
 
@@ -2443,6 +2733,8 @@ def webhook_phase(library_docs: list, quick: bool = False) -> dict:
                   f"{launches[k]} times for {len(flushes)} device flushes")
         check(donated["dispatches"] > 0 and donated["donated_buffers"] > 0,
               f"[webhook] K6 dispatches {donated}")
+        out["replay"] = replay_against_direct(
+            lib.compiled(enf, "Pod", "default"), "[webhook]", "wrvd")
         # the oracle lane: the same reviews, its own latencies
         oracle_s, oracle_answers = webhook_burst(oracle_port, bodies,
                                                  ADMISSION_THREADS)
@@ -5684,7 +5976,8 @@ def main() -> int:
     if native_err:
         raise native_err[0]
     built = native_flatten.BUILT
-    log(f"[build] {len(_build.KERNELS)} kernels built in {build_s:.2f} s; the "
+    log(f"[build] {len(_build.LIBRARIES)} libraries ({len(_build.KERNELS)} of "
+        f"kernels, and the dispatch's) built in {build_s:.2f} s; the "
         f"native flattener from {native_flatten.CPP.relative_to(ROOT)} in "
         f"{built['seconds']:.2f} s ({'with' if built['dict_walk'] else 'without'} "
         f"its dict-walk entry): {os.path.relpath(built['path'], ROOT)}; both "
@@ -5739,6 +6032,12 @@ def main() -> int:
             f"{sum(b['stall_other_ms'] for b in BURST_STATS):.1f}; per burst "
             f"(outside, during): "
             f"{[(b['stall_other_ms'], b['stall_gc_ms']) for b in BURST_STATS]}")
+        by_route = {}
+        for d in SLOW_DISPATCHES:
+            by_route.setdefault(d["route"], []).append(d["ms"])
+        log(f"[admission] dispatches of {SLOW_DISPATCH_MS} ms or more, by "
+            f"route (count, largest ms): "
+            f"{ {k: (len(v), max(v)) for k, v in by_route.items()} }")
         log(f"[admission] {len(failed)} of {args.admission} runs failed "
             f"{failed}; {nvidia_smi_line()}")
         if failed:

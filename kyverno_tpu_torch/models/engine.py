@@ -18,10 +18,14 @@ host prefetch while the card scores it.
 
 ``evaluate_device_async(batch, donate=True)`` is K6, the admission
 batcher's stable-shape dispatch: each (B, P, E, V) shape bucket keeps a
-small ring of slots (pinned host staging, a persistent device blob,
-pinned host memory for the verdicts, a CUDA event), so a warm dispatch
-copies the blob into pinned memory, starts the copy to the card, K1 ->
-eval_rules and the copy back, and returns without waiting.
+small ring of slots, each owning every buffer a dispatch touches at a
+fixed address (pinned host staging, the device blob, K1's match matrix,
+the device verdicts, pinned host memory for the verdicts, a CUDA event)
+and a CUDA graph of the card's work captured over them when the slot is
+allocated. A warm dispatch is one host call that keeps the interpreter
+lock (``csrc/dispatch.cu``): the blob into pinned memory, the graph (the
+copy to the card, K1 -> eval_rules, the copy back), the event; it
+returns without waiting.
 :class:`IncrementalCompiler` recompiles only the policies that changed
 and splices their segments into the population's tensors (the policy
 cache's route). :class:`ShardedPolicySet` cuts a population into policy
@@ -49,6 +53,7 @@ from ..engine.match import AdmissionUserInfo, RequestInfo
 from ..engine.policy_context import PolicyContext
 from ..engine.response import RuleStatus
 from ..engine.validation import validate as oracle_validate
+from ..ops import _build
 from ..ops import eval as ops_eval
 from ..ops.plan import Plan
 from ..runtime import featureplane
@@ -95,8 +100,9 @@ def donation_enabled() -> bool:
 # runs them); ``donated_buffers`` counts those that ran on a reused
 # device blob of their shape bucket, with no allocation and no second
 # device copy — the port's meaning of a consumed (donated) buffer.
-# ``K6_ALLOC`` counts the slots allocated and the seconds spent on them
-# (a cold shape bucket's first cost on the card).
+# ``K6_ALLOC`` counts the slots allocated and the seconds spent on them,
+# each slot's graph capture included (a cold shape bucket's first cost on
+# the card).
 DONATION_STATS = {"dispatches": 0, "donated_buffers": 0}
 K6_ALLOC = {"slots": 0, "seconds": 0.0}
 _STATS_LOCK = threading.Lock()
@@ -111,12 +117,37 @@ _DISPATCHING = object()
 PHASE_TIMING = False
 
 
+def _event_record(device) -> int:
+    """A new timing event recorded on the current stream of ``device``
+    (``csrc/dispatch.cu``; the interpreter lock kept): its handle."""
+    out = np.zeros(1, dtype=np.int64)
+    _build.check("dispatch", _build.fn("dispatch", "ktpu_event_record", 2)(
+        _build.stream_handle(device), out.ctypes.data))
+    return int(out[0])
+
+
+def _event_ms(a: int, b: int) -> float:
+    """Milliseconds from event ``a`` to event ``b`` (waits for ``b``)."""
+    out = np.zeros(1, dtype=np.float32)
+    _build.check("dispatch", _build.fn("dispatch", "ktpu_event_ms", 3)(
+        a, b, out.ctypes.data))
+    return float(out[0])
+
+
+def _event_destroy(e: int) -> None:
+    _build.fn("dispatch", "ktpu_event_destroy", 1)(e)
+
+
 class _Phases:
     """One timed call's host clocks (``time.perf_counter`` seconds) and
-    the CUDA events recorded between its steps on the card: on K6's
-    route H2D start, H2D end (the launches' start), the launches' end
-    and D2H end, all at dispatch; on the plain route the first three at
-    dispatch, and D2H start and end in :meth:`AsyncVerdicts.get`."""
+    the timing events recorded between its steps on the card. Both
+    routes make one call into ``csrc/dispatch.cu`` at dispatch, between
+    the clocks ``call`` and ``called`` and between two events: on K6's
+    route the slot's graph (H2D, K1, eval_rules, D2H); on the plain
+    route H2D, K1 and eval_rules, with two more events around its D2H in
+    :meth:`AsyncVerdicts.get`. The events are recorded through
+    ``csrc/dispatch.cu`` too, so that timing a call adds no wait for the
+    interpreter lock to it."""
 
     __slots__ = ("device", "clocks", "events")
 
@@ -129,44 +160,142 @@ class _Phases:
         self.clocks[name] = time.perf_counter()
 
     def event(self) -> None:
-        e = torch.cuda.Event(enable_timing=True)
-        e.record(torch.cuda.current_stream(self.device))
-        self.events.append(e)
+        self.events.append(_event_record(self.device))
+
+    def __del__(self):
+        for e in self.events:
+            _event_destroy(e)
 
     def ms(self) -> dict:
-        """Milliseconds of each step: ``staging`` (host copy into pinned
-        memory; 0 on the plain route), ``h2d``, ``launches`` and ``d2h``
-        on the card, ``read`` (host: the verdicts out of pinned memory,
-        or the slice of the copied matrix) and ``dispatch`` (host: the
-        call until it returned its handle)."""
+        """Milliseconds of each step: ``call`` (host: the one call into
+        the runtime); on the card ``replay`` (K6: the graph's H2D, K1,
+        eval_rules and D2H), or ``launch`` (H2D, K1, eval_rules) and
+        ``d2h`` on the plain route; ``read`` (host: the verdicts out of
+        pinned memory, or copied from the card after the event) and
+        ``dispatch`` (host: the call until it returned its handle)."""
         c, e = self.clocks, self.events
-        k6 = "staged" in c
-        return {"staging": (c["staged"] - c["staging"]) * 1e3 if k6 else 0.0,
-                "h2d": e[0].elapsed_time(e[1]),
-                "launches": e[1].elapsed_time(e[2]),
-                "d2h": (e[2].elapsed_time(e[3]) if k6
-                        else e[3].elapsed_time(e[4])),
-                "read": (c["read"] - c["copied"]) * 1e3,
-                "dispatch": (c["dispatched"] - c["start"]) * 1e3}
+        out = {"call": (c["called"] - c["call"]) * 1e3}
+        if len(e) == 2:
+            out["replay"] = _event_ms(e[0], e[1])
+        else:
+            out.update(launch=_event_ms(e[0], e[1]),
+                       d2h=_event_ms(e[2], e[3]))
+        out["read"] = (c["read"] - c["copied"]) * 1e3
+        out["dispatch"] = (c["dispatched"] - c["start"]) * 1e3
+        return out
+
+
+def _captured(stream: int, steps) -> tuple[int, tuple]:
+    """``steps()`` captured on ``stream`` as a CUDA graph, in thread-local
+    mode (other threads keep using the card): the executable graph's
+    handle and the launches the capture listed. A failed capture raises,
+    also where the work inside invalidated it."""
+    begin = _build.fn("dispatch", "ktpu_capture_begin", 1)
+    end = _build.fn("dispatch", "ktpu_capture_end", 2)
+    _build.check("dispatch", begin(stream))
+    exec_ = np.zeros(1, dtype=np.int64)
+    try:
+        with _build.launches_noted() as kernels:
+            steps()
+    except BaseException:
+        # end the capture the failure broke; its own error is not the
+        # one to report
+        if end(stream, exec_.ctypes.data) == 0:
+            _build.fn("dispatch", "ktpu_graph_destroy", 1)(int(exec_[0]))
+        raise
+    _build.check("dispatch", end(stream, exec_.ctypes.data))
+    return int(exec_[0]), tuple(kernels)
 
 
 class _Slot:
-    """One K6 slot of a shape bucket: pinned staging for the blob, the
-    device blob it is copied into, pinned memory for the verdicts [B, R]
-    and the event recorded after the copy back. ``handle`` is the
-    :class:`AsyncVerdicts` holding the slot (None while free); a slot is
-    free again only after its holder has read the verdicts, so its event
-    has completed and every copy from and to it is done."""
+    """One K6 slot of a shape bucket (B, P, E, V). It owns every buffer a
+    dispatch touches, at a fixed address: pinned staging for the blob,
+    the device blob it is copied into, K1's match matrix [N, V], the
+    device verdicts [B, R], pinned memory for the verdicts and the event
+    recorded after the copy back. ``exec`` is a CUDA graph of the card's
+    work over those buffers (:meth:`_steps`), captured once here;
+    ``kernels`` are the launches the capture listed, counted at each
+    replay, and ``launch`` is eval_rules' block size and bytes as the
+    capture chose them. ``handle`` is the :class:`AsyncVerdicts` holding
+    the slot (None while free); a slot is free again only after its
+    holder has read the verdicts, so its event has completed and every
+    copy from and to it is done."""
 
-    __slots__ = ("staged", "dblob", "out", "event", "handle", "seq")
+    __slots__ = ("device", "staged", "dblob", "match", "verdicts", "out",
+                 "event", "exec", "kernels", "launch", "handle", "seq")
 
-    def __init__(self, words: int, B: int, R: int, device):
-        self.staged = torch.empty(words, dtype=torch.int32, pin_memory=True)
+    def __init__(self, plan: Plan, shp: tuple, words: int, device):
+        B, _, _, V = shp
+        self.device = device
+        # zeroed: the steps' first, uncaptured run reads it (dead rows)
+        self.staged = torch.zeros(words, dtype=torch.int32, pin_memory=True)
         self.dblob = torch.empty(words, dtype=torch.int32, device=device)
-        self.out = torch.empty((B, R), dtype=torch.int8, pin_memory=True)
+        self.match = torch.empty((plan.nfa_char.shape[0], V),
+                                 dtype=torch.bool, device=device)
+        self.verdicts = torch.empty((B, plan.R), dtype=torch.int8,
+                                    device=device)
+        self.out = torch.empty((B, plan.R), dtype=torch.int8,
+                               pin_memory=True)
         self.event = torch.cuda.Event()
+        self.launch = np.zeros(2, dtype=np.int32)
         self.handle = None
         self.seq = 0
+        self.kernels = self._capture(plan, shp)
+
+    def _steps(self, plan: Plan, shp: tuple) -> None:
+        """The card's work of one dispatch, over the slot's own buffers
+        only: the staged blob to the device, K1 -> eval_rules, the
+        verdicts back to pinned memory."""
+        stream = _build.stream_handle(self.device)
+        copy = _build.fn("dispatch", "ktpu_copy", 4)
+        _build.check("dispatch", copy(self.dblob.data_ptr(),
+                                      self.staged.data_ptr(),
+                                      self.dblob.numel() * 4, stream))
+        ops_eval.evaluate_blob(plan, self.dblob, *shp, match=self.match,
+                               out=self.verdicts, launch=self.launch)
+        _build.check("dispatch", copy(self.out.data_ptr(),
+                                      self.verdicts.data_ptr(),
+                                      self.out.numel(), stream))
+
+    def _capture(self, plan: Plan, shp: tuple) -> tuple:
+        """:meth:`_steps` run once, then captured, on a side stream; the
+        slot's event then covers both. The uncaptured run loads the
+        kernels' modules and sets their attributes outside the capture;
+        like the capture's, its launches are not counted (they are the
+        slot's allocation, as the capture is)."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            with _build.launches_noted():
+                self._steps(plan, shp)
+            self.exec, kernels = _captured(
+                _build.stream_handle(self.device),
+                lambda: self._steps(plan, shp))
+            self.event.record(stream)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return kernels
+
+    def _run(self, host: np.ndarray) -> None:
+        """One host call, the interpreter lock held: ``host`` into the
+        staging, the graph and the slot's event on the current stream."""
+        _build.check("dispatch", _build.fn("dispatch", "ktpu_replay", 6)(
+            self.exec, self.staged.data_ptr(), host.ctypes.data,
+            host.nbytes, self.event.cuda_event,
+            _build.stream_handle(self.device)))
+
+    def replay(self, host: np.ndarray) -> None:
+        """A dispatch of the blob ``host`` (int32, the bucket's words):
+        the slot's graph replayed, its launches counted."""
+        self._run(host)
+        _build.note_launches(self.kernels)
+
+    def __del__(self):
+        # the graph's copies may still be queued: its buffers go only
+        # after the slot's event
+        exec_ = getattr(self, "exec", 0)
+        if exec_:
+            self.event.synchronize()
+            _build.fn("dispatch", "ktpu_graph_destroy", 1)(exec_)
 
 
 @dataclass
@@ -206,15 +335,17 @@ class AsyncVerdicts:
     """Handle on an in-flight device evaluation (evaluate_device_async).
     The card computes while the dispatching thread does other host work;
     :meth:`get` waits for it, reads the verdicts to the host once, slices
-    them to ``n_live`` columns and caches them. On the plain route ``out``
-    is the verdict tensor (an event is recorded after its launches on the
-    card); on K6's route it is None and ``slot`` holds the verdicts in
-    pinned memory until :meth:`get` copies them out and frees the slot."""
+    them to ``n_live`` columns and caches them. ``out`` is the verdict
+    tensor on the CPU; on the card's plain route it is (buffer, byte
+    offset, (B, R)) of the verdicts in the dispatch's device buffer (an
+    event is recorded after its launches); on K6's route it is None and
+    ``slot`` holds the verdicts in pinned memory until :meth:`get` copies
+    them out and frees the slot."""
 
     __slots__ = ("_out", "_event", "_slot", "_n_live", "_verdicts", "_lock",
                  "_phases")
 
-    def __init__(self, out: torch.Tensor | None, n_live: int | None = None,
+    def __init__(self, out, n_live: int | None = None,
                  slot: _Slot | None = None, phases: _Phases | None = None):
         self._out = out
         self._n_live = n_live
@@ -224,9 +355,9 @@ class AsyncVerdicts:
         self._lock = threading.Lock()
         if slot is not None:
             self._event = slot.event
-        elif out.device.type == "cuda":
+        elif isinstance(out, tuple):
             self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(out.device))
+            self._event.record(torch.cuda.current_stream(out[0].device))
         self._verdicts: np.ndarray | None = None
 
     def get(self) -> np.ndarray:
@@ -247,13 +378,21 @@ class AsyncVerdicts:
             if phases is not None:
                 phases.clock("copied")
             v = slot.out.numpy()
-        else:
+        elif isinstance(self._out, tuple):
+            # the plain route's verdicts, copied from the card in one call
+            # (the lock held: the event has completed, the copy is short)
+            buf, at, shape = self._out
             if phases is not None:
                 phases.event()
-            v = self._out.cpu().numpy()
+            v = np.empty(shape, dtype=np.int8)
+            _build.check("dispatch", _build.fn("dispatch", "ktpu_copy", 4)(
+                v.ctypes.data, buf.data_ptr() + at, v.nbytes,
+                _build.stream_handle(buf.device)))
             if phases is not None:
                 phases.event()
                 phases.clock("copied")
+        else:
+            v = self._out.numpy()
         if self._n_live is not None and v.shape[1] != self._n_live:
             v = v[:, :self._n_live]
         if slot is not None:
@@ -366,16 +505,46 @@ class CompiledPolicySet:
 
     # ------------------------------------------------------------ device
 
-    def _launch(self, batch, phases: _Phases | None = None) -> torch.Tensor:
-        if phases is not None:
-            phases.event()
+    def _launch(self, batch) -> torch.Tensor:
         dblob, shp = self.to_device(batch)
+        return ops_eval.evaluate_blob(self.plan, dblob, *shp)
+
+    def _dispatch_plain(self, batch, live: int,
+                        phases: _Phases | None = None) -> AsyncVerdicts:
+        """The plain route on the card: one fresh device buffer (the blob,
+        K1's matrix, the verdicts; nothing kept from a dispatch to the
+        next), then one call into ``csrc/dispatch.cu`` with the
+        interpreter lock held: the blob from pageable memory, K1 and
+        eval_rules through their own entries, each launch counted."""
+        blob, (B, P, E, V) = batch.packed_blob()
+        host = np.ascontiguousarray(blob).view(np.int32)
+        plan = self.plan
+        at_match = -(-host.nbytes // 16) * 16
+        at_out = at_match + -(-plan.nfa_char.shape[0] * V // 16) * 16
+        buf = torch.empty(at_out + B * plan.R, dtype=torch.uint8,
+                          device=self.device)
+        base = buf.data_ptr()
+        stream = _build.stream_handle(self.device)
+        calls = {k: (entry, args) for k, entry, args in
+                 ops_eval.blob_launch_args(plan, base, B, P, E, V,
+                                           base + at_match, base + at_out,
+                                           stream)}
+        glob, glob_args = calls.get("glob_nfa", (0, None))
+        rules, rules_args = calls.get("eval_rules", (0, None))
         if phases is not None:
             phases.event()
-        out = ops_eval.evaluate_blob(self.plan, dblob, *shp)
+            phases.clock("call")
+        _build.check("dispatch", _build.fn("dispatch", "ktpu_dispatch", 8)(
+            base, host.ctypes.data, host.nbytes,
+            glob, 0 if glob_args is None else glob_args.ctypes.data,
+            rules, 0 if rules_args is None else rules_args.ctypes.data,
+            stream))
+        _build.note_launches(calls)
         if phases is not None:
+            phases.clock("called")
             phases.event()
-        return out
+        return AsyncVerdicts((buf, at_out, (B, plan.R)), n_live=live,
+                             phases=phases)
 
     def evaluate_device(self, batch) -> np.ndarray:
         """Device verdicts int8 [B, n_rules_live] (host-lane cells HOST)."""
@@ -388,20 +557,23 @@ class CompiledPolicySet:
         dispatch and get.
 
         ``donate=True`` (gated by KTPU_DONATE) is K6: the batch's shape
-        bucket keeps up to ``K6_SLOTS`` slots, and a dispatch copies the
-        blob into a free slot's pinned staging, copies that to the slot's
-        persistent device blob without blocking, launches K1 ->
-        eval_rules on the current stream, copies the verdicts into the
-        slot's pinned memory without blocking and records the slot's
-        event. A warm bucket thus allocates nothing and makes no second
-        device copy of the blob. The caller's numpy blob is only read.
-        A failure (a pinned allocation, a copy, a launch) raises; it
-        never falls back to the plain route. On the CPU the plain
-        versions run and the dispatch is counted, as in the JAX package
-        on a backend that cannot alias a buffer. Otherwise the blob is
-        copied from pageable memory and the launches are queued, as in
-        :meth:`evaluate_device`. With ``PHASE_TIMING`` on, a call on the
-        card times its steps (:meth:`AsyncVerdicts.phases`)."""
+        bucket keeps up to ``K6_SLOTS`` slots, and a dispatch makes one
+        call into the runtime, the interpreter lock held: the blob into a
+        free slot's pinned staging, the slot's CUDA graph on the current
+        stream (the copy to the slot's device blob, K1 -> eval_rules into
+        the slot's buffers, the copy of the verdicts into its pinned
+        memory, none blocking), the slot's event. A warm bucket thus
+        allocates nothing, makes no second device copy of the blob and
+        never gives up the interpreter lock at dispatch; a slot's first
+        dispatch follows its capture. The caller's numpy blob is only
+        read. A failure (a pinned allocation, a capture, a replay)
+        raises; it never falls back to the plain route or to uncaptured
+        launches. On the CPU the plain versions run and the dispatch is
+        counted, as in the JAX package on a backend that cannot alias a
+        buffer. Otherwise (the plain route) one fresh device buffer takes
+        the blob from pageable memory and the launches are queued in one
+        call (:meth:`_dispatch_plain`). With ``PHASE_TIMING`` on, a call
+        on the card times its steps (:meth:`AsyncVerdicts.phases`)."""
         live = self.tensors.n_rules_live
         phases = (_Phases(self.device)
                   if PHASE_TIMING and self.device.type == "cuda" else None)
@@ -409,8 +581,9 @@ class CompiledPolicySet:
             if self.device.type == "cuda":
                 return self._dispatch_k6(batch, live, phases)
             self._count_donation(False)
-        handle = AsyncVerdicts(self._launch(batch, phases), n_live=live,
-                               phases=phases)
+        if self.device.type == "cpu":
+            return AsyncVerdicts(self._launch(batch), n_live=live)
+        handle = self._dispatch_plain(batch, live, phases)
         if phases is not None:
             phases.clock("dispatched")
         return handle
@@ -440,7 +613,7 @@ class CompiledPolicySet:
                     break
                 if len(ring) < K6_SLOTS:
                     t0 = time.perf_counter()
-                    slot = _Slot(words, shp[0], self.plan.R, self.device)
+                    slot = _Slot(self.plan, shp, words, self.device)
                     with _STATS_LOCK:
                         K6_ALLOC["slots"] += 1
                         K6_ALLOC["seconds"] += time.perf_counter() - t0
@@ -474,21 +647,12 @@ class CompiledPolicySet:
         slot, reused = self._k6_slot(shp, host.size)
         try:
             if phases is not None:
-                phases.clock("staging")
-            np.copyto(slot.staged.numpy(), host)
-            if phases is not None:
-                phases.clock("staged")
                 phases.event()
-            slot.dblob.copy_(slot.staged, non_blocking=True)
+                phases.clock("call")
+            slot.replay(host)
             if phases is not None:
+                phases.clock("called")
                 phases.event()
-            out = ops_eval.evaluate_blob(self.plan, slot.dblob, *shp)
-            if phases is not None:
-                phases.event()
-            slot.out.copy_(out, non_blocking=True)
-            if phases is not None:
-                phases.event()
-            slot.event.record(torch.cuda.current_stream(self.device))
         except BaseException:
             # a slot whose copies may still be queued is never reused
             with self._k6_lock:

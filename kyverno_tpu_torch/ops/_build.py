@@ -2,22 +2,34 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into
 ``build/torch_kernels/lib<name>-<hash>.so`` (a plain C interface, no
-PyTorch headers, so a build takes seconds). The hash covers the source,
-the shared header and the flags, so an edited source never loads a stale
-library. Nothing builds at import: the first launch of a kernel builds
-its library, and :func:`build_all` builds every library at once, one
-``nvcc`` process per source, all started together.
+PyTorch headers, so a build takes seconds): the kernels' sources and
+``dispatch.cu``, the admission dispatch's host side (no kernel). The hash
+covers the source, the shared header and the flags, so an edited source
+never loads a stale library. Nothing builds at import: the first launch
+of a kernel builds its library, and :func:`build_all` builds every
+library at once, one ``nvcc`` process per source, all started together.
+
+The libraries load with ``ctypes.PyDLL``: a call keeps the interpreter
+lock. Every entry only queues work on a stream and returns within
+microseconds, and a thread that gave the lock up would have to win it
+back from the threads running the oracle in Python, which on the
+admission path cost seconds a dispatch (PERF.md, PR 17).
 
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on anything but 0. ``LAUNCHES`` counts, per kernel
 (a source may hold more than one: ``eval_rules``, its scan form
 ``eval_rules_scan`` and its counts form ``eval_rules_counts``), the
 wrapper calls that launched it on the card;
-wrappers count through :func:`note_launch`.
+wrappers count through :func:`note_launch`. A CUDA graph's capture
+(K6's, ``models/engine.py``) runs the wrappers inside
+:func:`launches_noted`, which lists the launches instead of counting
+them; each replay of the graph then counts that list with
+:func:`note_launches`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -30,6 +42,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = ("glob_nfa", "eval_rules", "scan_counts")
+# every library: the kernels and the dispatch's host side
+LIBRARIES = KERNELS + ("dispatch",)
 HEADERS = ("plan.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,10 +62,40 @@ _lock = threading.Lock()
 _launch_lock = threading.Lock()
 
 
+# the launches a capture on this thread lists (launches_noted), or None
+_noted = threading.local()
+
+
 def note_launch(name: str) -> None:
-    """Count one launch of kernel ``name`` (exact under threads)."""
+    """Count one launch of kernel ``name`` (exact under threads); inside
+    :func:`launches_noted` on this thread, list it instead."""
+    names = getattr(_noted, "names", None)
+    if names is not None:
+        names.append(name)
+        return
     with _launch_lock:
         LAUNCHES[name] += 1
+
+
+def note_launches(names) -> None:
+    """Count one launch of each kernel in ``names``: a replay of a
+    captured graph, whose capture :func:`launches_noted` listed them."""
+    with _launch_lock:
+        for name in names:
+            LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def launches_noted():
+    """While entered, :func:`note_launch` on this thread appends to the
+    list it yields and counts nothing: a CUDA graph's capture queues no
+    work, and each of its replays counts the list."""
+    names: list[str] = []
+    _noted.names = names
+    try:
+        yield names
+    finally:
+        _noted.names = None
 
 
 def reset_launches() -> None:
@@ -111,7 +155,7 @@ def build_all() -> float:
     Returns the wall seconds spent."""
     t0 = time.perf_counter()
     with _lock:
-        started = {name: _start(name) for name in KERNELS}
+        started = {name: _start(name) for name in LIBRARIES}
         for name, job in started.items():
             if job is not None:
                 _finish(name, *job)
@@ -135,7 +179,7 @@ def lib(name: str) -> ctypes.CDLL:
                 job = _start(name)
                 if job is not None:
                     _finish(name, *job)
-                handle = ctypes.CDLL(str(_lib_path(name)))
+                handle = ctypes.PyDLL(str(_lib_path(name)))
                 _libs[name] = handle
     return handle
 
@@ -151,6 +195,12 @@ def fn(name: str, entry: str, n_args: int):
         f.restype = ctypes.c_int
         _fns[(name, entry)] = f
     return f
+
+
+def address(name: str, entry: str, n_args: int) -> int:
+    """The address of C entry ``entry`` of library ``name``, for an entry
+    of ``dispatch.cu`` that calls it."""
+    return ctypes.cast(fn(name, entry, n_args), ctypes.c_void_p).value
 
 
 def check(name: str, err: int) -> None:

@@ -48,7 +48,7 @@ import torch
 from ..models.compiler import STR_LEN
 from ..models.ir import AUX_DENY, AUX_PRECOND, AuxOp, CheckOp
 from . import _build
-from .glob import glob_match_matrix
+from .glob import MAX_STATES, glob_match_matrix
 from .plan import (CF_MISSING, CF_OK, CF_STRUCT, CF_UNC, MAX_SLOTS, TT_R0,
                    TT_R1, XF_ERR, XF_ROW, XF_UNC, Plan)
 
@@ -735,24 +735,44 @@ def _rules_device(blob, E: int, name: str):
     return dev
 
 
-def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv):
+def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv,
+               out=None, launch=None):
     """Stages 2-6 in one launch: the verdicts int8 [B, R] from the blob and
     K1's glob matrix. CUDA kernel ``csrc/eval_rules.cu`` on the card (one
     block per rule tile of the plan and up to 32 resources, as many as the
     kernel chooses; see ``LAST_LAUNCH``), :func:`eval_rules_plain` on the
-    CPU."""
+    CPU. ``out``, a contiguous int8 [B, R] on the blob's device, receives
+    the verdicts in place of a new tensor, and ``launch``, a C-contiguous
+    numpy int32[2], the block size and bytes in place of ``LAST_LAUNCH``
+    (K6's slot keeps both for its CUDA graph)."""
     dev = _rules_device(blob, E, "eval_rules")
-    if dev.type == "cpu":
-        return eval_rules_plain(plan, blob, B, P, E, V, match_nv)
-    _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules")
     R = plan.R
-    out = torch.empty((B, R), dtype=torch.int8, device=dev)
+    if out is not None and (out.device != dev or out.dtype != torch.int8
+                            or tuple(out.shape) != (B, R)
+                            or not out.is_contiguous()):
+        raise ValueError(f"eval_rules: out must be a contiguous "
+                         f"torch.int8[{B}, {R}] on {dev}, got {out.dtype}"
+                         f"{list(out.shape)} on {out.device}")
+    if dev.type == "cpu":
+        v = eval_rules_plain(plan, blob, B, P, E, V, match_nv)
+        return v if out is None else out.copy_(v)
+    _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules")
+    if launch is None:
+        info = _LAST_LAUNCH_PTR
+    elif (launch.dtype != np.int32 or launch.shape != (2,)
+          or not launch.flags.c_contiguous):
+        raise ValueError("eval_rules: launch must be a C-contiguous numpy "
+                         "int32[2]")
+    else:
+        info = launch.ctypes.data
+    if out is None:
+        out = torch.empty((B, R), dtype=torch.int8, device=dev)
     if B == 0 or R == 0:
         return out
     f = _build.fn("eval_rules", "ktpu_eval_rules", 12)
     err = f(plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V,
             match_nv.data_ptr(), plan.tile_ptr, plan.n_tiles,
-            _LAST_LAUNCH_PTR, out.data_ptr(), _build.stream_handle(dev))
+            info, out.data_ptr(), _build.stream_handle(dev))
     _build.check("eval_rules", err)
     _build.note_launch("eval_rules")
     return out
@@ -892,17 +912,65 @@ def _require(t, dtype, dev, name):
                          f"{dev}, got {t.dtype} on {t.device}")
 
 
-def match_matrix(plan: Plan, blob, B: int, P: int, E: int, V: int):
-    """Stage 1 (K1) over the blob's dictionary: [N, V] bool."""
+def match_matrix(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                 out=None):
+    """Stage 1 (K1) over the blob's dictionary: [N, V] bool (into
+    ``out`` where given)."""
     _, _, dictv, str_bytes = blob_parts(blob, B, P, E, V)
     return glob_match_matrix(plan.nfa_char, plan.nfa_is_star, plan.nfa_is_q,
-                             plan.nfa_len, str_bytes, dictv[:, 4], plan.glob)
+                             plan.nfa_len, str_bytes, dictv[:, 4], plan.glob,
+                             out=out)
 
 
-def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):
-    """Verdicts int8 [B, R] of one packed blob: K1 -> eval_rules."""
+def evaluate_blob(plan: Plan, blob, B: int, P: int, E: int, V: int,
+                  match=None, out=None, launch=None):
+    """Verdicts int8 [B, R] of one packed blob: K1 -> eval_rules. K6's
+    capture passes its slot's buffers: ``match`` for K1's matrix, ``out``
+    for the verdicts, ``launch`` for eval_rules' block size and bytes."""
     return eval_rules(plan, blob, B, P, E, V,
-                      match_matrix(plan, blob, B, P, E, V))
+                      match_matrix(plan, blob, B, P, E, V, out=match),
+                      out=out, launch=launch)
+
+
+def blob_launch_args(plan: Plan, blob_ptr: int, B: int, P: int, E: int,
+                     V: int, match_ptr: int, out_ptr: int, stream: int):
+    """What :func:`evaluate_blob` passes to the two C entries, for a packed
+    blob at device address ``blob_ptr`` with K1's matrix [N, V] at
+    ``match_ptr`` and the verdicts [B, R] at ``out_ptr`` (the plain
+    route's one-call dispatch, ``csrc/dispatch.cu``): a list of (kernel,
+    entry address, int64 arguments [12]), leaving out a kernel whose
+    wrapper would launch nothing. The caller owns the buffers; the checks
+    are the wrappers' checks of what the addresses cannot show."""
+    n, s = plan.nfa_char.shape
+    _rules_device(plan.buf, E, "blob_launch_args")
+    if s + 1 > MAX_STATES:
+        raise ValueError(f"blob_launch_args: {s} NFA states exceed the "
+                         f"kernel's {MAX_STATES - 1}")
+    if plan.min_paths > P:
+        raise ValueError(f"blob_launch_args: the plan reads path "
+                         f"{plan.min_paths - 1} but the batch has P={P}")
+    if (blob_ptr % 4 or plan.buf.data_ptr() % 16
+            or plan.glob.consume.data_ptr() % 16):
+        raise ValueError("blob_launch_args: the blob is not 4-byte aligned, "
+                         "or the plan not 16-byte aligned")
+    o1 = B * P * E * 2 + B          # the dictionary's words [V, 5]
+    o2 = o1 + V * 5                 # its strings, STR_LEN bytes each
+    out = []
+    if n > 0 and V > 0:
+        g = plan.glob
+        out.append(("glob_nfa", _build.address("glob_nfa", "ktpu_glob_nfa", 12),
+                    np.array([g.consume.data_ptr(), g.star.data_ptr(),
+                              g.full.data_ptr(), g.acc.data_ptr(), n, s,
+                              blob_ptr + 4 * o2, blob_ptr + 4 * (o1 + 4), 5,
+                              V, match_ptr, stream], dtype=np.int64)))
+    if B > 0 and plan.R > 0:
+        out.append(("eval_rules",
+                    _build.address("eval_rules", "ktpu_eval_rules", 12),
+                    np.array([plan.buf.data_ptr(), blob_ptr, B, P, E, V,
+                              match_ptr, plan.tile_ptr, plan.n_tiles,
+                              _LAST_LAUNCH_PTR, out_ptr, stream],
+                             dtype=np.int64)))
+    return out
 
 
 def scan_blob(plan: Plan, blob, B: int, P: int, E: int, V: int):

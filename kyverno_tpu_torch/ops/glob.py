@@ -129,20 +129,29 @@ def glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
 
 
 def glob_match_matrix(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
-                      str_bytes, str_len, tables: GlobTables):
+                      str_bytes, str_len, tables: GlobTables, out=None):
     """match[n, v] for every (glob pattern n, dictionary string v): the
     kernel on the card, the plain version on the CPU. ``str_len`` may be
     a strided view (the dictionary column of a packed blob). ``tables``
     is :func:`nfa_tables` of the same NFA rows, as ``Plan.glob`` holds
     them: the kernel reads them in place of the rows, after the wrapper
     checks their shapes against the rows, and takes strings of
-    ``STR_LEN`` bytes."""
+    ``STR_LEN`` bytes. ``out``, a contiguous bool [N, V] on the same
+    device, receives the matrix in place of a new tensor (a buffer that
+    a CUDA graph's capture holds)."""
     dev = str_bytes.device
-    if dev.type == "cpu":
-        return glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q,
-                                       nfa_len, str_bytes, str_len)
     n, s = nfa_char.shape
     v, L = str_bytes.shape
+    if out is not None and (out.device != dev or out.dtype != torch.bool
+                            or tuple(out.shape) != (n, v)
+                            or not out.is_contiguous()):
+        raise ValueError(f"glob_match_matrix: out must be a contiguous "
+                         f"torch.bool[{n}, {v}] on {dev}, got {out.dtype}"
+                         f"{list(out.shape)} on {out.device}")
+    if dev.type == "cpu":
+        m = glob_match_matrix_plain(nfa_char, nfa_is_star, nfa_is_q,
+                                    nfa_len, str_bytes, str_len)
+        return m if out is None else out.copy_(m)
     if s + 1 > MAX_STATES:
         raise ValueError(f"glob_match_matrix: {s} NFA states exceed the "
                          f"kernel's {MAX_STATES - 1}")
@@ -166,10 +175,11 @@ def glob_match_matrix(nfa_char, nfa_is_star, nfa_is_q, nfa_len,
             raise ValueError(f"glob_match_matrix: {name} must be contiguous")
     if tables.consume.data_ptr() % 16:
         raise ValueError("glob_match_matrix: consume is not 16-byte aligned")
-    out = torch.empty((n, v), dtype=torch.bool, device=dev)
+    if out is None:
+        out = torch.empty((n, v), dtype=torch.bool, device=dev)
     if n == 0 or v == 0:
         return out
-    f = _build.fn("glob_nfa", "ktpu_glob_nfa", 11)
+    f = _build.fn("glob_nfa", "ktpu_glob_nfa", 12)
     err = f(tables.consume.data_ptr(), tables.star.data_ptr(),
             tables.full.data_ptr(), tables.acc.data_ptr(), n, s,
             str_bytes.data_ptr(), str_len.data_ptr(), str_len.stride(0), v,

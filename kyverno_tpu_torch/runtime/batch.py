@@ -149,7 +149,8 @@ class AdmissionBatcher:
                  result_cache_max: int = 4096,
                  resolve_host_in_flush: bool = True,
                  row_cache_max: int = 4096,
-                 continuous: bool = False):
+                 continuous: bool = False,
+                 dispatch_cost_half_life_s: float = 1.0):
         self.policy_cache = policy_cache
         self.window_s = window_s
         self.max_batch = max_batch
@@ -178,6 +179,19 @@ class AdmissionBatcher:
         # ATTENTION saves little)
         self._oracle_policy_cost = oracle_cost_init_s
         self._dispatch_cost = dispatch_cost_init_s
+        # a sample is evidence about the load it was taken under: a flush
+        # that ran beside a burst's oracle threads, or a screen that
+        # waited out its deadline, measured that burst's host as much as
+        # the lane. While the lane is idle (no flush in flight) the excess
+        # of _dispatch_cost over the fastest warm dispatch among the
+        # recent feeds halves every dispatch_cost_half_life_s, counted
+        # from _dispatch_cost_at (its last change, or the lane's last
+        # going idle), so one seconds-long sample cannot close the lane
+        # to the next burst. The JAX batcher keeps such a sample until a
+        # probe, at most one each probe_interval_s, moves it by 0.3 of
+        # the difference.
+        self.dispatch_cost_half_life_s = dispatch_cost_half_life_s
+        self._dispatch_cost_at = time.monotonic()
         self._savings_frac = 0.5
         # HOST CPU seconds a flush burns (flatten + dispatch bookkeeping,
         # measured with thread_time so device waits don't count): the
@@ -193,6 +207,10 @@ class AdmissionBatcher:
         # that actually formed, not over the instantaneous concurrency
         self._batch_size_ema = 4.0
         self._last_dispatch = 0.0
+        # the dispatch-cost feeds, newest last: (monotonic s, feed,
+        # sample s, _dispatch_cost after it); feed is "warmup", "flush"
+        # (a warm flush's wall) or "screen_timeout" (a timed-out wait)
+        self.dispatch_cost_feeds: deque = deque(maxlen=64)
         # screen-timeout circuit breaker: consecutive *flushes* whose
         # waiters gave up are direct evidence the device lane is slower
         # than the model thinks (queue depth, a stalled device); the breaker
@@ -322,6 +340,43 @@ class AdmissionBatcher:
             frac = max(0.0, 1.0 - seconds / full) if full > 0 else 0.0
             self._savings_frac += 0.3 * (frac - self._savings_frac)
 
+    def _dispatch_estimate(self, now: float) -> float:
+        """``_dispatch_cost`` as a prediction for a dispatch that starts
+        at ``now`` (monotonic s; the caller holds the lock): unchanged
+        while a flush is in flight, else decayed toward the fastest warm
+        sample of ``dispatch_cost_feeds`` (see ``__init__``)."""
+        cost = self._dispatch_cost
+        if self._pending_flushes:
+            return cost
+        floor = min((s for _, feed, s, _ in self.dispatch_cost_feeds
+                     if feed != "screen_timeout"), default=cost)
+        if floor >= cost:
+            return cost
+        idle = max(0.0, now - self._dispatch_cost_at)
+        return floor + (cost - floor) * 0.5 ** (
+            idle / self.dispatch_cost_half_life_s)
+
+    def _settle_dispatch_cost(self, now: float) -> None:
+        """Fold the idle decay into ``_dispatch_cost`` (lock held): before
+        a feed, and as the lane goes busy or idle, so that no time in
+        flight counts as idle."""
+        self._dispatch_cost = self._dispatch_estimate(now)
+        self._dispatch_cost_at = now
+
+    def _feed_dispatch_cost(self, feed: str, sample: float,
+                            now: float) -> None:
+        """One dispatch-cost sample (s, lock held): a warm dispatch's
+        wall ("warmup", "flush") moves the EMA by 0.3 of the difference;
+        a timed-out screen's wait ("screen_timeout") is a floor, the lane
+        was at least this slow."""
+        self._settle_dispatch_cost(now)
+        if feed == "screen_timeout":
+            self._dispatch_cost = max(self._dispatch_cost, sample)
+        else:
+            self._dispatch_cost += 0.3 * (sample - self._dispatch_cost)
+        self.dispatch_cost_feeds.append(
+            (now, feed, sample, self._dispatch_cost))
+
     def _device_favored(self, est_batch: int, n_policies: int,
                         deadline_free: bool = False) -> bool:
         # amortize over the batch size dispatches actually realize, not
@@ -345,8 +400,8 @@ class AdmissionBatcher:
         # them the device wins whenever it saves CPU, period.
         if deadline_free:
             return cpu_won
-        device_latency = (self._dispatch_cost * (1 + self._pending_flushes)
-                          + self._window())
+        device_latency = (self._dispatch_estimate(time.monotonic())
+                          * (1 + self._pending_flushes) + self._window())
         lat_ok = device_latency < min(oracle_drain, SCREEN_DEADLINE_S)
         return cpu_won and lat_ok
 
@@ -418,8 +473,8 @@ class AdmissionBatcher:
         dt = time.monotonic() - t0
         with self._lock:
             self._seen_shapes.setdefault(cps, set()).add(shape_key)
-            self._dispatch_cost += 0.3 * (dt - self._dispatch_cost)
             self._last_dispatch = time.monotonic()
+            self._feed_dispatch_cost("warmup", dt, self._last_dispatch)
 
     def _on_policy_change(self, event: str, policy) -> None:
         """Policy-cache listener: replay the recorded warmup seeds so the
@@ -668,7 +723,7 @@ class AdmissionBatcher:
             deadline_budget = timeout_s
             if adaptive and not deadline_free:
                 timeout_s = min(timeout_s,
-                                max(0.05, 4 * self._dispatch_cost
+                                max(0.05, 4 * self._dispatch_estimate(now)
                                     + self._window())
                                 * (1 + self._pending_flushes))
         wait_start = time.monotonic()
@@ -697,7 +752,8 @@ class AdmissionBatcher:
                 if adaptive:
                     # the wait itself is a dispatch-cost measurement the
                     # EMA must not ignore: the lane was at LEAST this slow
-                    self._dispatch_cost = max(self._dispatch_cost, elapsed)
+                    self._feed_dispatch_cost("screen_timeout", elapsed,
+                                             time.monotonic())
                     if bucket.seq not in self._timed_out_flushes:
                         if len(self._timed_out_flushes) >= 64:
                             self._timed_out_flushes.clear()
@@ -836,7 +892,7 @@ class AdmissionBatcher:
             deadline_budget = timeout_s
             if adaptive and not deadline_free:
                 timeout_s = min(timeout_s,
-                                max(0.05, 4 * self._dispatch_cost
+                                max(0.05, 4 * self._dispatch_estimate(now)
                                     + self._window())
                                 * (1 + self._pending_flushes))
         wait_start = time.monotonic()
@@ -1050,6 +1106,8 @@ class AdmissionBatcher:
                                  if b.items}
             for cps, items, is_probe, key in work:
                 with self._lock:
+                    if not self._pending_flushes:
+                        self._settle_dispatch_cost(time.monotonic())
                     self._pending_flushes += 1
                 self._flush_pool.submit(self._flush_tracked, cps, items,
                                         is_probe, key)
@@ -1061,6 +1119,8 @@ class AdmissionBatcher:
         finally:
             with self._lock:
                 self._pending_flushes -= 1
+                if not self._pending_flushes:
+                    self._dispatch_cost_at = time.monotonic()
 
     def _flatten_flush(self, cps, resources):
         """Row-memoized flatten for one flush window.
@@ -1350,7 +1410,7 @@ class AdmissionBatcher:
                 # not feed its dt to the EMA either, even though the
                 # shape is in the set by now
                 if not cold:
-                    self._dispatch_cost += 0.3 * (dt - self._dispatch_cost)
+                    self._feed_dispatch_cost("flush", dt, time.monotonic())
                     # host CPU actually burned (thread_time: link waits
                     # excluded) — the cost-model side of the device lane
                     self._flush_cpu_cost += 0.3 * (cpu_dt

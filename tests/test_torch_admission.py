@@ -33,11 +33,13 @@ from kyverno_tpu_torch.api.load import load_policy
 from kyverno_tpu_torch.models import CompiledPolicySet, Verdict
 from kyverno_tpu_torch.models import engine
 from kyverno_tpu_torch.models import flatten as torch_flatten
+from kyverno_tpu_torch.ops import _build
 from kyverno_tpu_torch.runtime import batch, hostlane
 from kyverno_tpu_torch.runtime.batch import ATTENTION, CLEAN, ORACLE
 from kyverno_tpu_torch.runtime.policycache import PolicyCache, PolicyType
 from tests.torch_parity import (  # noqa: F401  (one_torch_thread: autouse)
     REQUEST_POLICIES,
+    count_plain_launches,
     one_torch_thread,
     request_payload,
     request_resources,
@@ -309,6 +311,63 @@ def test_circuit_breaker_opens_on_screen_timeouts(caches):
                 b.stats.get("circuit_open", 0) >= 1, after)
     got = both(caches, run, dispatch_cost_init_s=0.001)
     assert got["torch"] == got["jax"] == (True, True, True, (ORACLE, []))
+
+
+def test_a_burst_after_a_slow_screen_timeout_reaches_the_device(caches):
+    """A timed-out screen's seconds-long wait sets the dispatch cost above
+    the screen's deadline, and the next request routes ORACLE. Once the
+    lane has been idle for a few half-lives the sample has lapsed toward
+    the fastest warm flush, and the next burst is answered by the device,
+    with the JAX batcher's answers for the same pods. (The JAX batcher
+    keeps the sample: a deliberate difference of the port.)"""
+    b = SIDES[1].batcher(caches["torch"], dispatch_cost_half_life_s=0.05)
+    ref = SIDES[0].batcher(caches["jax"])
+    try:
+        now = time.monotonic()
+        with b._lock:
+            b._feed_dispatch_cost("flush", 0.004, now)
+            b._feed_dispatch_cost("screen_timeout", 3.39, now)
+            assert b._dispatch_cost == 3.39
+            shut = b._device_favored(16, 1)
+        assert not shut
+        assert screen(b, pod("nginx:1.21", "alone")) == (ORACLE, [])
+        time.sleep(0.6)
+        with b._lock:
+            assert b._dispatch_estimate(time.monotonic()) < 0.01
+            assert b._device_favored(16, 1)
+        s0 = dict(b.stats)
+        pods = [pod("nginx:1.21" if i % 2 else "nginx:latest", f"b{i}")
+                for i in range(16)]
+        got = concurrently(16, lambda i: screen(b, pods[i]))
+        assert b.stats["device"] - s0["device"] == 16
+        assert b.stats["oracle"] == s0["oracle"]
+        assert got == [screen(ref, p) for p in pods]
+    finally:
+        stop(b)
+        stop(ref)
+
+
+def test_dispatch_cost_holds_while_a_flush_is_in_flight(caches):
+    """The idle decay counts only time with no flush in flight: a slow
+    sample holds while the lane is busy, and decays once it is idle."""
+    b = SIDES[1].batcher(caches["torch"], dispatch_cost_half_life_s=0.05)
+    try:
+        with b._lock:
+            now = time.monotonic()
+            b._feed_dispatch_cost("flush", 0.004, now)
+            b._feed_dispatch_cost("screen_timeout", 3.0, now)
+            b._pending_flushes += 1
+            b._settle_dispatch_cost(now)
+        time.sleep(0.3)
+        with b._lock:
+            assert b._dispatch_estimate(time.monotonic()) == 3.0
+            b._pending_flushes -= 1
+            b._dispatch_cost_at = time.monotonic()
+            assert b._dispatch_estimate(b._dispatch_cost_at) == 3.0
+            assert b._dispatch_estimate(b._dispatch_cost_at + 0.05) \
+                == pytest.approx(0.004 + (3.0 - 0.004) / 2)
+    finally:
+        stop(b)
 
 
 # -------------------------------------------------------- result cache
@@ -612,13 +671,46 @@ class _Event:
 
 
 class _CpuSlot(engine._Slot):
-    def __init__(self, words, B, R, device):
-        self.staged = torch.empty(words, dtype=torch.int32)
+    """A K6 slot on CPU tensors: its own buffers and the real ``replay``
+    (the launches counted). Its steps copy with torch and run the plain
+    versions; its capture lists the launches of one run of them (over a
+    zeroed blob), and a replay runs them again, listing their launches
+    instead of counting them, as a captured graph launches without the
+    wrappers."""
+
+    def __init__(self, plan, shp, words, device):
+        B, _, _, V = shp
+        self.device = device
+        self.exec = 0
+        self.staged = torch.zeros(words, dtype=torch.int32)
         self.dblob = torch.empty(words, dtype=torch.int32)
-        self.out = torch.empty((B, R), dtype=torch.int8)
+        self.match = torch.empty((plan.nfa_char.shape[0], V),
+                                 dtype=torch.bool)
+        self.verdicts = torch.empty((B, plan.R), dtype=torch.int8)
+        self.out = torch.empty((B, plan.R), dtype=torch.int8)
         self.event = _Event()
+        self.launch = np.zeros(2, dtype=np.int32)
         self.handle = None
         self.seq = 0
+        self._plan, self._shp = plan, shp
+        self.kernels = self._capture(plan, shp)
+
+    def _steps(self, plan, shp):
+        self.dblob.copy_(self.staged)
+        engine.ops_eval.evaluate_blob(plan, self.dblob, *shp,
+                                      match=self.match, out=self.verdicts,
+                                      launch=self.launch)
+        self.out.copy_(self.verdicts)
+
+    def _capture(self, plan, shp):
+        with _build.launches_noted() as kernels:
+            self._steps(plan, shp)
+        return tuple(kernels)
+
+    def _run(self, host):
+        self.staged.copy_(torch.from_numpy(host))
+        with _build.launches_noted():
+            self._steps(self._plan, self._shp)
 
 
 def test_k6_slot_ring(cpu_set, monkeypatch):
@@ -675,10 +767,9 @@ def test_k6_slot_ring_under_threads(cpu_set, monkeypatch):
     monkeypatch.setattr(engine, "_Slot", _CpuSlot)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
     tag = threading.local()
-    R = cps.plan.R
     monkeypatch.setattr(engine.ops_eval, "evaluate_blob",
-                        lambda plan, blob, B, P, E, V: torch.full(
-                            (B, R), tag.value, dtype=torch.int8))
+                        lambda plan, blob, B, P, E, V, out, **kw:
+                        out.fill_(tag.value))
     live = cps.tensors.n_rules_live
     per = 40
     interval = sys.getswitchinterval()
@@ -743,17 +834,6 @@ def test_k6_holder_frees_its_slot_during_the_pick(cpu_set, monkeypatch):
     assert all(s.handle is None for s in ring)
 
 
-class _TimedEvent(_Event):
-    """Stand-in timing event: records the host clock."""
-
-    def __init__(self, enable_timing=False):
-        self.t = None
-
-    def record(self, stream=None):
-        self.t = time.perf_counter()
-
-    def elapsed_time(self, other):
-        return (other.t - self.t) * 1e3
 
 
 def test_k6_phase_timing(cpu_set, monkeypatch):
@@ -763,20 +843,178 @@ def test_k6_phase_timing(cpu_set, monkeypatch):
     cps, b = cpu_set
     monkeypatch.setattr(engine, "_Slot", _CpuSlot)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
-    monkeypatch.setattr(torch.cuda, "Event", _TimedEvent)
+    # stand-in timing events: the host clock
+    monkeypatch.setattr(engine, "_event_record",
+                        lambda device: time.perf_counter())
+    monkeypatch.setattr(engine, "_event_ms", lambda a, b: (b - a) * 1e3)
+    monkeypatch.setattr(engine, "_event_destroy", lambda e: None)
     live = cps.tensors.n_rules_live
     want = cps.evaluate_device(b)
     h = cps._dispatch_k6(b, live, engine._Phases(cps.device))
     assert np.array_equal(h.get(), want)
     ph = h.phases()
-    assert set(ph) == {"staging", "h2d", "launches", "d2h", "read",
-                       "dispatch"}
+    assert set(ph) == {"call", "replay", "read", "dispatch"}
     assert all(v >= 0.0 for v in ph.values())
-    assert ph["dispatch"] >= ph["staging"] + ph["h2d"] + ph["launches"]
+    assert ph["dispatch"] >= ph["call"]
     assert cps._dispatch_k6(b, live).phases() is None
     monkeypatch.setattr(engine, "PHASE_TIMING", True)
     # the CPU route keeps none either: there is no card to time
     assert cps.evaluate_device_async(b, donate=True).phases() is None
+
+
+def test_k6_dispatch_counts_one_launch_of_each_kernel(cpu_set, monkeypatch):
+    """A K6 dispatch counts one launch of K1 and one of eval_rules, the
+    slot's first (its capture) and the warm ones alike, through
+    ``_Slot.replay``'s count of the launches its capture listed; the
+    capture itself counts none. The plain calls are counted as launches
+    here, as on the card the wrappers count theirs."""
+    cps, b = cpu_set
+    monkeypatch.setattr(engine, "_Slot", _CpuSlot)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    count_plain_launches(monkeypatch)
+    live = cps.tensors.n_rules_live
+    want = cps.evaluate_device(b)
+    saved = dict(_build.LAUNCHES)
+    try:
+        _build.reset_launches()
+        for n in range(1, 4):
+            assert np.array_equal(cps._dispatch_k6(b, live).get(), want)
+            assert _build.LAUNCHES == {
+                "glob_nfa": n, "eval_rules": n, "eval_rules_scan": 0,
+                "eval_rules_counts": 0, "scan_counts": 0}
+        (slot,) = cps._k6[b.packed_blob()[1]]
+        assert slot.kernels == ("glob_nfa", "eval_rules")
+    finally:
+        _build.LAUNCHES.update(saved)
+
+
+def test_launches_noted_lists_on_its_thread_only():
+    """Inside ``launches_noted`` a launch is listed, not counted, on that
+    thread; another thread's launches count as before, and counting
+    resumes on leaving it, also after a failure inside."""
+    saved = dict(_build.LAUNCHES)
+    try:
+        _build.reset_launches()
+        with pytest.raises(ValueError):
+            with _build.launches_noted() as names:
+                _build.note_launch("glob_nfa")
+                t = threading.Thread(
+                    target=_build.note_launch, args=("eval_rules",))
+                t.start()
+                t.join(timeout=10)
+                assert not t.is_alive()
+                raise ValueError("a failed capture")
+        assert names == ["glob_nfa"]
+        _build.note_launch("glob_nfa")
+        _build.note_launches(("glob_nfa", "eval_rules"))
+        assert (_build.LAUNCHES["glob_nfa"], _build.LAUNCHES["eval_rules"]) \
+            == (2, 2)
+    finally:
+        _build.LAUNCHES.update(saved)
+
+
+class _Dispatch:
+    """Stand-ins for ``csrc/dispatch.cu``'s capture entries: the capture's
+    end fails with ``end_error`` (901, cudaErrorStreamCaptureInvalidated,
+    where the work inside broke it); calls are noted."""
+
+    def __init__(self, end_error):
+        self.end_error, self.calls = end_error, []
+
+    def fn(self, name, entry, n_args):
+        assert name == "dispatch"
+        return lambda *args: self.calls.append(entry) or (
+            self.end_error if entry == "ktpu_capture_end" else 0)
+
+
+def test_k6_warm_dispatch_is_one_call(cpu_set, monkeypatch):
+    """A warm K6 dispatch on a real slot makes one call into
+    ``csrc/dispatch.cu`` (``ktpu_replay``: the blob into the staging, the
+    graph, the event, on the current stream) and counts the launches its
+    capture listed; nothing else reaches the runtime."""
+    cps, b = cpu_set
+    host = np.ascontiguousarray(b.packed_blob()[0]).view(np.int32)
+    calls = []
+    monkeypatch.setattr(engine._build, "fn", lambda name, entry, n: (
+        lambda *args: calls.append((name, entry, args)) or 0))
+    monkeypatch.setattr(engine._build, "stream_handle", lambda dev: 9)
+    slot = object.__new__(engine._Slot)
+    slot.device, slot.exec = cps.device, 5
+    slot.staged = torch.zeros(host.size, dtype=torch.int32)
+    slot.event = type("Ev", (), {"cuda_event": 11})()
+    slot.kernels = ("glob_nfa", "eval_rules")
+    saved = dict(_build.LAUNCHES)
+    try:
+        _build.reset_launches()
+        slot.replay(host)
+        assert (_build.LAUNCHES["glob_nfa"], _build.LAUNCHES["eval_rules"]) \
+            == (1, 1)
+    finally:
+        _build.LAUNCHES.update(saved)
+        slot.exec = 0
+    assert calls == [("dispatch", "ktpu_replay", (
+        5, slot.staged.data_ptr(), host.ctypes.data, host.nbytes, 11, 9))]
+
+
+@pytest.mark.parametrize("broken", ["steps", "end"])
+def test_k6_failed_capture_raises(monkeypatch, broken):
+    """No fallback: a capture whose work fails inside (here, a call the
+    capture refuses) ends the capture and raises that work's error; a
+    capture that its end finds invalidated raises the runtime's error.
+    Neither leaves a graph."""
+    stub = _Dispatch(901 if broken == "end" else 0)
+    monkeypatch.setattr(engine._build, "fn", stub.fn)
+
+    def steps():
+        if broken == "steps":
+            raise RuntimeError("operation not permitted when stream is "
+                               "capturing")
+
+    with pytest.raises(RuntimeError, match="not permitted" if broken ==
+                       "steps" else "cudaError 901"):
+        engine._captured(7, steps)
+    # a capture that ended (the work raised before queueing anything
+    # it refused) is instantiated, then destroyed
+    assert stub.calls == ["ktpu_capture_begin", "ktpu_capture_end"] + (
+        ["ktpu_graph_destroy"] if broken == "steps" else [])
+
+
+def test_k6_failed_capture_or_replay_leaves_the_ring(cpu_set, monkeypatch):
+    """A slot whose capture raises is never in the ring; a replay that
+    raises takes its slot out of the ring (its copies may be queued).
+    Both raise to the caller, and neither runs the plain route."""
+    cps, b = cpu_set
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+
+    def plain(*a, **k):
+        raise AssertionError("K6 fell back to the plain route")
+
+    class Uncapturable(_CpuSlot):
+        def _capture(self, plan, shp):
+            raise RuntimeError("cudaErrorStreamCaptureImplicit")
+
+    monkeypatch.setattr(cps, "_launch", plain)
+    monkeypatch.setattr(engine, "_Slot", Uncapturable)
+    live = cps.tensors.n_rules_live
+    shp = b.packed_blob()[1]
+    with pytest.raises(RuntimeError, match="CaptureImplicit"):
+        cps._dispatch_k6(b, live)
+    assert cps._k6[shp] == []
+    assert cps.donation_stats == {"dispatches": 0, "donated_buffers": 0}
+
+    monkeypatch.setattr(engine, "_Slot", _CpuSlot)
+    cps._dispatch_k6(b, live).get()
+    (slot,) = cps._k6[shp]
+
+    def lost(host):
+        raise RuntimeError("CUDA kernel dispatch failed to launch: "
+                           "cudaError 719")
+
+    slot._run = lost
+    with pytest.raises(RuntimeError, match="cudaError 719"):
+        cps._dispatch_k6(b, live)
+    assert cps._k6[shp] == []
+    assert cps.donation_stats == {"dispatches": 1, "donated_buffers": 0}
 
 
 def test_trace_bind_adopt_and_span():

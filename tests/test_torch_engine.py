@@ -72,3 +72,35 @@ def test_empty_batch_and_empty_policy_set():
     empty = CompiledPolicySet([], device="cpu")
     v = empty.evaluate_device(empty.flatten(corpus_resources("library250", 3)))
     assert v.shape == (3, 0)
+
+
+def test_plain_dispatch_args_are_the_wrappers(library, monkeypatch):
+    """The plain route's one call (``ops/eval.py::blob_launch_args``)
+    passes K1's and eval_rules' entries what their wrappers pass: the
+    plan's tables and tile table, the blob's string bytes and length
+    column (5 words a string) at the wrappers' views, K1's matrix and
+    the verdicts at the given addresses."""
+    from kyverno_tpu_torch.ops import eval as ev
+
+    _, tset, resources = library
+    monkeypatch.setattr(_build, "address", lambda name, entry, n: {
+        "glob_nfa": 11, "eval_rules": 12}[name])
+    blob, shp = tset.to_device(tset.flatten_packed(resources[:16]))
+    B, P, E, V = shp
+    _, _, dictv, str_bytes = ev.blob_parts(blob, *shp)
+    plan, g = tset.plan, tset.plan.glob
+    calls = ev.blob_launch_args(plan, blob.data_ptr(), *shp, 1 << 20,
+                                2 << 20, 77)
+    assert [(k, e) for k, e, _ in calls] == [("glob_nfa", 11),
+                                            ("eval_rules", 12)]
+    (_, _, gargs), (_, _, rargs) = calls
+    assert gargs.dtype == rargs.dtype == np.int64
+    assert gargs.tolist() == [
+        g.consume.data_ptr(), g.star.data_ptr(), g.full.data_ptr(),
+        g.acc.data_ptr(), *plan.nfa_char.shape, str_bytes.data_ptr(),
+        dictv[:, 4].data_ptr(), dictv[:, 4].stride(0), V, 1 << 20, 77]
+    assert rargs.tolist() == [
+        plan.buf.data_ptr(), blob.data_ptr(), B, P, E, V, 1 << 20,
+        plan.tile_ptr, plan.n_tiles, ev.LAST_LAUNCH.ctypes.data, 2 << 20, 77]
+    with pytest.raises(ValueError, match="P=0"):
+        ev.blob_launch_args(plan, blob.data_ptr(), B, 0, E, V, 0, 0, 0)

@@ -89,3 +89,60 @@ def test_every_wrapper_counts_through_note_launch():
                 assert not re.search(r"LAUNCHES\[[^\]]*\]\s*\+=", text), f
                 seen += re.findall(r'note_launch\("(\w+)"\)', text)
     assert sorted(seen) == sorted(_build.LAUNCHES)
+
+
+def test_libraries_keep_the_interpreter_lock(monkeypatch, tmp_path):
+    """Every library loads with ctypes.PyDLL, so a launch keeps the
+    interpreter lock: a call that gave it up would have to win it back
+    from the threads running the oracle in Python, which is what made an
+    admission dispatch take seconds on the card's host."""
+    import ctypes
+
+    loaded = []
+
+    class Loader:
+        def __init__(self, kind):
+            self.kind = kind
+
+        def __call__(self, path):
+            loaded.append((self.kind, path))
+            return object()
+
+    monkeypatch.setattr(ctypes, "PyDLL", Loader("PyDLL"))
+    monkeypatch.setattr(ctypes, "CDLL", Loader("CDLL"))
+    monkeypatch.setattr(_build, "_start", lambda name: None)
+    monkeypatch.setattr(_build, "_lib_path", lambda name: tmp_path / name)
+    monkeypatch.setattr(_build, "_libs", {})
+    for name in _build.LIBRARIES:
+        _build.lib(name)
+    assert loaded == [("PyDLL", str(tmp_path / n)) for n in _build.LIBRARIES]
+    assert "dispatch" in _build.LIBRARIES
+
+
+def test_every_binding_declares_its_entry_arguments():
+    """Each ``_build.fn`` / ``_build.address`` binding names as many
+    argument types as its C entry has parameters. ctypes passes an
+    argument past the declared types as a 32-bit int: K1's stream, its
+    twelfth, was cut to 32 bits until the binding named all twelve, so
+    that K1 went to a wrong stream whenever the current one was not the
+    default."""
+    csrc = os.path.join(os.path.dirname(OPS), "csrc")
+    entries = {}
+    for f in os.listdir(csrc):
+        if f.endswith(".cu"):
+            text = open(os.path.join(csrc, f)).read()
+            for name, params in re.findall(
+                    r'extern "C" int (\w+)\(([^)]*)\)', text):
+                entries[(f[:-3], name)] = len(params.split(","))
+    pkg = os.path.dirname(OPS)
+    seen = 0
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                for lib, entry, n in re.findall(
+                        r'_build\.(?:fn|address)\(\s*"(\w+)",\s*"(\w+)",'
+                        r'\s*(\d+)\)', text):
+                    assert entries[(lib, entry)] == int(n), (f, entry, n)
+                    seen += 1
+    assert seen >= 12
