@@ -819,12 +819,25 @@ MESH_KERNELS = ("glob_nfa", "eval_rules_counts")
 # chunks of DEFAULT_CHUNK so that the worker pool runs (the oracle's cost
 # of a fresh 1M snapshot is the limit)
 MESH_RESOURCES = 131_072
-# H100 SXM memory rate (data sheet). Every kernel here is bytes-bound: per
-# element the function needs a few dozen integer operations (one NFA step
-# per string byte, one compare per slot, one list entry per reduction),
-# far under the card's integer rate, so the bound is the bytes it must
-# move, each input read once and each output written once.
+# H100 SXM memory rate (data sheet). A kernel's bound is the larger of the
+# bytes it must move (each input read once, each output written once) over
+# this rate and, for eval_rules' forms, the integer operations its inputs
+# need over INT32_OPS_PER_S (eval_rules_ops); K1 and K5 are held to bytes.
 HBM_BYTES_PER_S = 3.35e12
+# H100 SXM's INT32 rate: 132 SMs x 64 INT32 lanes (a Hopper SM has 64
+# INT32 units beside its 128 FP32 ones) x the data sheet's 1.98 GHz boost
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# eval_rules' integer operations, counted from the plain version's steps
+# (ops/eval.py eval_checks_plain, eval_verdict_plain): a check row on one
+# slot (leaf and guard masks, the operator's value test, the element
+# reduction), an aux row on slot 0 (presence, the test, the kind
+# prefilter), a list entry of a rule's walk (pattern entry, aux group, aux
+# row: the mask operations it feeds, a 32-resource word at a time), a
+# rule's stage-6 composition (mask operations over its three planes, a
+# word at a time), a verdict byte from its three planes, and the counts
+# form's two population counts a rule and word
+OPS_CHECK_SLOT, OPS_AUX_ROW, OPS_ENTRY, OPS_RULE, OPS_BYTE, OPS_COUNT = (
+    30, 20, 4, 40, 3, 2)
 KERNEL_SOURCES = {
     "glob_nfa": ("kyverno_tpu_torch/csrc/glob_nfa.cu",
                  "kyverno_tpu/ops/glob.py:31"),
@@ -1010,15 +1023,23 @@ class Stages:
                 "scan_counts": n5, "eval_rules_counts": n7}, seen
 
     def launch(self, plan=None) -> tuple:
-        """The block size and shared memory of the last eval_rules launch
-        (either form), after checking the bytes against the plan's own
-        account of them."""
+        """The geometry of the last eval_rules launch (any form): resources
+        a group, shared memory a block, blocks in all, blocks an SM; after
+        checking the bytes against the plan's own account of them."""
         plan = plan or self.plan
-        tb, smem = (int(x) for x in self.ev.LAST_LAUNCH)
-        check(smem == plan.smem_bytes(self.E, tb),
-              f"eval_rules took {smem} bytes a block at {tb} resources, the "
-              f"plan counts {plan.smem_bytes(self.E, tb)}")
-        return tb, smem
+        geo = tuple(int(x) for x in self.ev.LAST_LAUNCH)
+        gs, smem = geo[:2]
+        want = plan.smem_bytes(self.E, gs)
+        check(smem == want, f"eval_rules took {smem} bytes a block at {gs} "
+              f"resources a group, the plan counts {want}")
+        return geo
+
+
+def geometry(geo) -> str:
+    """eval_rules' launch geometry (``Stages.launch``) in words."""
+    gs, smem, blocks, per_sm = geo
+    return (f"{gs} resources a group, {smem} bytes a block, {blocks} "
+            f"blocks in all, {per_sm} blocks an SM")
 
 
 def plain_pipeline(plan, blob, shape):
@@ -1527,9 +1548,10 @@ def replay_against_direct(cps, label: str, salt: str, n: int = 32) -> dict:
     a slot's CUDA graph against the direct launches (K1 -> eval_rules on a
     device copy of the same blob), with zero tolerance. Each dispatch must
     be a replay (a reused slot), and each of the two routes must count one
-    launch of K1 and one of eval_rules a batch. The block size and bytes
+    launch of K1 and one of eval_rules a batch. The group size and bytes
     that each slot's capture chose are held to the plan's account of
-    them. Returns {shape: (batches, slots, (tb, bytes) of the slots)}."""
+    them. Returns {shape: (batches, slots, eval_rules' launch geometry of
+    the slots)}."""
     import torch
     from kyverno_tpu_torch.ops import _build
     from kyverno_tpu_torch.ops import eval as ev
@@ -1594,19 +1616,20 @@ def replay_against_direct(cps, label: str, salt: str, n: int = 32) -> dict:
         with cps._k6_lock:
             ring = list(cps._k6[shp])
         for slot in ring:
-            tb, nbytes = (int(x) for x in slot.launch)
+            tb, nbytes = (int(x) for x in slot.launch[:2])
             check(slot.kernels == EVALUATE_KERNELS, f"{label} a slot at {shp} "
                   f"captured {slot.kernels}")
-            check(nbytes == cps.plan.smem_bytes(shp[2], tb),
+            want = cps.plan.smem_bytes(shp[2], tb)
+            check(nbytes == want,
                   f"{label} a slot's capture at {shp} chose {nbytes} bytes a "
-                  f"block at {tb} resources, the plan counts "
-                  f"{cps.plan.smem_bytes(shp[2], tb)}")
+                  f"block at {tb} resources a group, the plan counts {want}")
         out[shp] = (n, len(ring), sorted({tuple(int(x) for x in s_.launch)
                                           for s_ in ring}))
     log(f"{label} K6 replay against the direct launches (K1 -> eval_rules), "
         f"{n} batches of different contents a bucket, zero tolerance: every "
-        f"verdict equal; bucket: (batches, slots, (resources a block, bytes "
-        f"a block) of their captures): {out}")
+        f"verdict equal; bucket: (batches, slots, (resources a group, bytes "
+        f"a block, blocks in all, blocks an SM) of their captures): "
+        f"{out}")
     return out
 
 
@@ -3947,7 +3970,8 @@ def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
         plain_ms = cuda_ms(plain, 5, warm=1)
         nbytes = (B * P * E * 8 + 4 * B + 20 * V + N * V + plan_bytes
                   + B * R + 8 * live)
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        ops = eval_rules_ops(plan, B, E, "counts")
+        bound, bound_by = rules_bound(nbytes, ops)
         # K7's whole program: K1's bytes (the NFA rows, the strings and
         # their lengths read, the match matrix written) and the counts
         # form's
@@ -3961,18 +3985,19 @@ def counts_times(cps, sizes=(65_536, 10_000)) -> dict:
             f"{yard_ms:.4f} ms between events, {yard_back:.4f} ms back to "
             f"back; K7's program (K1 -> counts form) {k7_back:.4f} ms back "
             f"to back, bound {k7_bound:.5f} ms by bytes; plain "
-            f"{plain_ms:.4f} ms; bound {bound:.5f} ms by bytes "
-            f"({nbytes} bytes); {100 * bound / back:.2f}% of the bound back "
-            f"to back; {smi}")
+            f"{plain_ms:.4f} ms; bound {bound:.5f} ms by {bound_by} "
+            f"({nbytes} bytes, {ops} integer operations); "
+            f"{100 * bound / back:.2f}% of the bound back to back; {smi}")
         entry = {"ms": ms, "device_ms": back, "plain_ms": plain_ms,
                  "eval_rules_ms": alone_ms, "eval_rules_device_ms": alone_back,
                  "yardstick_ms": yard_ms, "yardstick_device_ms": yard_back,
                  "k7_device_ms": k7_back, "k7_bound_ms": k7_bound,
-                 "bound_ms": bound, "bytes": nbytes,
-                 "max_abs_err": max_err, "shape": [B, live]}
+                 "bound_ms": bound, "bound_by": bound_by, "bytes": nbytes,
+                 "operations": ops, "max_abs_err": max_err,
+                 "shape": [B, live]}
         if row is None:
             row = {"name": "eval_rules_counts", "route": "cuda", **entry,
-                   "library_ms": None, "bound_by": "bytes", "at": {}}
+                   "library_ms": None, "at": {}}
         else:
             row["at"][str(B)] = entry
         del got, want, vl, m, blob, batch
@@ -4206,6 +4231,53 @@ def controller_request(i: int, salt: str) -> tuple[dict, dict]:
                  "cluster_roles": [], "exclude_group_role": []}
 
 
+def eval_rules_ops(plan, B: int, E: int, form: str = "matrix") -> int:
+    """The integer operations eval_rules' ``form`` ("matrix", "scan" or
+    "counts") needs on a batch of B resources at E slots a path, counted
+    from the plan as it is built: every distinct check row of a tile on
+    each slot, its distinct aux rows, each gate's gate rows on each slot;
+    per 32-resource word, every entry of the rules' walks and each rule's
+    composition; per (resource, rule) the verdict byte, or per rule and
+    word the counts (OPS_* above)."""
+    from kyverno_tpu_torch.ops import plan as pl
+
+    per_res = per_word = 0
+    for row in plan.tile_table:
+        off, n = int(row[pl.TT_OFF]), int(row[pl.TT_WORDS])
+        sec = plan.buf_np[off:off + n]
+
+        def arr(h, k):
+            return sec[sec[h]:sec[h] + k]
+
+        C, X, R = (int(sec[h]) for h in (pl.TS_C, pl.TS_X, pl.TS_R))
+        ng = int(sec[pl.TS_NGATES])
+        is_gate = arr(pl.TS_CHK, C * pl.CK_NCOLS).reshape(pl.CK_NCOLS, C)[
+            pl.CK_IS_GATE]
+        gate_grp = arr(pl.TS_GATE_GRP, int(arr(pl.TS_GATE_PTR, ng + 1)[-1]))
+        grp_ptr = sec[sec[pl.TS_GRP_PTR]:sec[pl.TS_GRP_ROW]]
+        grp_row = sec[sec[pl.TS_GRP_ROW]:]
+        # each gate's rows, as gate_word walks them
+        gate_rows = sum(int(is_gate[grp_row[grp_ptr[g]:grp_ptr[g + 1]]].sum())
+                        for g in gate_grp)
+        n_axg = int(sec[pl.TS_AXG_ROW] - sec[pl.TS_AXG_PTR]) - 1
+        entries = (int(arr(pl.TS_PAT_PTR, R + 1)[-1])
+                   + int(arr(pl.TS_AUXP_PTR, R + 1)[-1])
+                   + int(arr(pl.TS_AXG_PTR, n_axg + 1)[-1]))
+        per_res += ((C + gate_rows) * E * OPS_CHECK_SLOT + X * OPS_AUX_ROW)
+        per_word += entries * OPS_ENTRY + R * (
+            OPS_RULE + (OPS_COUNT if form == "counts" else 0))
+    words = -(-B // 32)
+    return (B * per_res + words * per_word
+            + (0 if form == "scan" else B * plan.R * OPS_BYTE))
+
+
+def rules_bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations"): the larger of the two terms."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
+    return (by_ops, "operations") if by_ops > by_bytes else (by_bytes, "bytes")
+
+
 def eval_rules_bytes(st) -> int:
     """The bytes eval_rules' matrix form must move on a Stages blob: the
     cells, bmeta, the dictionary rows, the glob matrix and the plan read
@@ -4325,7 +4397,7 @@ def autogen_phase(n: int = AUTOGEN_RESOURCES) -> dict:
     counts, seen = st.compare("autogen")
     m_k = st.k1()
     v = st.rules(m_k)
-    tb, smem = st.launch()
+    geo = st.launch()
     device_v = v.cpu().numpy()[:, :full.tensors.n_rules_live]
     live = device_v != Verdict.HOST
     check(np.array_equal(device_v[live], got[live]),
@@ -4335,19 +4407,20 @@ def autogen_phase(n: int = AUTOGEN_RESOURCES) -> dict:
     back_ms = device_ms(lambda: st.rules(m_k))
     plain_ms = cuda_ms(lambda: st.rules(m_k, plain=True), 10)
     nbytes = eval_rules_bytes(st)
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = eval_rules_ops(full.plan, st.B, st.E)
+    bound_ms, bound_by = rules_bound(nbytes, ops)
     tiles = [tuple(int(x) for x in t) for t in full.plan.tiles]
     log(f"[autogen] the full plan: R={full.plan.R} in {full.plan.n_tiles} rule "
         f"tiles {tiles}, {full.plan.buf.numel() * 4} plan bytes; shapes "
-        f"{st.shape}; eval_rules at {tb} resources and {smem} bytes a block; "
+        f"{st.shape}; eval_rules at {geometry(geo)}; "
         f"every kernel equal to its plain version {counts}; scan counts "
         f"{seen}; {int((~live).sum())} HOST cells on the card "
         f"({int((~live).sum()) / n:.3f} a resource)")
     log(f"[autogen] eval_rules at B={n} on this plan: {ms:.4f} ms a call "
         f"between CUDA events, {back_ms:.4f} ms on the card back to back "
-        f"(plain {plain_ms:.4f} ms); bound {bound_ms:.5f} ms by bytes "
-        f"({nbytes} bytes), {100 * bound_ms / back_ms:.2f}% of it back to "
-        f"back; {smi}")
+        f"(plain {plain_ms:.4f} ms); bound {bound_ms:.5f} ms by {bound_by} "
+        f"({nbytes} bytes, {ops} integer operations), "
+        f"{100 * bound_ms / back_ms:.2f}% of it back to back; {smi}")
     del st, m_k, v
     torch.cuda.synchronize()
 
@@ -4469,7 +4542,8 @@ def autogen_phase(n: int = AUTOGEN_RESOURCES) -> dict:
     return {"launches": launches, "burst_launches": burst_launches,
             "eval_rules": {"ms": ms, "device_ms": back_ms,
                            "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bytes": nbytes,
+                           "bound_by": bound_by, "bytes": nbytes,
+                           "operations": ops, "geometry": list(geo),
                            "tiles": full.plan.n_tiles},
             "first_s": first_s, "memo_s": memo_s, "compile_s": compile_s}
 
@@ -5099,15 +5173,19 @@ def analysis_phase(cases: int = ANALYSIS_FUZZ_CASES) -> dict:
 # ---------------------------------------------------------------------
 # The fleet plane and the workload plane: [fleet], [workload], [chaos]
 
-# cut from 1,024 events for the script's time limit: each leg's wall
-# is its events over 30-75 events a second
-FLEET_EVENTS = 512
+# cut from 1,024 events, then from 512, for the script's time limit: its
+# host-bound phases run 15-40% slower on some H100 hosts (a whole run of
+# 1,280.6 s), and each leg's wall is its events over 13-75 events a
+# second
+FLEET_EVENTS = 256
 FLEET_REPLICAS = 3
 FLEET_PARTITIONS = 8
 FLEET_SEED = 20261018
 WORKLOAD_EVENTS = 256
-CORPUS_EVENTS = 13_000
-CORPUS_MIN = 10_000
+# the dry-run's corpus, cut from 13,000 events and 10,000 live resources
+# for the same limit: its replay took 72.3-97.6 s
+CORPUS_EVENTS = 6_500
+CORPUS_MIN = 5_000
 CHAOS_EVENTS = 24
 
 
@@ -6151,10 +6229,10 @@ def main() -> int:
     n_big = 500 if args.quick else 2000
     big_stages = Stages(big, [mixed_resource(i) for i in range(n_big)])
     counts, scan_seen["library-1000"] = big_stages.compare("library-1000")
-    tb, smem = big_stages.launch()
+    geo = big_stages.launch()
     log(f"[kernels] library 1000 x {n_big}: {big.plan.n_tiles} rule tiles "
         f"{big.plan.tiles}, {big.plan.buf.numel() * 4} plan bytes, "
-        f"{tb} resources and {smem} bytes a block; equal {counts}")
+        f"{geometry(geo)}; equal {counts}")
     wide = CompiledPolicySet([load_policy(d) for d in wide_policy_docs()])
     wrng = np.random.default_rng(3)
     n_wide = 200 if args.quick else 1000
@@ -6162,12 +6240,12 @@ def main() -> int:
                             for i in range(n_wide)])
     check(wide_st.E == 16 and wide_st.P > 300, f"wide batch {wide_st.shape}")
     counts, scan_seen["wide"] = wide_st.compare("wide")
-    tb, smem = wide_st.launch()
-    check(tb < 8, f"the wide corpus ran at {tb} resources a block")
+    geo = wide_st.launch()
+    check(geo[0] < 8, f"the wide corpus ran at {geo[0]} resources a group")
     log(f"[kernels] wide corpus x {n_wide}: P={wide_st.P} E={wide_st.E}, "
         f"{wide.plan.n_tiles} rule tiles {wide.plan.tiles}, at most "
-        f"{int(wide.plan.tile_table[:, TT_NPATH].max())} paths a tile; {tb} "
-        f"resources and {smem} bytes a block; equal {counts}")
+        f"{int(wide.plan.tile_table[:, TT_NPATH].max())} paths a tile; "
+        f"{geometry(geo)}; equal {counts}")
     # K5 and the scan form have each count to make and each HOST row to
     # drop on the card: some corpus has FAIL and PASS cells outside HOST
     # rows, and FAIL or PASS cells inside them
@@ -6409,10 +6487,17 @@ def main() -> int:
                 "scan_counts": lambda: s_.k5(masks_),
                 "scan_blob": lambda: s_.scan()}
 
+    def ops_for(s_):
+        """The integer operations of eval_rules' forms (eval_rules_ops);
+        K1, K5 and scan_blob are held to their bytes."""
+        return {"eval_rules": eval_rules_ops(plan, s_.B, s_.E),
+                "eval_rules_scan": eval_rules_ops(plan, s_.B, s_.E, "scan")}
+
     m = st.k1()
     v = st.rules(m)
     masks = st.scan_form(m)
     bytes_of = bytes_for(st)
+    ops_of = ops_for(st)
     calls = calls_for(st, m, masks)
     plains = {"glob_nfa": lambda: st.k1(plain=True),
               "eval_rules": lambda: st.rules(m, plain=True),
@@ -6432,7 +6517,7 @@ def main() -> int:
         ms = cuda_ms(calls[name], 50)
         dev_only_ms = device_ms(calls[name])
         plain_ms = cuda_ms(plains[name], 20)
-        bound_ms = bytes_of[name] / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = rules_bound(bytes_of[name], ops_of.get(name, 0))
         rows[name] = {"name": name, "route": "cuda", "launches": launches.get(name),
                       "evaluate_launches": eval_launches.get(name),
                       "pipelined_launches": pipe_launches.get(name),
@@ -6459,21 +6544,23 @@ def main() -> int:
                           "dryrun": workload["dry_launches"].get(name)},
                       "chaos_launches": chaos["launches"].get(name),
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": "bytes",
+                      "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": None, "bytes": bytes_of[name],
+                      "operations": ops_of.get(name),
                       "device_ms": dev_only_ms}
         log(f"[times] {name} at B={B}: {ms:.4f} ms a call between events, "
             f"{dev_only_ms:.4f} ms on the card back to back (plain "
-            f"{plain_ms:.4f} ms); bound {bound_ms:.5f} ms by bytes "
-            f"({bytes_of[name]} bytes); {100 * bound_ms / dev_only_ms:.2f}% of "
-            f"the bound back to back; {smi}")
+            f"{plain_ms:.4f} ms); bound {bound_ms:.5f} ms by {bound_by} "
+            f"({bytes_of[name]} bytes, {ops_of.get(name, 0)} integer "
+            f"operations); {100 * bound_ms / dev_only_ms:.2f}% of the bound "
+            f"back to back; {smi}")
     log(f"[times] glob_nfa's kernel reads {table_bytes} bytes of plan-built "
         f"tables for its {N} patterns, which its bound leaves out: the "
         f"function's input is the {nfa_bytes} bytes of NFA rows")
     st.rules(m)
-    tb, smem = st.launch()
+    geo = st.launch()
     log(f"[times] eval_rules at B={B}: {plan.n_tiles} rule tile(s), "
-        f"{tb} resources and {smem} bytes a block")
+        f"{geometry(geo)}")
     dev_ms = cuda_ms(lambda: ev.evaluate_blob(plan, st.blob, *st.shape), 50)
     dev_back = device_ms(lambda: ev.evaluate_blob(plan, st.blob, *st.shape))
     e2e = []
@@ -6494,9 +6581,9 @@ def main() -> int:
     for words in (4096, 8192):
         pw = Plan(cps.tensors, cps.device, tile_words=words)
         same(f"eval_rules tile_words={words}", st.rules(m, plan=pw), v)
-        tb, _ = (int(x) for x in ev.LAST_LAUNCH)
-        sweep.append(f"tile_words={words} ({pw.n_tiles} tiles, {tb} resources "
-                     f"a block): {device_ms(lambda: st.rules(m, plan=pw)):.4f} ms")
+        gs = int(ev.LAST_LAUNCH[0])
+        sweep.append(f"tile_words={words} ({pw.n_tiles} tiles, {gs} resources "
+                     f"a group): {device_ms(lambda: st.rules(m, plan=pw)):.4f} ms")
     log(f"[times] eval_rules at B={B}, on the card back to back, equal at "
         f"each: " + "; ".join(sweep))
     del st, m, v, masks, calls, plains
@@ -6507,7 +6594,7 @@ def main() -> int:
     flat100_s = time.perf_counter() - t0
     m100 = st100.k1()
     v100 = st100.rules(m100)
-    tb100, smem100 = st100.launch()
+    geo100 = st100.launch()
     same("eval_rules B=100000", v100, st100.rules(m100, plain=True))
     masks100 = st100.scan_form(m100)
     same("eval_rules scan form B=100000", masks100,
@@ -6534,22 +6621,26 @@ def main() -> int:
         f"{peak} bytes allocated at its peak, against {st100.B * R} for the "
         f"[B, R] matrix")
     bytes100 = bytes_for(st100)
+    ops100 = ops_for(st100)
     calls100 = calls_for(st100, m100, masks100)
     for name in list(MAIN_KERNELS) + ["scan_blob"]:
         ms100 = cuda_ms(calls100[name], 30)
         dev100 = device_ms(calls100[name], 30)
-        bound100 = bytes100[name] / HBM_BYTES_PER_S * 1e3
+        bound100, by100 = rules_bound(bytes100[name], ops100.get(name, 0))
         rows[name]["at_100k"] = {"ms": ms100, "device_ms": dev100,
-                                 "bound_ms": bound100, "bytes": bytes100[name]}
+                                 "bound_ms": bound100, "bound_by": by100,
+                                 "bytes": bytes100[name],
+                                 "operations": ops100.get(name)}
         log(f"[times] {name} at B={st100.B} (V={st100.V}): {ms100:.4f} ms a "
             f"call between events, {dev100:.4f} ms on the card back to back; "
-            f"bound {bound100:.5f} ms by bytes ({bytes100[name]} bytes); "
+            f"bound {bound100:.5f} ms by {by100} ({bytes100[name]} bytes, "
+            f"{ops100.get(name, 0)} integer operations); "
             f"{100 * bound100 / dev100:.2f}% of the bound back to back; {smi}")
     st100.scan_form(m100)
-    tb_s, smem_s = st100.launch()
+    geo_s = st100.launch()
     log(f"[times] at B={st100.B}: making, flattening and copying the resources "
-        f"{flat100_s:.3f} s; eval_rules {tb100} resources and {smem100} bytes a "
-        f"block, its scan form {tb_s} and {smem_s}")
+        f"{flat100_s:.3f} s; eval_rules at {geometry(geo100)}; its scan form "
+        f"at {geometry(geo_s)}")
     # K7's counts form at the mesh scan's chunk and at 10k
     rows["eval_rules"]["autogen_670"] = autogen["eval_rules"]
     rows["eval_rules_counts"] = {

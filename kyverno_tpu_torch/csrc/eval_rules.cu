@@ -9,72 +9,83 @@
 // of eval.py:905 _split_blob and models/flatten.py:280 unpack_batch
 // (xp=jnp), which XLA fused into them.
 //
-// Bound on the H100: bytes. The function reads the blob's cells and bmeta,
-// the 20-byte dictionary rows, the [N, V] glob matrix and the plan once
-// each, and writes one byte per (b, r). Per (b, check row) and per
-// (b, aux row) it needs a few dozen integer operations, far under the
-// card's integer rate. What held the earlier form (gate, checks and aux
-// launches, then a verdict launch) at 1-2% of that bound was not bandwidth
-// but redundant decode, scattered plan reads, chains of dependent loads
-// and intermediates in device memory. This design answers each:
+// Bound on the H100: the larger of two terms (chip_smoke.py
+// eval_rules_bytes, eval_rules_ops). Bytes: the blob's cells and bmeta,
+// the 20-byte dictionary rows, the [N, V] glob matrix and the plan read
+// once, one byte per (b, r) written. Integer operations: a few dozen per
+// (resource, distinct check row, slot) and per (resource, distinct aux
+// row), a few per (32 resources, list entry) and per (resource, rule).
+// On the 250-policy library bytes bound it; on the autogen'd 670-column
+// plan, operations. Timed by phase (clock64 on a scratch copy, PERF.md
+// §6), the design before this one spent 62-72% of a block's cycles on
+// check rows, staged its tile's section once per 16-32 resources, and
+// walked each rule once per 16-32 resources with one thread, whose
+// host-only rules looped over the resources serially. This design:
 //
-//  - Redundant decode: every (b, path, e) slot the tile reads is decoded
-//    once per block (cells, the dictionary row, the derived lanes) into
-//    shared memory, structure of arrays with the resource fastest. Check
-//    and aux rows read slots from there, not from the blob and the
-//    dictionary once per check.
-//  - Scattered plan reads: the grid is (resource tiles of TB resources) x
-//    (rule tiles of the plan). One thread starts a bulk copy
-//    (cp.async.bulk, completion counted on an mbarrier) of the block's
-//    rule-tile section into shared memory while the others decode slots.
-//    Items are numbered with the resource fastest, so TB lanes take one
-//    plan row for TB resources: a plan read is a shared-memory broadcast,
-//    and the control flow follows the row (the value test is computed
-//    for the row's operator alone, and what a row does not use is
-//    skipped), the same in every lane of the row.
-//  - Dependent loads: the plan flattens each rule's rule -> alternatives
-//    -> groups -> rows and rule -> filters -> aux groups nests into one
-//    list of entries each, with end-of-group / -alternative / -filter
-//    bits, so a verdict is two flat walks over shared memory instead of
-//    six nested ones.
-//  - Intermediates, and one walk per resource: the warp's ballots turn
-//    each row's flags into masks over the block's resources (bit bi is
-//    resource bi; TB <= 32). The verdict phase walks each rule once for
-//    all of them, with the OR / AND of the TPU program as mask operations
-//    and the verdict as three bit-planes of its code. Gate words, flag
-//    masks, condition-word planes and verdict planes live in shared
-//    memory between __syncthreads; only the verdicts leave, as one
-//    coalesced write of [TB, rules] bytes.
+//  - Distinct rows: ops/plan.py keeps each distinct check and aux row of
+//    a tile once and every list names it (the library's 248 check rows
+//    are 6 distinct ones, its 248 aux rows 3), so a group evaluates each
+//    once.
+//  - A block stages its tile's section in shared memory once (one
+//    thread's cp.async.bulk, completion counted on an mbarrier, while the
+//    block decodes its first group) and walks the groups blockIdx.x,
+//    blockIdx.x + gridDim.x, ... The blocks are persistent, as many as
+//    the SMs hold at once, where the plan is one tile; with several tiles
+//    a block takes one group and tile, and the card's block scheduler
+//    balances tiles whose work differs. The grid is fixed at launch and
+//    nothing counts work across blocks, so a CUDA graph (K6) replays it
+//    as it is.
+//  - Groups of up to 128 resources: a mask is K = 1, 2 or 4 words of 32
+//    resources. Phases 2-3 take (row, word) tasks, TB lanes a task (TB =
+//    32 where K > 1), so a warp's lanes run one row (its operator's value
+//    test alone, what the row does not use skipped) and its ballots give
+//    the word's masks. Phase 4 walks each rule once for all K words
+//    (Mask<K>): the walk's loads and branches serve up to 128 resources.
+//  - Decode once a group: every (path, e, resource) slot the tile reads
+//    is decoded into shared memory, structure of arrays with the
+//    resource fastest; rows read slots from there, not the blob.
+//  - Flat lists: the plan flattens each rule's rule -> alternatives ->
+//    groups -> rows and rule -> filters -> aux groups nests into one list
+//    of entries each, with end-of-group / -alternative / -filter bits, so
+//    a verdict is two flat walks over shared memory.
+//  - Host-only rules' kind prefilter in parallel: a warp takes 32 rules
+//    at a time and each host-only one among them for all the group's
+//    resources, a resource a lane, one ballot a word.
+//  - The verdict leaves from registers: the rule's thread writes its
+//    column of the group from its three planes, and a warp's stores are
+//    one resource's 32 consecutive rules.
 //
-// Phases of a block, in order:
-//   1. stage the section (async) and decode the slots and bmeta words
-//   2. gates: one E-bit word per (gate, b), open where the element's gate
-//      rows pass (eval.py:360-389)
-//   3. check rows and aux rows: flags per (row, b), gathered into masks
-//      per row; a condition row also gives three E-bit words per b, kept
-//      as one mask per (word, element) (eval.py:390-463, 535-547, 571-761)
+// Phases of a group, a barrier after each of the first three:
+//   1. decode the slots and bmeta (and, the first time, wait for the
+//      section)
+//   2. gates: one E-bit word per (gate, resource), open where the
+//      element's gate rows pass (eval.py:360-389)
+//   3. check rows and aux rows: flags per (row, resource), gathered into
+//      masks; a condition row also gives three E-bit words a resource,
+//      kept as one mask per (word, element) (eval.py:390-463, 535-547,
+//      571-761); the host-only rules' kind masks; the group's HOST and
+//      live words
 //   4. verdicts: one thread per rule walks its two entry lists from the
 //      identities of the empty OR / AND (a rule without alternatives keeps
-//      the INT_MIN of its segment_max, which stage 6 always overwrites)
-//      and composes stage 6 in the TPU program's order
-//   5. the verdict bytes, from the planes, one resource's row per warp
+//      the INT_MIN of its segment_max, which stage 6 always overwrites),
+//      composes stage 6 in the TPU program's order, and writes its output
 //
-// The scan form (rules_kernel<true>, entry ktpu_eval_rules_scan) replaces
-// the verdicts of build_scan_fn_blob's program (eval.py:962-966), whose
-// reduction XLA fused after them so that the matrix never left the chip.
-// Phases 1-4 are the same; phase 4 writes, from each rule's planes in
-// registers, bit masks instead of verdict bytes, and phase 5 goes:
+// The scan form (rules_kernel<true, K>, entry ktpu_eval_rules_scan)
+// replaces the verdicts of build_scan_fn_blob's program (eval.py:962-966),
+// whose reduction XLA fused after them so that the matrix never left the
+// chip. Phases 1-3 are the same; phase 4 writes, from each rule's planes
+// in registers, bit masks instead of verdict bytes:
 //   fail_m[g, r] (code 2: p1 & ~p0 & ~p2) and pass_m[g, r] (code 1:
 //   p0 & ~p1 & ~p2), uint32 [G, R], rule fastest so that the stores of a
 //   warp's rules coalesce; host_m[t, g] (code 5: p0 & ~p1 & p2), uint32
 //   [n_tiles, G], the OR over rule tile t's rules. G = ceil(B / 32): word
-//   g holds resources 32g .. 32g+31 at bit b % 32, whatever TB the launch
-//   chose, and each mask is cut to the block's nb live resources.
-// A block of TB >= 8 resources owns whole bytes of its word and stores
-// them (the last block of the grid also stores the zero bytes after the
-// batch's end); below 8, blocks share a byte, so the entry zeroes the
-// masks with one memset and blocks atomicOr their bits in. K5
-// (scan_counts.cu) reduces the masks to the counts.
+//   g holds resources 32g .. 32g+31 at bit b % 32, whatever group size the
+//   launch chose, and each mask is cut to the group's nb live resources.
+// A group of 32 or more resources owns whole words and stores them; of 8
+// or 16, whole bytes (the last group of the batch also stores the zero
+// bytes after the batch's end); below 8, groups share a byte, so the
+// entry zeroes the masks with one memset and blocks atomicOr their bits
+// in. K5 (scan_counts.cu) reduces the masks to the counts.
 //
 // The counts form (the matrix form with a counts buffer, entry
 // ktpu_eval_rules_counts) is K7's program, the mesh scan's: it writes the
@@ -85,26 +96,26 @@
 // and of shard_eval_fns' programs (mesh.py:247-248), jnp.sum(verdict ==
 // V_FAIL, axis=0) and the same for V_PASS, which XLA fused behind the
 // verdict program. In phase 4 the thread that owns a rule counts its
-// block's FAIL (code 2) and PASS (code 1) bits, cut to the nb live
-// resources (the planes hold bits past nb, which phase 5 never writes
-// out), and adds each nonzero count to the output with one integer
-// atomicAdd a (block, rule), exact in any order. The counts cost no
-// second read of the [B, live] matrix and no launch; padded rows read
+// group's FAIL (code 2) and PASS (code 1) bits, cut to the nb live
+// resources, and adds each nonzero count to the output with one integer
+// atomicAdd a (group, rule), exact in any order. The counts cost no second
+// read of the [B, live] matrix and no launch; padded rows read
 // NOT_APPLICABLE and count as nothing, as in the JAX sum. The entry zeroes
 // the [2, live] counts with one memset before the launch.
-// TB (resources per block, a power of two up to 32, the bits of a mask) is
-// chosen at launch: the largest of 32, 16 and 8 whose grid fills the card
-// one and a half times over, within the shared memory a block may take.
-// Each block lays out its shared memory for its own tile (layout() in
-// plan.cuh: the section, the slots, the flags, the verdict planes), and
-// the launch asks for the largest tile's. ops/plan.py cuts the tiles so
-// that each fits at 8 resources a block with the flattener's 16 slots a
-// path, and at one resource with 32; a larger E takes smaller blocks.
-// The launch bound holds a thread to 80 registers, so that three blocks
-// of 256 threads share an SM where their shared memory allows: with its
-// offsets read from the tile table at run time, the kernel would take 96
-// and fit two.
+//
+// The group size is chosen at launch (choose_gs): 128 or 64 where the
+// batch's groups fill the card's resident blocks, else 32, 16 or 8 where
+// they give every SM a block, else 8, and smaller only where 8 does not
+// fit (an E above the flattener's 16). Each block lays out its shared
+// memory for its own tile (layout() in plan.cuh: the section, the slots,
+// the flags, the kind masks), and the launch asks for the largest tile's.
+// ops/plan.py cuts the tiles so that each fits at 8 resources with the
+// flattener's 16 slots a path, and at one resource with 32. The launch
+// bound holds the one-word instances to 80 registers, so that three blocks
+// of 256 threads share an SM where their shared memory allows; the K = 2
+// and 4 instances take up to 128 and two blocks an SM.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -116,7 +127,7 @@ using namespace ktpu;
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxTB = 32;    // a block's resources are the bits of a mask
+constexpr int kMaxTB = 32;    // a mask word's resources: the lanes of a task
 // A bulk copy that has not landed after this long traps the kernel (a
 // launch error) instead of hanging the card.
 constexpr unsigned long long kStageTimeoutNs = 2000000000ull;
@@ -142,13 +153,14 @@ struct Row {
   __device__ int operator[](int col) const { return p[col * stride]; }
 };
 
-// The block's decoded slots: lane k of (local path lp, element e,
-// resource bi) at lanes[k * n + (lp * E + e) * TB + bi]. A row reads the
-// lanes it needs: mask, type, element and string id and the bits always,
-// the numbers and durations only where its operator compares them.
+// The group's decoded slots: lane k of (local path lp, element e,
+// resource bi of the group) at lanes[k * n + (lp * E + e) * GS + bi]. A
+// row reads the lanes it needs: mask, type, element and string id and the
+// bits always, the numbers and durations only where its operator compares
+// them.
 struct Slots {
   uint32_t* lanes;
-  int n, E, TB;
+  int n, E, GS;
 
   __device__ void put(int i, const Slot& s) const {
     lanes[L_META * n + i] = (uint32_t)s.mask | ((uint32_t)s.type << 16) |
@@ -167,7 +179,7 @@ struct Slots {
   }
 
   __device__ int at(int lp, int e, int bi) const {
-    return (lp * E + e) * TB + bi;
+    return (lp * E + e) * GS + bi;
   }
   __device__ int lane(int k, int i) const { return (int)lanes[k * n + i]; }
 };
@@ -274,7 +286,7 @@ __device__ inline SlotCore slot_core(const Slots& sl, int i) {
 
 // ---- stage 2 for one (check row, slot): eval.py:239-358. The value test
 // is computed for the row's operator alone; the operator is the same in
-// every lane of a warp when a block takes 32 or more resources.
+// every lane of a warp when a group takes 32 or more resources.
 
 struct SlotEval {
   bool leaf_present, value_ok, slot_ok, guard_pass;
@@ -411,7 +423,7 @@ __device__ inline uint32_t gate_word(const Sec& S, int gate, int bi,
 // skipped by a branch on the row, the same in every lane of its group.
 constexpr uint32_t kCondRow = 16;   // beside the CF_ bits: a condition row
 
-__device__ inline uint32_t check_row(const Sec& S, int c, int bi, int TB,
+__device__ inline uint32_t check_row(const Sec& S, int c, int bi, int GS,
                                      const Slots& sl, int V,
                                      const uint8_t* __restrict__ match_nv,
                                      const uint32_t* sgate, uint32_t* words) {
@@ -430,7 +442,7 @@ __device__ inline uint32_t check_row(const Sec& S, int c, int bi, int TB,
   const int tr_lo = max(track - 1, 0);
   const int tr_hi = max(track, 0);
   const int cond_bit = is_cond ? 1 << max(ck[CK_COND_DEPTH], 0) : 0;
-  const uint32_t gword = gate >= 0 ? sgate[gate * TB + bi] : 0u;
+  const uint32_t gword = gate >= 0 ? sgate[gate * GS + bi] : 0u;
 
   bool and_ok = true, or_ok = false, exist_all = true, valid_any = false;
   bool tr_reg = false, tr_pres = false, key_absent = false, brk = false;
@@ -626,34 +638,96 @@ __device__ inline uint8_t aux_row(const Sec& S, int x, int bi, uint32_t bmeta,
                    (errx ? XF_ERR : 0));
 }
 
-// ---- phase 4: the verdicts of rule r for every resource of the block,
-// stages 4-6 (eval.py:465-863), as bit-slices: bit bi of a mask is
-// resource bi, and the verdict is three bit-planes of its code.
+// ---- phase 4: the verdicts of rule r for every resource of the group,
+// stages 4-6 (eval.py:465-863), as bit-slices: bit i of word w of a mask
+// is resource 32 w + i of the group, and the verdict is three bit-planes
+// of its code. One walk of a rule's entry lists serves all K words.
 
-// The block's flags in shared memory: per check row the masks of CF_OK,
-// CF_MISSING, CF_UNC and CF_STRUCT; per aux row those of XF_ROW, XF_UNC
-// and XF_ERR; per condition slot, j (ok, key present, chain) and element
-// e, the mask of bit e of word j.
-struct Flags {
-  const uint32_t *chk, *aux, *cond;
-  int E;
-  __device__ uint32_t c(int row, int k) const { return chk[row * 4 + k]; }
-  __device__ uint32_t x(int row, int k) const { return aux[row * 3 + k]; }
-  __device__ uint32_t w(int slot, int j, int e) const {
-    return cond[(slot * 3 + j) * E + e];
+// A mask over a group: K words of 32 resources.
+template <int K>
+struct Mask {
+  uint32_t w[K];
+  __device__ static Mask fill(uint32_t v) {
+    Mask m;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m.w[k] = v;
+    return m;
+  }
+  __device__ Mask operator~() const {
+    Mask m;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m.w[k] = ~w[k];
+    return m;
+  }
+  __device__ Mask operator&(const Mask& o) const {
+    Mask m;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m.w[k] = w[k] & o.w[k];
+    return m;
+  }
+  __device__ Mask operator|(const Mask& o) const {
+    Mask m;
+#pragma unroll
+    for (int k = 0; k < K; ++k) m.w[k] = w[k] | o.w[k];
+    return m;
+  }
+  __device__ Mask& operator|=(const Mask& o) { return *this = *this | o; }
+  __device__ bool any() const {
+    uint32_t a = 0;
+#pragma unroll
+    for (int k = 0; k < K; ++k) a |= w[k];
+    return a != 0;
   }
 };
 
+// K consecutive words of shared memory, 4 K-byte aligned: one vector load
+template <int K>
+__device__ inline Mask<K> load_mask(const uint32_t* p) {
+  Mask<K> m;
+  if constexpr (K == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    m.w[0] = v.x; m.w[1] = v.y; m.w[2] = v.z; m.w[3] = v.w;
+  } else if constexpr (K == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    m.w[0] = v.x; m.w[1] = v.y;
+  } else {
+    m.w[0] = p[0];
+  }
+  return m;
+}
+
+// The group's flags in shared memory: per check row the masks of CF_OK,
+// CF_MISSING, CF_UNC and CF_STRUCT; per aux row those of XF_ROW, XF_UNC
+// and XF_ERR; per condition slot, j (ok, key present, chain) and element
+// e, the mask of bit e of word j. Each mask is K words.
+template <int K>
+struct Flags {
+  const uint32_t *chk, *aux, *cond;
+  int E;
+  __device__ Mask<K> c(int row, int k) const {
+    return load_mask<K>(chk + (row * SM_CHECK_MASKS + k) * K);
+  }
+  __device__ Mask<K> x(int row, int k) const {
+    return load_mask<K>(aux + (row * SM_AUX_MASKS + k) * K);
+  }
+  __device__ Mask<K> w(int slot, int j, int e) const {
+    return load_mask<K>(cond + ((slot * SM_COND_WORDS + j) * E + e) * K);
+  }
+};
+
+template <int K>
 struct Planes {
-  uint32_t p0 = 0, p1 = 0, p2 = 0;
+  Mask<K> p0 = Mask<K>::fill(0), p1 = Mask<K>::fill(0),
+          p2 = Mask<K>::fill(0);
   // resources in m take verdict code v
-  __device__ void set(uint32_t m, int v) {
-    p0 = (p0 & ~m) | ((v & 1) ? m : 0u);
-    p1 = (p1 & ~m) | ((v & 2) ? m : 0u);
-    p2 = (p2 & ~m) | ((v & 4) ? m : 0u);
+  __device__ void set(const Mask<K>& m, int v) {
+    const Mask<K> keep = ~m, none = Mask<K>::fill(0);
+    p0 = (p0 & keep) | ((v & 1) ? m : none);
+    p1 = (p1 & keep) | ((v & 2) ? m : none);
+    p2 = (p2 & keep) | ((v & 4) ? m : none);
   }
   // the resources whose verdict is v
-  __device__ uint32_t is(int v) const {
+  __device__ Mask<K> is(int v) const {
     return ((v & 1) ? p0 : ~p0) & ((v & 2) ? p1 : ~p1) & ((v & 4) ? p2 : ~p2);
   }
 };
@@ -661,10 +735,11 @@ struct Planes {
 // The condition groups of an alternative: for each element, the OR over
 // the group's condition rows of each word; a key present where the check
 // failed skips the alternative, any chain failure fails it.
-__device__ inline void cond_group(const Sec& S, const Flags& F, int j0, int j1,
-                                  uint32_t& skip, uint32_t& chain) {
+template <int K>
+__device__ inline void cond_group(const Sec& S, const Flags<K>& F, int j0,
+                                  int j1, Mask<K>& skip, Mask<K>& chain) {
   for (int e = 0; e < F.E; ++e) {
-    uint32_t ok = 0, kp = 0, ch = 0;
+    Mask<K> ok = Mask<K>::fill(0), kp = ok, ch = ok;
     for (int j = j0; j < j1; ++j) {
       const int ent = S.pat[j];
       if (!(ent & PE_COND)) continue;
@@ -678,24 +753,27 @@ __device__ inline void cond_group(const Sec& S, const Flags& F, int j0, int j1,
   }
 }
 
-__device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
-                                        bool has_checks, bool has_aux,
-                                        int kmax, int nb, const uint32_t* sbm,
-                                        uint32_t host_m, uint32_t live_m) {
-  const uint32_t ALL = 0xFFFFFFFFu;
+// rkind: per host-only rule, the mask of the group's resources whose kind
+// its prefilter names (phase 3)
+template <int K>
+__device__ inline Planes<K> verdict_planes(
+    const Sec& S, int r, const Flags<K>& F, bool has_checks, bool has_aux,
+    const uint32_t* rkind, const Mask<K>& host_m, const Mask<K>& live_m) {
+  using M = Mask<K>;
+  const M ALL = M::fill(0xFFFFFFFFu), NONE = M::fill(0);
   const int rflags = S.rule_flags[r];
   const bool covered = rflags & RF_COVERED;
   const bool host = rflags & RF_HOST;
   const bool deny = rflags & RF_DENY;
-  Planes v;
+  Planes<K> v;
 
   // ---- stage 4: pattern verdict. A rule has one alternative (whose
   // verdict it takes) or several (it passes where one passes). A rule
   // without alternatives keeps the INT_MIN of its segment_max, which
   // stage 6 overwrites whatever the rule's flags.
   if (has_checks) {
-    uint32_t unc = 0, st = 0, pass = 0;
-    uint32_t alt_bad = 0, skip = 0, chain = 0, miss = 0, g_or = 0;
+    M unc = NONE, st = NONE, pass = NONE;
+    M alt_bad = NONE, skip = NONE, chain = NONE, miss = NONE, g_or = NONE;
     bool has_plain = false, has_cond = false, multi = false;
     int g0 = S.pat_ptr[r];
 #pragma unroll 1
@@ -714,7 +792,7 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
         if (ent & PE_GROUP_END) {
           if (has_plain) alt_bad |= ~g_or;
           if (has_cond) cond_group(S, F, g0, j + 1, skip, chain);
-          g_or = 0;
+          g_or = NONE;
           has_plain = has_cond = false;
           g0 = j + 1;
         }
@@ -722,7 +800,7 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
         g0 = j + 1;
       }
       if (ent & PE_ALT_END) {
-        const uint32_t ok = ~(alt_bad | chain);
+        const M ok = ~(alt_bad | chain);
         if (ent & PE_MULTI) {
           multi = true;
           pass |= ~skip & ok;
@@ -733,7 +811,7 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
           v.set(skip, V_SKIP);
           v.set(skip & ~ok, V_HOST);           // ambiguous
         }
-        alt_bad = skip = chain = miss = 0;
+        alt_bad = skip = chain = miss = NONE;
       }
     }
     if (multi) {
@@ -749,31 +827,31 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
   // ---- stage 5: aux programs. A group's value is its rows' OR, XOR its
   // negate bit (eval.py:765-767); filters AND their groups. Every OR
   // starts empty and every AND full: the *_n masks hold negated ANDs.
-  uint32_t applicable = ALL, precond_ok = ALL, deny_match = 0;
-  uint32_t deny_err = 0, match_unc = 0, cond_unc = 0;
+  M applicable = ALL, precond_ok = ALL, deny_match = NONE;
+  M deny_err = NONE, match_unc = NONE, cond_unc = NONE;
   if (has_aux) {
     const int32_t* is_mk = S.aux + AX_IS_MK * S.X;
-    uint32_t m_or = 0, m_n = 0, e_or = 0, e_n = 0, f_n = 0;
-    uint32_t pre_n = 0, pre_any = 0, den_n = 0, den_any = 0;
+    M m_or = NONE, m_n = NONE, e_or = NONE, e_n = NONE, f_n = NONE;
+    M pre_n = NONE, pre_any = NONE, den_n = NONE, den_any = NONE;
 #pragma unroll 1
     for (int j = S.auxp_ptr[r]; j < S.auxp_ptr[r + 1]; ++j) {
       const int ent = S.auxp[j];
       if (!(ent & AE_NOGROUP)) {
         const int g = ent >> AE_SHIFT;
-        uint32_t any = 0;
+        M any = NONE;
 #pragma unroll 1
         for (int i = S.axg_ptr[g]; i < S.axg_ptr[g + 1]; ++i) {
           const int row = S.axg_row[i];
           any |= F.x(row, 0);
-          const uint32_t u = F.x(row, 1);
-          if (u) {
+          const M u = F.x(row, 1);
+          if (u.any()) {
             if (is_mk[row]) match_unc |= u;
             else cond_unc |= u;
           }
           deny_err |= F.x(row, 2);
         }
         const int info = S.axg_info[g];
-        const uint32_t gv = (info & AG_NEGATE) ? ~any : any;
+        const M gv = (info & AG_NEGATE) ? ~any : any;
         const int klass = info >> AG_KLASS_SHIFT;
         if (klass == AUX_PRECOND) {
           if (info & AG_ANY) pre_any |= gv; else pre_n |= ~gv;
@@ -790,16 +868,16 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
           m_or |= ~f_n;
           m_n |= f_n;
         }
-        f_n = 0;
+        f_n = NONE;
       }
     }
-    const uint32_t match_ok = ((rflags & RF_MATCH_ANY) ? m_or : ~m_n) |
-                              ((rflags & RF_HAS_MATCH) ? 0u : ALL);
-    const uint32_t exclude_hit = ((rflags & RF_EXCLUDE_ALL) ? ~e_n : e_or) &
-                                 ((rflags & RF_HAS_EXCLUDE) ? ALL : 0u);
+    const M match_ok = ((rflags & RF_MATCH_ANY) ? m_or : ~m_n) |
+                       ((rflags & RF_HAS_MATCH) ? NONE : ALL);
+    const M exclude_hit = ((rflags & RF_EXCLUDE_ALL) ? ~e_n : e_or) &
+                          ((rflags & RF_HAS_EXCLUDE) ? ALL : NONE);
     applicable = match_ok & ~exclude_hit;
-    precond_ok = ~pre_n & (pre_any | ((rflags & RF_PRECOND_ANY) ? 0u : ALL));
-    deny_match = ~den_n & (den_any | ((rflags & RF_DENY_ANY) ? 0u : ALL));
+    precond_ok = ~pre_n & (pre_any | ((rflags & RF_PRECOND_ANY) ? NONE : ALL));
+    deny_match = ~den_n & (den_any | ((rflags & RF_DENY_ANY) ? NONE : ALL));
   }
 
   // ---- stage 6: composition, in the TPU program's order (eval.py:823-856)
@@ -815,15 +893,8 @@ __device__ inline Planes verdict_planes(const Sec& S, int r, const Flags& F,
     v.set(~applicable, V_NA);
     v.set(match_unc, V_HOST);
   } else {
-    // rule_kind_ids pads with -1, and an unknown kind is -1 too: it hits
-    // every host-only rule's kind prefilter, as in the TPU program
-    uint32_t kind_hit = (rflags & RF_ALL_KINDS) ? ALL : 0u;
-    const int32_t* kinds = S.rule_kinds + r * kmax;
-    for (int bi = 0; bi < nb; ++bi) {
-      const int kind_id = (int)(sbm[bi] & 0xFFFFu) - 1;
-      for (int k = 0; k < kmax; ++k)
-        if (kinds[k] == kind_id) kind_hit |= 1u << bi;
-    }
+    const M kind_hit = (rflags & RF_ALL_KINDS)
+        ? ALL : load_mask<K>(rkind + r * SM_RULE_MASKS * K);
     v.set(ALL, V_HOST);
     v.set(~kind_hit, V_NA);
   }
@@ -847,11 +918,12 @@ struct Counts {
   int live;
 };
 
-// Store bits 0 .. TB-1 of m at bit sh of *word (sh a multiple of TB). A
-// block of 8 or more resources owns whole bytes and stores them; the
-// last block of the grid also stores the bytes after its own, up to the
-// word's end, so that no byte of the masks is left unwritten. Smaller
-// blocks share bytes: atomicOr into the zeroed masks.
+// Store bits 0 .. TB-1 of m at bit sh of *word (sh a multiple of TB), for
+// a group of TB <= 32 resources. A group of 8 or more owns whole bytes
+// and stores them; the last group of the batch also stores the bytes
+// after its own, up to the word's end, so that no byte of the masks is
+// left unwritten. Smaller groups share bytes: atomicOr into the zeroed
+// masks.
 __device__ inline void put_bits(uint32_t* word, uint32_t m, int sh, int TB,
                                 bool last) {
   if (TB < 8) {
@@ -865,181 +937,289 @@ __device__ inline void put_bits(uint32_t* word, uint32_t m, int sh, int TB,
   }
 }
 
-template <bool kScan>
-__global__ void __launch_bounds__(kThreads, 3)
+// Bits 0 .. n-1 of each word of a group's mask set, n counted from the
+// group's first resource.
+template <int K>
+__device__ inline Mask<K> first_bits(int n) {
+  Mask<K> m;
+#pragma unroll
+  for (int w = 0; w < K; ++w) {
+    const int b = n - 32 * w;
+    m.w[w] = b >= 32 ? 0xFFFFFFFFu : (b <= 0 ? 0u : (1u << b) - 1u);
+  }
+  return m;
+}
+
+// Grid (blocks a tile, rule tiles). A block stages its tile's section
+// once, then walks the groups blockIdx.x, blockIdx.x + gridDim.x, ... of
+// GS = TB * K resources each: TB lanes take one row for TB resources
+// (TB <= 32; 32 where K > 1), and each of them evaluates it for K
+// resources, 32 apart.
+template <bool kScan, int K>
+__global__ void __launch_bounds__(kThreads, K == 1 ? 3 : 2)
 rules_kernel(const int32_t* __restrict__ plan, Blob bl,
              const uint8_t* __restrict__ match_nv, int tb_shift,
-             int8_t* __restrict__ out, ScanOut so, Counts cn) {
+             int n_groups, int8_t* __restrict__ out, ScanOut so, Counts cn) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bar;
-  __shared__ uint32_t host_or;     // scan form: the tile's HOST resources
-  const int TB = 1 << tb_shift, E = bl.E, V = bl.V;
+  __shared__ uint32_t host_or[K];       // scan form: the tile's HOST resources
+  __shared__ uint32_t host_live[2 * K];
+  const int TB = 1 << tb_shift, GS = TB * K;
+  const int kshift = K == 4 ? 2 : K == 2 ? 1 : 0;
+  const int gs_shift = tb_shift + kshift;
+  const int E = bl.E, V = bl.V;
   const int32_t* tt = plan + plan[H_TILES] + blockIdx.y * TT_NCOLS;
   const TileDims td = tile_dims(tt);
-  const Layout L = layout(td, E, TB);
+  const Layout L = layout(td, E, GS);
   const int tid = threadIdx.x;
-  // thread -> (resource bi, first row); one pass of the block covers
-  // blockDim.x / TB rows, so a warp holds one row for up to 32 resources
+  // thread -> (lane bi of a task, first task); one pass of the block
+  // covers blockDim.x / TB tasks, so a warp holds one task for up to 32
+  // lanes
   const int bi = tid & (TB - 1);
   const int row0 = tid >> tb_shift;
   const int rows_per_pass = blockDim.x >> tb_shift;
-  const int b0 = blockIdx.x * TB;
-  const int nb = min(TB, bl.B - b0);
-  const bool live = bi < nb;
+  const int lane = tid & 31;
+  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
+  const int group_lane = lane & ~(TB - 1);          // the row's first lane
+  const uint32_t low = TB == 32 ? 0xFFFFFFFFu : (1u << TB) - 1u;
   const int32_t* gsec = plan + tt[TT_OFF];
   int32_t* sec = (int32_t*)(smem + L.plan);
-
-  // ---- 1. stage the tile's section; decode the slots meanwhile
-  if (tid == 0) {
-    barrier_init(&bar);
-    host_or = 0;
-  }
-  __syncthreads();
-  if (tid == 0) bulk_copy(sec, gsec, (uint32_t)tt[TT_WORDS] * 4u, &bar);
-  const Slots sl{(uint32_t*)(smem + L.slots), td.paths * E * TB, E, TB};
-  const int32_t* gpaths = gsec + gsec[TS_PATHS];
-  const int n_pe = td.paths * E;
-  if (live)
-    for (int pe = row0; pe < n_pe; pe += rows_per_pass) {
-      const int lp = pe / E;
-      sl.put(pe * TB + bi, load_slot(bl, b0 + bi, gpaths[lp], pe - lp * E));
-    }
+  const Slots sl{(uint32_t*)(smem + L.slots), td.paths * E * GS, E, GS};
   uint32_t* sbm = (uint32_t*)(smem + L.bmeta);
-  if (row0 == 0 && live) sbm[bi] = bl.bmeta[b0 + bi];
-  barrier_wait(&bar);
-  __syncthreads();
-
-  const Sec S = section(sec);
   uint32_t* sgate = (uint32_t*)(smem + L.gate);
   uint32_t* scw = (uint32_t*)(smem + L.cond);
   uint32_t* scf = (uint32_t*)(smem + L.cflags);
   uint32_t* sxf = (uint32_t*)(smem + L.xflags);
-  uint32_t* svp = (uint32_t*)(smem + L.vout);
-
-  // ---- 2. gates
-  if (live)
-    for (int g = row0; g < S.ngates; g += rows_per_pass)
-      sgate[g * TB + bi] = gate_word(S, g, bi, sl, V, match_nv);
-  __syncthreads();
-
-  // ---- 3. check rows, then aux rows: a lane evaluates its (row, bi); the
-  // warp's ballots turn a row's flags into masks over the block's
-  // resources, which the row's first lane stores. Every lane takes part
-  // in every ballot (a pass covers the same rows in each warp).
-  const int lane = tid & 31;
-  const int group_lane = lane & ~(TB - 1);          // the row's first lane
-  const uint32_t low = TB == 32 ? 0xFFFFFFFFu : (1u << TB) - 1u;
-  for (int base = 0; base < S.C; base += rows_per_pass) {
-    const int c = base + row0;
-    uint32_t words[3] = {0u, 0u, 0u};
-    const uint32_t f = (live && c < S.C)
-        ? check_row(S, c, bi, TB, sl, V, match_nv, sgate, words) : 0u;
-    uint32_t m[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      m[k] = (__ballot_sync(0xFFFFFFFFu, (f >> k) & 1u) >> group_lane) & low;
-    if (bi == 0 && c < S.C)
-      for (int k = 0; k < 4; ++k) scf[c * 4 + k] = m[k];
-    if (__any_sync(0xFFFFFFFFu, f & kCondRow)) {
-      const int slot = (bi == 0 && (f & kCondRow))
-          ? S.chk[CK_COND_SLOT * S.C + c] : -1;
-      for (int e = 0; e < E; ++e)
-        for (int j = 0; j < 3; ++j) {
-          const uint32_t w = (__ballot_sync(0xFFFFFFFFu, (words[j] >> e) & 1u)
-                              >> group_lane) & low;
-          if (slot >= 0) scw[(slot * 3 + j) * E + e] = w;
-        }
-    }
-  }
-  for (int base = 0; base < S.X; base += rows_per_pass) {
-    const int x = base + row0;
-    const uint32_t f = (live && x < S.X)
-        ? aux_row(S, x, bi, sbm[bi], sl, V, match_nv) : 0u;
-    uint32_t m[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      m[k] = (__ballot_sync(0xFFFFFFFFu, (f >> k) & 1u) >> group_lane) & low;
-    if (bi == 0 && x < S.X)
-      for (int k = 0; k < 3; ++k) sxf[x * 3 + k] = m[k];
-  }
-  __shared__ uint32_t host_live[2];
-  if (tid < 32) {
-    const uint32_t bm = tid < nb ? sbm[tid] : 0u;
-    const uint32_t hm = __ballot_sync(0xFFFFFFFFu, (bm >> 16) & 1u);
-    const uint32_t lm = __ballot_sync(0xFFFFFFFFu, (bm >> 17) & 1u);
-    if (tid == 0) {
-      host_live[0] = hm;
-      host_live[1] = lm;
-    }
-  }
-  __syncthreads();
-
-  // ---- 4. verdicts: one thread per rule, for all the block's resources
-  const Flags F{scf, sxf, scw, E};
+  uint32_t* skind = (uint32_t*)(smem + L.rkind);
+  const Flags<K> F{scf, sxf, scw, E};
   const bool has_checks = plan[H_C] > 0;
   const bool has_aux = plan[H_X] > 0;
   const int kmax = plan[H_KMAX];
   const long long R = plan[H_R];
   const int r0 = tt[TT_R0];
-  const uint32_t cut = nb == 32 ? 0xFFFFFFFFu : (1u << nb) - 1u;
-  if (kScan) {
-    // ---- 4-5, scan form: masks from each rule's planes, in registers
-    const int g = b0 >> 5, sh = b0 & 31;
-    const bool last = b0 + TB >= bl.B;
-    uint32_t hm = 0;
-    for (int r = tid; r < S.R; r += blockDim.x) {
-      const Planes v = verdict_planes(S, r, F, has_checks, has_aux, kmax, nb,
-                                      sbm, host_live[0], host_live[1]);
-      const long long at = (long long)g * R + r0 + r;
-      put_bits(so.fail + at, v.p1 & ~v.p0 & ~v.p2 & cut, sh, TB, last);
-      put_bits(so.pass + at, v.p0 & ~v.p1 & ~v.p2 & cut, sh, TB, last);
-      hm |= v.p0 & ~v.p1 & v.p2 & cut;
-    }
-    hm = __reduce_or_sync(0xFFFFFFFFu, hm);
-    if (lane == 0 && hm) atomicOr(&host_or, hm);
-    __syncthreads();
-    if (tid == 0)
-      put_bits(so.host + (long long)blockIdx.y * so.G + g, host_or, sh, TB,
-               last);
-    return;
-  }
-  for (int r = tid; r < S.R; r += blockDim.x) {
-    const Planes v = verdict_planes(S, r, F, has_checks, has_aux, kmax, nb,
-                                    sbm, host_live[0], host_live[1]);
-    svp[r * 3 + 0] = v.p0;
-    svp[r * 3 + 1] = v.p1;
-    svp[r * 3 + 2] = v.p2;
-    // counts form: the block's FAIL and PASS cells of a live rule
-    if (cn.c != nullptr && r0 + r < cn.live) {
-      const int nf = __popc(v.p1 & ~v.p0 & ~v.p2 & cut);
-      const int np = __popc(v.p0 & ~v.p1 & ~v.p2 & cut);
-      if (nf) atomicAdd(cn.c + r0 + r, nf);
-      if (np) atomicAdd(cn.c + cn.live + r0 + r, np);
-    }
-  }
-  __syncthreads();
+  const int32_t* gpaths = gsec + gsec[TS_PATHS];
+  const int n_pe = td.paths * E;
 
-  // ---- 5. one coalesced write of the block's rows: a warp writes one
-  // resource's rules, each byte from the three planes
-  const int warp = tid >> 5, nwarps = blockDim.x >> 5;
-  for (int b = warp; b < nb; b += nwarps)
-    for (int r = lane; r < S.R; r += 32) {
-      const uint32_t* p = svp + r * 3;
-      out[(long long)(b0 + b) * R + r0 + r] =
-          (int8_t)(((p[0] >> b) & 1u) | (((p[1] >> b) & 1u) << 1) |
-                   (((p[2] >> b) & 1u) << 2));
+  // ---- 1. stage the tile's section once; the first group's slots are
+  // decoded meanwhile
+  if (tid == 0) barrier_init(&bar);
+  __syncthreads();
+  if (tid == 0) bulk_copy(sec, gsec, (uint32_t)tt[TT_WORDS] * 4u, &bar);
+  bool staged = false;
+
+#pragma unroll 1
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int b0 = grp * GS;
+    const int nb = min(GS, bl.B - b0);
+    for (int i = tid; i < (n_pe << gs_shift); i += blockDim.x) {
+      const int pe = i >> gs_shift, bj = i & (GS - 1);
+      if (bj < nb) {
+        const int lp = pe / E;
+        sl.put(i, load_slot(bl, b0 + bj, gpaths[lp], pe - lp * E));
+      }
     }
+    for (int i = tid; i < GS; i += blockDim.x)
+      sbm[i] = i < nb ? bl.bmeta[b0 + i] : 0u;
+    if (kScan && tid < K) host_or[tid] = 0;
+    if (!staged) {
+      barrier_wait(&bar);
+      staged = true;
+    }
+    __syncthreads();
+
+    const Sec S = section(sec);
+
+    // ---- 2-3. gates, then check rows, then aux rows, each (row, word of
+    // the group) a task: the row's TB lanes evaluate it for the word's
+    // resources (resource bi + 32 k of the group for word k), and for
+    // flags the warp's ballots turn them into the word's masks, which the
+    // row's first lane stores. Every lane takes part in every ballot (a
+    // pass covers the same tasks in each warp).
+    for (int t = row0; t < (S.ngates << kshift); t += rows_per_pass) {
+      const int g = t >> kshift, bk = bi + 32 * (t & (K - 1));
+      if (bk < nb) sgate[g * GS + bk] = gate_word(S, g, bk, sl, V, match_nv);
+    }
+    __syncthreads();
+
+    for (int base = 0; base < (S.C << kshift); base += rows_per_pass) {
+      const int t = base + row0, c = t >> kshift, k = t & (K - 1);
+      const int bk = bi + 32 * k;
+      const bool row = c < S.C;
+      uint32_t words[3] = {0u, 0u, 0u};
+      const uint32_t f = (bk < nb && row)
+          ? check_row(S, c, bk, GS, sl, V, match_nv, sgate, words) : 0u;
+#pragma unroll
+      for (int q = 0; q < SM_CHECK_MASKS; ++q) {
+        const uint32_t m =
+            (__ballot_sync(0xFFFFFFFFu, (f >> q) & 1u) >> group_lane) & low;
+        if (bi == 0 && row) scf[(c * SM_CHECK_MASKS + q) * K + k] = m;
+      }
+      if (__any_sync(0xFFFFFFFFu, f & kCondRow)) {
+        const int slot = (bi == 0 && (f & kCondRow))
+            ? S.chk[CK_COND_SLOT * S.C + c] : -1;
+        for (int e = 0; e < E; ++e) {
+#pragma unroll
+          for (int j = 0; j < SM_COND_WORDS; ++j) {
+            const uint32_t w =
+                (__ballot_sync(0xFFFFFFFFu, (words[j] >> e) & 1u)
+                 >> group_lane) & low;
+            if (slot >= 0) scw[((slot * SM_COND_WORDS + j) * E + e) * K + k] = w;
+          }
+        }
+      }
+    }
+    for (int base = 0; base < (S.X << kshift); base += rows_per_pass) {
+      const int t = base + row0, x = t >> kshift, k = t & (K - 1);
+      const int bk = bi + 32 * k;
+      const uint32_t f = (bk < nb && x < S.X)
+          ? aux_row(S, x, bk, sbm[bk], sl, V, match_nv) : 0u;
+#pragma unroll
+      for (int q = 0; q < SM_AUX_MASKS; ++q) {
+        const uint32_t m =
+            (__ballot_sync(0xFFFFFFFFu, (f >> q) & 1u) >> group_lane) & low;
+        if (bi == 0 && x < S.X) sxf[(x * SM_AUX_MASKS + q) * K + k] = m;
+      }
+    }
+    // host-only rules' kind prefilter: a warp takes 32 rules at a time
+    // and each host-only one among them for all the group's resources, a
+    // resource a lane. rule_kind_ids pads with -1, and an unknown kind is
+    // -1 too, so it hits every host-only rule's prefilter, as in the TPU
+    // program
+    for (int base = warp * 32; base < S.R; base += 32 * nwarps) {
+      uint32_t hr = __ballot_sync(
+          0xFFFFFFFFu,
+          base + lane < S.R && (S.rule_flags[base + lane] & RF_HOST));
+      while (hr) {
+        const int r = base + __ffs(hr) - 1;
+        hr &= hr - 1;
+        const int32_t* kinds = S.rule_kinds + r * kmax;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int bk = lane + 32 * k;
+          bool hit = false;
+          if (bk < nb) {
+            const int kind_id = (int)(sbm[bk] & 0xFFFFu) - 1;
+            for (int q = 0; q < kmax; ++q) hit = hit || kinds[q] == kind_id;
+          }
+          const uint32_t m = __ballot_sync(0xFFFFFFFFu, hit);
+          if (lane == 0) skind[r * SM_RULE_MASKS * K + k] = m;
+        }
+      }
+    }
+    if (tid < 32 * K) {
+      // warp w: word w of the group's HOST and live rows
+      const uint32_t bm = tid < nb ? sbm[tid] : 0u;
+      const uint32_t hm = __ballot_sync(0xFFFFFFFFu, (bm >> 16) & 1u);
+      const uint32_t lm = __ballot_sync(0xFFFFFFFFu, (bm >> 17) & 1u);
+      if (lane == 0) {
+        host_live[2 * (tid >> 5)] = hm;
+        host_live[2 * (tid >> 5) + 1] = lm;
+      }
+    }
+    __syncthreads();
+
+    // ---- 4. verdicts: one thread per rule, for all the group's resources
+    Mask<K> host_m, live_m;
+#pragma unroll
+    for (int w = 0; w < K; ++w) {
+      host_m.w[w] = host_live[2 * w];
+      live_m.w[w] = host_live[2 * w + 1];
+    }
+    const Mask<K> cut = first_bits<K>(nb);
+    if (kScan) {
+      // ---- 4-5, scan form: masks from each rule's planes, in registers
+      const int g = b0 >> 5, sh = b0 & 31;
+      const bool last = b0 + GS >= bl.B;
+      Mask<K> hm = Mask<K>::fill(0);
+      for (int r = tid; r < S.R; r += blockDim.x) {
+        const Planes<K> v = verdict_planes<K>(S, r, F, has_checks, has_aux,
+                                              skind, host_m, live_m);
+        const Mask<K> fm = v.p1 & ~v.p0 & ~v.p2 & cut;
+        const Mask<K> pm = v.p0 & ~v.p1 & ~v.p2 & cut;
+        hm |= v.p0 & ~v.p1 & v.p2 & cut;
+        const long long at = (long long)g * R + r0 + r;
+        if (K == 1) {
+          put_bits(so.fail + at, fm.w[0], sh, TB, last);
+          put_bits(so.pass + at, pm.w[0], sh, TB, last);
+        } else {
+#pragma unroll
+          for (int w = 0; w < K; ++w)
+            if (32 * w < nb) {
+              so.fail[at + w * R] = fm.w[w];
+              so.pass[at + w * R] = pm.w[w];
+            }
+        }
+      }
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        const uint32_t h = __reduce_or_sync(0xFFFFFFFFu, hm.w[w]);
+        if (lane == 0 && h) atomicOr(&host_or[w], h);
+      }
+      __syncthreads();
+      uint32_t* host = so.host + (long long)blockIdx.y * so.G + g;
+      if (K == 1) {
+        if (tid == 0) put_bits(host, host_or[0], sh, TB, last);
+      } else if (tid < K && 32 * tid < nb) {
+        host[tid] = host_or[tid];
+      }
+      continue;
+    }
+    // ---- 4-5, matrix and counts forms: each rule's verdict bytes from its
+    // planes in registers, a warp's stores one resource's consecutive
+    // rules
+    for (int r = tid; r < S.R; r += blockDim.x) {
+      const Planes<K> v = verdict_planes<K>(S, r, F, has_checks, has_aux,
+                                            skind, host_m, live_m);
+      int8_t* o = out + (long long)b0 * R + r0 + r;
+#pragma unroll
+      for (int w = 0; w < K; ++w) {
+        const uint32_t q0 = v.p0.w[w], q1 = v.p1.w[w], q2 = v.p2.w[w];
+        const int n = min(32, nb - 32 * w);
+        for (int i = 0; i < n; ++i)
+          o[(long long)(32 * w + i) * R] =
+              (int8_t)(((q0 >> i) & 1u) | (((q1 >> i) & 1u) << 1) |
+                       (((q2 >> i) & 1u) << 2));
+      }
+      // counts form: the group's FAIL and PASS cells of a live rule
+      if (cn.c != nullptr && r0 + r < cn.live) {
+        int nf = 0, np = 0;
+#pragma unroll
+        for (int w = 0; w < K; ++w) {
+          nf += __popc(v.p1.w[w] & ~v.p0.w[w] & ~v.p2.w[w] & cut.w[w]);
+          np += __popc(v.p0.w[w] & ~v.p1.w[w] & ~v.p2.w[w] & cut.w[w]);
+        }
+        if (nf) atomicAdd(cn.c + r0 + r, nf);
+        if (np) atomicAdd(cn.c + cn.live + r0 + r, np);
+      }
+    }
+    // the next group's decode writes only the slots and bmeta, which
+    // phase 4 does not read; its flags wait for the barrier after it
+  }
 }
+
+// One instance a form and words a mask.
+template <bool kScan>
+using KernelFn = void (*)(const int32_t*, Blob, const uint8_t*, int, int,
+                          int8_t*, ScanOut, Counts);
+
+template <bool kScan>
+KernelFn<kScan> kernel_for(int K) {
+  return K == 4 ? rules_kernel<kScan, 4>
+                : K == 2 ? rules_kernel<kScan, 2> : rules_kernel<kScan, 1>;
+}
+
+constexpr int kMaxK = 4;         // words a mask: groups of up to 128
 
 // Device limits, read once on the first device that launches: the dynamic
 // shared memory a block may take and the number of SMs (a mesh's cards are
 // one model).
 int g_smem_room = -1;
 int g_sms = 0;
-// each form's dynamic shared memory limit, as set on each device (a
-// function attribute belongs to the device that was current when it was set)
+// each instance's dynamic shared memory limit, as set on each device (a
+// function attribute belongs to the device that was current when it was
+// set), by words a mask (1, 2, 4 at 0, 1, 2)
 constexpr int kMaxDevices = 64;
-template <bool kScan> int g_smem_set[kMaxDevices] = {};
+template <bool kScan> int g_smem_set[kMaxDevices][3] = {};
 
 int device_limits() {
   if (g_smem_room < 0) {
@@ -1050,65 +1230,88 @@ int device_limits() {
                                    cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncAttributes fa, fs;
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, rules_kernel<false>);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fs, rules_kernel<true>);
+    size_t stat = 0;
+    for (int K = 1; K <= kMaxK && err == cudaSuccess; K *= 2) {
+      cudaFuncAttributes fa, fs;
+      err = cudaFuncGetAttributes(&fa, kernel_for<false>(K));
+      if (err == cudaSuccess) err = cudaFuncGetAttributes(&fs, kernel_for<true>(K));
+      if (err == cudaSuccess)
+        stat = std::max({stat, fa.sharedSizeBytes, fs.sharedSizeBytes});
+    }
     if (err != cudaSuccess) return (int)err;
     g_sms = sms;
-    g_smem_room = optin - (int)max(fa.sharedSizeBytes, fs.sharedSizeBytes);
+    g_smem_room = optin - (int)stat;
   }
   return 0;
 }
 
+int k_slot(int K) { return K == 4 ? 2 : K == 2 ? 1 : 0; }
+
 template <bool kScan>
-int set_smem(int bytes) {
+int set_smem(int K, int bytes) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (bytes > g_smem_set<kScan>[dev]) {
-    err = cudaFuncSetAttribute(rules_kernel<kScan>,
+  int& set = g_smem_set<kScan>[dev][k_slot(K)];
+  if (bytes > set) {
+    err = cudaFuncSetAttribute(kernel_for<kScan>(K),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
     if (err != cudaSuccess) return (int)err;
-    g_smem_set<kScan>[dev] = bytes;
+    set = bytes;
   }
   return 0;
 }
 
-// The shared memory a launch at tb resources a block asks for: that of
+// The shared memory a launch of groups of gs resources asks for: that of
 // its largest tile.
-int launch_bytes(const int32_t* tiles, int64_t n_tiles, int E, int tb) {
+int launch_bytes(const int32_t* tiles, int64_t n_tiles, int E, int gs) {
   int most = 0;
   for (int64_t k = 0; k < n_tiles; ++k)
-    most = max(most, layout(tile_dims(tiles + k * TT_NCOLS), E, tb).total);
+    most = std::max(most, layout(tile_dims(tiles + k * TT_NCOLS), E, gs).total);
   return most;
 }
 
-// Resources a block takes: the largest of 32, 16 and 8 whose grid fills
-// the card at least one and a half times at the occupancy its shared
-// memory allows (larger blocks stage the plan for more resources and walk
-// each rule for more, but a grid of less than that leaves SMs idle in its
-// last wave), else 8; smaller only where 8 does not fit (an E above the
-// flattener's 16), halving down to 1. 0 if not even one resource fits.
+// Blocks of a launch of groups of gs resources that an SM holds at once,
+// after setting the instance's shared memory; 0 where none fits.
 template <bool kScan>
-int choose_tb(const int32_t* tiles, int64_t n_tiles, int E, int64_t B) {
-  for (int t = kMaxTB; t >= 1; t /= 2) {
-    const int bytes = launch_bytes(tiles, n_tiles, E, t);
+int blocks_per_sm(int gs, int bytes, int* per_sm) {
+  const int K = gs > kMaxTB ? gs / kMaxTB : 1;
+  *per_sm = 0;
+  int err = set_smem<kScan>(K, bytes);
+  if (err != 0) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, kernel_for<kScan>(K), kThreads, bytes);
+}
+
+// Resources a group: the largest of 128 and 64 whose groups, over every
+// tile, fill the card's resident blocks at two blocks an SM or more (a
+// group of more words walks each rule and row once for more resources,
+// but a batch of fewer groups leaves SMs idle), else of 32, 16 and 8
+// whose groups give every SM a block, else 8; smaller only where 8 does
+// not fit (an E above the flattener's 16), halving down to 1. 0 if not
+// even one resource fits.
+template <bool kScan>
+int choose_gs(const int32_t* tiles, int64_t n_tiles, int E, int64_t B) {
+  for (int gs = kMaxK * kMaxTB; gs >= 1; gs /= 2) {
+    const int bytes = launch_bytes(tiles, n_tiles, E, gs);
     if (bytes > g_smem_room) continue;
-    if (t <= 8) return t;
+    if (gs <= 8) return gs;
     int per_sm = 0;
-    if (set_smem<kScan>(bytes) != 0 ||
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, rules_kernel<kScan>, kThreads, bytes) != cudaSuccess)
+    if (blocks_per_sm<kScan>(gs, bytes, &per_sm) != 0 || per_sm == 0)
       continue;
-    const int64_t blocks = (B + t - 1) / t * n_tiles;
-    if (2 * blocks >= 3 * (int64_t)per_sm * g_sms) return t;
+    const int64_t groups = (B + gs - 1) / gs * n_tiles;
+    if (gs > kMaxTB && per_sm < 2) continue;
+    const int64_t need = gs > kMaxTB ? (int64_t)per_sm * g_sms : g_sms;
+    if (groups >= need) return gs;
   }
   return 0;
 }
 
-// One launch of stages 2-6 in either form (see the entries below).
+// One launch of stages 2-6 in either form (see the entries below). info
+// receives the geometry: resources a group, dynamic shared memory a
+// block, blocks in all, blocks an SM.
 template <bool kScan>
 int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
            int64_t V, int64_t match_nv, int64_t tiles, int64_t n_tiles,
@@ -1117,15 +1320,30 @@ int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
   int err = device_limits();
   if (err != 0) return err;
   const int32_t* tt = (const int32_t*)tiles;
-  const int tb = choose_tb<kScan>(tt, n_tiles, (int)E, B);
-  if (tb == 0) return (int)cudaErrorInvalidConfiguration;
-  const int bytes = launch_bytes(tt, n_tiles, (int)E, tb);
-  if ((err = set_smem<kScan>(bytes)) != 0) return err;
+  const int gs = choose_gs<kScan>(tt, n_tiles, (int)E, B);
+  if (gs == 0) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = launch_bytes(tt, n_tiles, (int)E, gs);
+  int per_sm = 0;
+  if ((err = blocks_per_sm<kScan>(gs, bytes, &per_sm)) != 0) return err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const int K = gs > kMaxTB ? gs / kMaxTB : 1;
+  const int tb = gs / K;
   int tb_shift = 0;
   while ((1 << tb_shift) < tb) ++tb_shift;
-  ((int32_t*)info)[0] = tb;
-  ((int32_t*)info)[1] = bytes;
-  if (kScan && tb < 8) {
+  const int64_t n_groups = (B + gs - 1) / gs;
+  // One tile: persistent blocks, as many as the SMs hold at once, each
+  // staging the section once for all its groups (0.0449 against 0.0465 ms
+  // a block a group at 100k; PERF.md §6). Several tiles: a block a group
+  // and tile, which the card's block scheduler balances where the tiles'
+  // work differs (the wide corpus: 0.4405 against 0.6902 ms split evenly).
+  const int grid_x = n_tiles == 1
+      ? (int)std::min(n_groups, (int64_t)per_sm * g_sms) : (int)n_groups;
+  int32_t* in = (int32_t*)info;
+  in[0] = gs;
+  in[1] = bytes;
+  in[2] = grid_x * (int)n_tiles;
+  in[3] = per_sm;
+  if (kScan && gs < 8) {
     // blocks share the masks' bytes: they atomicOr into zeroed words
     const cudaError_t e = cudaMemsetAsync(so.fail, 0, so.words * 4, stream);
     if (e != cudaSuccess) return (int)e;
@@ -1138,18 +1356,19 @@ int launch(int64_t plan, int64_t blob, int64_t B, int64_t P, int64_t E,
   }
   const Blob bl = make_blob((const uint32_t*)blob, (int)B, (int)P, (int)E,
                             (int)V);
-  const dim3 grid((unsigned)((B + tb - 1) / tb), (unsigned)n_tiles);
-  rules_kernel<kScan><<<grid, kThreads, bytes, stream>>>(
-      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift, out, so,
-      cn);
+  const dim3 grid((unsigned)grid_x, (unsigned)n_tiles);
+  kernel_for<kScan>(K)<<<grid, kThreads, bytes, stream>>>(
+      (const int32_t*)plan, bl, (const uint8_t*)match_nv, tb_shift,
+      (int)n_groups, out, so, cn);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // One launch of stages 2-6. tiles: the plan's tile table [n_tiles,
-// TT_NCOLS] in host memory; info: host int32[2] that receives the
-// resources a block and the dynamic shared memory a block of the launch.
+// TT_NCOLS] in host memory; info: host int32[4] that receives the
+// launch's geometry (resources a group, dynamic shared memory a block,
+// blocks in all, blocks an SM).
 extern "C" int ktpu_eval_rules(int64_t plan, int64_t blob, int64_t B,
                                int64_t P, int64_t E, int64_t V,
                                int64_t match_nv, int64_t tiles,

@@ -28,21 +28,23 @@ enum Header {
   H_NHEADER = 6,
 };
 
-// ---- tile table: [NTILES, TT_NCOLS] int32, global ids; [lo, hi) ranges
+// ---- tile table: [NTILES, TT_NCOLS] int32, global ids; [lo, hi) ranges;
+// TT_NCHK and TT_NAUX count the section's distinct check and aux rows
 enum TileCol {
   TT_R0 = 0, TT_R1 = 1, TT_C0 = 2, TT_C1 = 3, TT_X0 = 4, TT_X1 = 5,
   TT_GATE0 = 6, TT_GATE1 = 7, TT_SLOT0 = 8, TT_SLOT1 = 9, TT_NPATH = 10,
-  TT_OFF = 11, TT_WORDS = 12, TT_NCOLS = 13,
+  TT_OFF = 11, TT_WORDS = 12, TT_NCHK = 13, TT_NAUX = 14, TT_NCOLS = 15,
 };
 
 // ---- a block's shared memory: per resolved slot SM_SLOT_LANES words per
 // resource; per check row SM_CHECK_MASKS masks, per aux row SM_AUX_MASKS,
-// per condition slot SM_COND_WORDS words per element, per rule
-// SM_VERDICT_PLANES; each array starts on SM_ALIGN bytes (layout() below;
-// ops/plan.py tile_bytes mirrors it)
+// per condition slot SM_COND_WORDS masks per element, per rule
+// SM_RULE_MASKS (a host-only rule's kind prefilter); a mask is one 32-bit
+// word per 32 resources of the group; each array starts on SM_ALIGN bytes
+// (layout() below; ops/plan.py tile_bytes mirrors it)
 enum SmemLayout {
   SM_SLOT_LANES = 7, SM_CHECK_MASKS = 4, SM_AUX_MASKS = 3, SM_COND_WORDS = 3,
-  SM_VERDICT_PLANES = 3, SM_ALIGN = 16,
+  SM_RULE_MASKS = 1, SM_ALIGN = 16,
 };
 
 // ---- tile section header
@@ -129,7 +131,7 @@ enum VerdictCode { V_NA = 0, V_PASS = 1, V_FAIL = 2, V_SKIP = 3, V_ERROR = 4,
                    V_HOST = 5 };
 
 // The sizes of one rule tile (one row of the tile table) that set its
-// block's shared memory.
+// block's shared memory: checks and aux count the distinct rows.
 struct TileDims {
   int words, paths, checks, aux, rules, gates, cond;
 };
@@ -138,8 +140,8 @@ __host__ __device__ inline TileDims tile_dims(const int32_t* tt) {
   TileDims d;
   d.words = tt[TT_WORDS];
   d.paths = tt[TT_NPATH];
-  d.checks = tt[TT_C1] - tt[TT_C0];
-  d.aux = tt[TT_X1] - tt[TT_X0];
+  d.checks = tt[TT_NCHK];
+  d.aux = tt[TT_NAUX];
   d.rules = tt[TT_R1] - tt[TT_R0];
   d.gates = tt[TT_GATE1] - tt[TT_GATE0];
   d.cond = tt[TT_SLOT1] - tt[TT_SLOT0];
@@ -147,9 +149,10 @@ __host__ __device__ inline TileDims tile_dims(const int32_t* tt) {
 }
 
 // Byte offsets of a block's arrays in dynamic shared memory, for a tile
-// of these sizes, E slots per path and tb resources a block.
+// of these sizes, E slots per path and groups of tb resources (a mask of
+// tb <= 32 resources is one word, of more tb / 32 words).
 struct Layout {
-  int plan, slots, bmeta, gate, cond, cflags, xflags, vout, total;
+  int plan, slots, bmeta, gate, cond, cflags, xflags, rkind, total;
 };
 
 __host__ __device__ inline int align_smem(int n) {
@@ -158,15 +161,16 @@ __host__ __device__ inline int align_smem(int n) {
 
 __host__ __device__ inline Layout layout(const TileDims& d, int E, int tb) {
   Layout L;
+  const int w = (tb + 31) / 32;
   int o = 0;
   L.plan = o;   o += align_smem(d.words * 4);
   L.slots = o;  o += align_smem(SM_SLOT_LANES * d.paths * E * tb * 4);
   L.bmeta = o;  o += align_smem(tb * 4);
   L.gate = o;   o += align_smem(d.gates * tb * 4);
-  L.cond = o;   o += align_smem(d.cond * SM_COND_WORDS * E * 4);
-  L.cflags = o; o += align_smem(d.checks * SM_CHECK_MASKS * 4);
-  L.xflags = o; o += align_smem(d.aux * SM_AUX_MASKS * 4);
-  L.vout = o;   o += align_smem(d.rules * SM_VERDICT_PLANES * 4);
+  L.cond = o;   o += align_smem(d.cond * SM_COND_WORDS * E * w * 4);
+  L.cflags = o; o += align_smem(d.checks * SM_CHECK_MASKS * w * 4);
+  L.xflags = o; o += align_smem(d.aux * SM_AUX_MASKS * w * 4);
+  L.rkind = o;  o += align_smem(d.rules * SM_RULE_MASKS * w * 4);
   L.total = o;
   return L;
 }

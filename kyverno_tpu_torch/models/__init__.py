@@ -4,7 +4,7 @@ scores blobs on the card."""
 
 # the engine, loaded on first use: the compiler, the IR and the
 # flattener load no torch (the lint path imports them)
-_EXPORTS = ("CompiledPolicySet", "Verdict")
+_EXPORTS = ("CompiledPolicySet", "Verdict", "compile_policies")
 
 __all__ = list(_EXPORTS)
 

@@ -215,11 +215,11 @@ class _Slot:
     recorded after the copy back. ``exec`` is a CUDA graph of the card's
     work over those buffers (:meth:`_steps`), captured once here;
     ``kernels`` are the launches the capture listed, counted at each
-    replay, and ``launch`` is eval_rules' block size and bytes as the
-    capture chose them. ``handle`` is the :class:`AsyncVerdicts` holding
-    the slot (None while free); a slot is free again only after its
-    holder has read the verdicts, so its event has completed and every
-    copy from and to it is done."""
+    replay, and ``launch`` is eval_rules' geometry (``ops.eval
+    .LAST_LAUNCH``'s fields) as the capture chose it. ``handle`` is the
+    :class:`AsyncVerdicts` holding the slot (None while free); a slot is
+    free again only after its holder has read the verdicts, so its event
+    has completed and every copy from and to it is done."""
 
     __slots__ = ("device", "staged", "dblob", "match", "verdicts", "out",
                  "event", "exec", "kernels", "launch", "handle", "seq")
@@ -237,7 +237,7 @@ class _Slot:
         self.out = torch.empty((B, plan.R), dtype=torch.int8,
                                pin_memory=True)
         self.event = torch.cuda.Event()
-        self.launch = np.zeros(2, dtype=np.int32)
+        self.launch = np.zeros(ops_eval.LAUNCH_INFO, dtype=np.int32)
         self.handle = None
         self.seq = 0
         self.kernels = self._capture(plan, shp)
@@ -904,6 +904,12 @@ class CompiledPolicySet:
                     out[ref.rule_index] = (_STATUS_TO_VERDICT[rr.status],
                                            rr.message)
         return out
+
+
+def compile_policies(policies: list, device=None) -> CompiledPolicySet:
+    """A :class:`CompiledPolicySet` of ``policies`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    return CompiledPolicySet(policies, device=device)
 
 
 def _validate_rules(policy) -> list:

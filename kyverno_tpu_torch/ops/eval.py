@@ -693,9 +693,12 @@ def eval_verdict_plain(plan: Plan, blob, B: int, P: int, E: int, V: int,
 
 # ------------------------------------------------- stages 2-6, eval_rules
 
-# The resources a block and the dynamic shared memory a block (bytes) of
-# the last launch of eval_rules in this process, as the kernel chose them.
-LAST_LAUNCH = np.zeros(2, dtype=np.int32)
+# The geometry of the last launch of eval_rules (any form) in this
+# process, as the kernel chose it: resources a group, dynamic shared
+# memory a block (bytes), blocks in all (over every rule tile) and blocks
+# an SM.
+LAUNCH_INFO = 4
+LAST_LAUNCH = np.zeros(LAUNCH_INFO, dtype=np.int32)
 _LAST_LAUNCH_PTR = LAST_LAUNCH.ctypes.data
 
 
@@ -738,13 +741,14 @@ def _rules_device(blob, E: int, name: str):
 def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv,
                out=None, launch=None):
     """Stages 2-6 in one launch: the verdicts int8 [B, R] from the blob and
-    K1's glob matrix. CUDA kernel ``csrc/eval_rules.cu`` on the card (one
-    block per rule tile of the plan and up to 32 resources, as many as the
-    kernel chooses; see ``LAST_LAUNCH``), :func:`eval_rules_plain` on the
-    CPU. ``out``, a contiguous int8 [B, R] on the blob's device, receives
-    the verdicts in place of a new tensor, and ``launch``, a C-contiguous
-    numpy int32[2], the block size and bytes in place of ``LAST_LAUNCH``
-    (K6's slot keeps both for its CUDA graph)."""
+    K1's glob matrix. CUDA kernel ``csrc/eval_rules.cu`` on the card
+    (blocks over each rule tile of the plan that walk groups of up to 128
+    resources, as the kernel chooses; see ``LAST_LAUNCH``),
+    :func:`eval_rules_plain` on the CPU. ``out``, a contiguous int8
+    [B, R] on the blob's device, receives the verdicts in place of a new
+    tensor, and ``launch``, a C-contiguous numpy int32[LAUNCH_INFO], the
+    launch's geometry in place of ``LAST_LAUNCH`` (K6's slot keeps both
+    for its CUDA graph)."""
     dev = _rules_device(blob, E, "eval_rules")
     R = plan.R
     if out is not None and (out.device != dev or out.dtype != torch.int8
@@ -759,10 +763,10 @@ def eval_rules(plan: Plan, blob, B: int, P: int, E: int, V: int, match_nv,
     _check_rules_args(plan, blob, B, P, E, V, match_nv, "eval_rules")
     if launch is None:
         info = _LAST_LAUNCH_PTR
-    elif (launch.dtype != np.int32 or launch.shape != (2,)
+    elif (launch.dtype != np.int32 or launch.shape != (LAUNCH_INFO,)
           or not launch.flags.c_contiguous):
-        raise ValueError("eval_rules: launch must be a C-contiguous numpy "
-                         "int32[2]")
+        raise ValueError(f"eval_rules: launch must be a C-contiguous numpy "
+                         f"int32[{LAUNCH_INFO}]")
     else:
         info = launch.ctypes.data
     if out is None:

@@ -17,7 +17,8 @@ one of its aux groups (in filter order, with end marks). Its layout is
 
 A tile is one range of check rows and one of aux rows only because the
 compiler emits every row, group, alternative, gate and filter in rule
-order; `Plan` checks that and refuses anything else. A block holds its
+order; `Plan` checks that and refuses anything else. A section keeps each
+distinct check and aux row of its tile once (:func:`_section`). A block holds its
 tile's section and, beside it, the slots it decodes (per path, element
 and resource) and its flags: tiles are cut so that all of it fits in a
 block's shared memory at 8 resources a block with the flattener's 16
@@ -47,7 +48,7 @@ from .glob import nfa_tables
 
 # ---- csrc/plan.cuh: tile table, [NTILES, TT_NCOLS] int32 (global ids)
 (TT_R0, TT_R1, TT_C0, TT_C1, TT_X0, TT_X1, TT_GATE0, TT_GATE1, TT_SLOT0,
- TT_SLOT1, TT_NPATH, TT_OFF, TT_WORDS, TT_NCOLS) = range(14)
+ TT_SLOT1, TT_NPATH, TT_OFF, TT_WORDS, TT_NCHK, TT_NAUX, TT_NCOLS) = range(16)
 
 # ---- csrc/plan.cuh: tile section header: counts, then the offsets (in
 # words from the section's start) of its arrays, which follow in this order
@@ -86,10 +87,13 @@ SMEM_BYTES = 227 * 1024 - 1024
 # one.
 FLAT_SLOTS, MAX_SLOTS = 16, 32
 FLAT_TB = 8
+# Resources of eval_rules' largest group (csrc/eval_rules.cu: kMaxK words
+# of kMaxTB resources a mask)
+MAX_GROUP = 128
 
 # ---- csrc/plan.cuh: a block's shared memory (layout(); tile_bytes)
 (SM_SLOT_LANES, SM_CHECK_MASKS, SM_AUX_MASKS, SM_COND_WORDS,
- SM_VERDICT_PLANES, SM_ALIGN) = 7, 4, 3, 3, 3, 16
+ SM_RULE_MASKS, SM_ALIGN) = 7, 4, 3, 3, 1, 16
 
 # ---- csrc/plan.cuh: check table columns (column-major in a section)
 (CK_PATH, CK_OP, CK_PLEN, CK_GUARD, CK_NFA, CK_HAS_NFA, CK_LO_H, CK_LO_L,
@@ -124,23 +128,28 @@ def _limbs(n: np.ndarray):
 
 def tile_bytes(words: int, paths: int, checks: int, aux: int, rules: int,
                gates: int, cond: int, E: int, tb: int) -> int:
-    """Dynamic shared memory of a block of ``tb`` resources over a tile of
-    these sizes at E slots a path: ``layout()`` of csrc/plan.cuh, term by
-    term."""
+    """Dynamic shared memory of a block over a tile of these sizes (its
+    distinct check and aux rows) at E slots a path, for a group of ``tb``
+    resources (a mask holds 32 of them: above 32, each mask is tb / 32
+    words): ``layout()`` of csrc/plan.cuh, term by term."""
     def a(n):
         return -(-n // SM_ALIGN) * SM_ALIGN
 
+    if not 1 <= tb <= MAX_GROUP:
+        raise ValueError(f"tile_bytes: a group of {tb} resources, not 1 to "
+                         f"{MAX_GROUP}")
+    w = -(-tb // 32)
     return (a(4 * words) + a(4 * SM_SLOT_LANES * paths * E * tb) + a(4 * tb)
-            + a(4 * gates * tb) + a(4 * SM_COND_WORDS * cond * E)
-            + a(4 * SM_CHECK_MASKS * checks) + a(4 * SM_AUX_MASKS * aux)
-            + a(4 * SM_VERDICT_PLANES * rules))
+            + a(4 * gates * tb) + a(4 * SM_COND_WORDS * cond * E * w)
+            + a(4 * SM_CHECK_MASKS * checks * w) + a(4 * SM_AUX_MASKS * aux * w)
+            + a(4 * SM_RULE_MASKS * rules * w))
 
 
 def _row_dims(row) -> tuple[int, ...]:
     """A tile-table row's sizes, in tile_bytes' order (tile_dims() of
     csrc/plan.cuh)."""
     return (int(row[TT_WORDS]), int(row[TT_NPATH]),
-            int(row[TT_C1] - row[TT_C0]), int(row[TT_X1] - row[TT_X0]),
+            int(row[TT_NCHK]), int(row[TT_NAUX]),
             int(row[TT_R1] - row[TT_R0]), int(row[TT_GATE1] - row[TT_GATE0]),
             int(row[TT_SLOT1] - row[TT_SLOT0]))
 
@@ -273,8 +282,8 @@ class Plan:
             alt_is_multi=np.asarray(alt_is_multi, np.int32), flags=flags,
             kinds=kinds, axg_info=axg_info,
             filt_ex=np.asarray(t.axf_is_exclude, np.int32))
-        self.buf_np, self.tiles = _tiled_buffer(t, rows, tile_words,
-                                                smem_bytes)
+        self.buf_np, self.tiles, self.row_maps = _tiled_buffer(
+            t, rows, tile_words, smem_bytes)
         self.buf_np[[H_C, H_X, H_R, H_KMAX]] = [C, X, R, kmax]
         self.buf = torch.from_numpy(self.buf_np).to(self.device)
         self.n_tiles = len(self.tiles)
@@ -342,8 +351,8 @@ class Plan:
         )
 
     def smem_bytes(self, E: int, tb: int) -> int:
-        """The dynamic shared memory a launch at E slots and ``tb``
-        resources a block asks for: its largest tile's."""
+        """The dynamic shared memory a launch at E slots and groups of
+        ``tb`` resources asks for: its largest tile's."""
         return max((tile_bytes(*_row_dims(row), E, tb) for row in self.tile_table),
                    default=0)
 
@@ -474,8 +483,10 @@ def _cut_tiles(t: PolicyTensors, gate_fill: np.ndarray, kmax: int,
 
 def _tiled_buffer(t: PolicyTensors, rows: dict, tile_words: int,
                   smem_bytes: int):
-    """The plan buffer (header sizes left 0 for the caller) and the tiles'
-    rule ranges (:func:`_cut_tiles`)."""
+    """The plan buffer (header sizes left 0 for the caller), the tiles'
+    rule ranges (:func:`_cut_tiles`) and each tile's row maps (the
+    distinct check and aux row that each of its rows became, by local
+    id; :func:`_section`)."""
     gate_rule = _gate_rules(t)
     _check_order(t, gate_rule)
     # gates no row names follow the rule before them
@@ -488,7 +499,7 @@ def _tiled_buffer(t: PolicyTensors, rows: dict, tile_words: int,
     group_rule = t.alt_rule[t.group_alt] if t.group_alt.size else t.group_alt
     head = H_NHEADER + len(tiles) * TT_NCOLS
     off = -(-head // SECTION_ALIGN) * SECTION_ALIGN
-    table, sections = [], []
+    table, sections, maps = [], [], []
     for r0, r1 in tiles:
         def span(rule_of):
             lo, hi = np.searchsorted(np.asarray(rule_of), [r0, r1])
@@ -499,24 +510,47 @@ def _tiled_buffer(t: PolicyTensors, rows: dict, tile_words: int,
         (q0, q1), (gx0, gx1) = span(gate_fill), span(t.axg_rule)
         f0, f1 = span(t.axf_rule)
         s0, s1 = int(cond_before[c0]), int(cond_before[c1])
-        sec = _section(t, rows, (r0, r1), (c0, c1), (x0, x1), (a0, a1),
-                       (g0, g1), (q0, q1), (gx0, gx1), (f0, f1), (s0, s1))
+        sec, cmap, xmap = _section(t, rows, (r0, r1), (c0, c1), (x0, x1),
+                                   (a0, a1), (g0, g1), (q0, q1), (gx0, gx1),
+                                   (f0, f1), (s0, s1))
         table.append([r0, r1, c0, c1, x0, x1, q0, q1, s0, s1,
-                      sec[TS_NPATH], off, sec.size])
+                      sec[TS_NPATH], off, sec.size, sec[TS_C], sec[TS_X]])
         sections.append(sec)
+        maps.append((cmap, xmap))
         off += sec.size
     header = np.zeros(head, dtype=np.int32)
     header[H_NTILES] = len(tiles)
     header[H_TILES] = H_NHEADER
     header[H_NHEADER:] = np.asarray(table, dtype=np.int32).ravel()
     pad = np.zeros(-head % SECTION_ALIGN, dtype=np.int32)
-    return np.concatenate([header, pad, *sections]), tiles
+    return np.concatenate([header, pad, *sections]), tiles, maps
+
+
+def _distinct(table: np.ndarray):
+    """(the distinct rows of ``table`` in order of first appearance, the
+    index of each row's among them)."""
+    if not len(table):
+        return table, np.zeros(0, dtype=np.int64)
+    _, first, inv = np.unique(table, axis=0, return_index=True,
+                              return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    return table[first[order]], rank[np.ravel(inv)]
 
 
 def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
-             sr) -> np.ndarray:
+             sr) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """One tile's section: its header, then its arrays in TS_ order, ids
-    local to the tile, padded to SECTION_ALIGN words."""
+    local to the tile, padded to SECTION_ALIGN words; and its row maps.
+
+    Rows whose every column is equal (tile-local path, gate and condition
+    slot included) give equal flags for every resource, so the section's
+    check and aux tables hold each distinct row once and every list
+    names the distinct row: a block evaluates each once. A condition row
+    has a slot of its own and is never merged. Policy libraries repeat
+    their checks (the 250-policy library's 248 check rows are 6 distinct
+    ones), so this cuts the rows a block evaluates, its largest phase."""
     (r0, r1), (c0, c1), (x0, x1), (a0, a1) = rr, cr, xr, ar
     (g0, g1), (q0, q1), (gx0, gx1), (f0, f1), (s0, s1) = gr, qr, gxr, fr, sr
     ck = rows["chk"][c0:c1].copy()
@@ -527,8 +561,10 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
     ck[:, CK_GATE] = _local(ck[:, CK_GATE], q0, q1, "a gated check row's gate")
     ck[:, CK_COND_SLOT] = _local(ck[:, CK_COND_SLOT], s0, s1,
                                  "a condition slot")
+    ck_d, cmap = _distinct(ck)
+    ax_d, xmap = _distinct(ax)
     parts = {
-        TS_CHK: ck.T, TS_AUX: ax.T, TS_PATHS: paths,
+        TS_CHK: ck_d.T, TS_AUX: ax_d.T, TS_PATHS: paths,
         TS_RULE_FLAGS: rows["flags"][r0:r1],
         TS_RULE_KINDS: rows["kinds"][r0:r1],
         TS_AXG_INFO: rows["axg_info"][gx0:gx1],
@@ -542,6 +578,11 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
             (_local(t.ax_group[x0:x1], gx0, gx1, "an aux row's group"), gx1 - gx0),
     }.items():
         parts[hp], parts[hi] = _csr(seg, n)
+    # rows_of below walks the check rows by their own ids; the lists the
+    # kernel reads name the distinct rows
+    grp_row = parts[TS_GRP_ROW]
+    parts[TS_GRP_ROW] = cmap[grp_row].astype(np.int32)
+    parts[TS_AXG_ROW] = xmap[parts[TS_AXG_ROW]].astype(np.int32)
     nr = r1 - r0
 
     def lists(seg, n, what, lo, hi):
@@ -551,7 +592,7 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
     # pattern entries: rule -> alternatives -> groups -> rows, flattened
     alts_of = lists(t.alt_rule[a0:a1], nr, "an alternative", r0, r1)
     groups_of = lists(t.group_alt[g0:g1], a1 - a0, "a group's alternative", a0, a1)
-    rows_of = [parts[TS_GRP_ROW][parts[TS_GRP_PTR][g]:parts[TS_GRP_PTR][g + 1]]
+    rows_of = [grp_row[parts[TS_GRP_PTR][g]:parts[TS_GRP_PTR][g + 1]]
                for g in range(g1 - g0)]
     kind = (np.where(ck[:, CK_IS_GATE] | ck[:, CK_IS_COND], 0, PE_PLAIN)
             | np.where(ck[:, CK_IS_COND] != 0, PE_COND, 0)
@@ -565,7 +606,8 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
                 rows_g = rows_of[g]
                 for k, c in enumerate(rows_g):
                     end = PE_GROUP_END if k == len(rows_g) - 1 else 0
-                    pat.append((int(c) << PE_SHIFT) | int(kind[c]) | end)
+                    pat.append((int(cmap[c]) << PE_SHIFT) | int(kind[c])
+                               | end)
             if len(pat) == start:
                 pat.append(PE_NOROW)
             pat[-1] |= PE_ALT_END | (PE_MULTI if multi[a] else 0)
@@ -592,7 +634,7 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
     parts[TS_AUXP_PTR], parts[TS_AUXP] = auxp_ptr, auxp
 
     header = np.zeros(TS_NHEADER, dtype=np.int32)
-    header[:TS_CHK] = [c1 - c0, x1 - x0, r1 - r0, q1 - q0, paths.size]
+    header[:TS_CHK] = [len(ck_d), len(ax_d), r1 - r0, q1 - q0, paths.size]
     chunks, off = [header], TS_NHEADER
     for h in range(TS_CHK, TS_NHEADER):
         arr = np.ascontiguousarray(parts[h], dtype=np.int32).ravel()
@@ -600,4 +642,4 @@ def _section(t: PolicyTensors, rows: dict, rr, cr, xr, ar, gr, qr, gxr, fr,
         chunks.append(arr)
         off += arr.size
     chunks.append(np.zeros(-off % SECTION_ALIGN, dtype=np.int32))
-    return np.concatenate(chunks)
+    return np.concatenate(chunks), cmap, xmap

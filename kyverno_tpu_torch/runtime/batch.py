@@ -227,6 +227,10 @@ class AdmissionBatcher:
         self.circuit_cooldown_s = circuit_cooldown_s
         self.stats = {"oracle": 0, "device": 0, "probe": 0,
                       "clean": 0, "attention": 0}
+        # the scan plane's mesh geometry, surfaced for operators reading
+        # the batcher's stats: admission flushes stay on one device, and
+        # KTPU_MESH_SHAPE applies to the background scan plane
+        self.stats["mesh_shape"] = self._mesh_selection()
         # flush-level HOST-cell resolution: cluster-independent host-lane
         # rules (oracle_pool.pool_safe policies) resolve in ONE batched
         # oracle pass per flush instead of per-request full evaluations in
@@ -296,6 +300,15 @@ class AdmissionBatcher:
         self._worker = threading.Thread(target=self._run, name="adm-batch",
                                         daemon=True)
         self._worker.start()
+
+    @staticmethod
+    def _mesh_selection() -> str:
+        """The KTPU_MESH_SHAPE selection as a stats string ("1d" when the
+        switch is unset or off), read from the raw spec: resolving a mesh
+        needs the device inventory, and the batcher constructs before any
+        device is touched."""
+        spec = featureplane.raw("KTPU_MESH_SHAPE").strip().lower()
+        return spec if spec and spec not in ("1", "1d") else "1d"
 
     # ------------------------------------------------------------ routing
 

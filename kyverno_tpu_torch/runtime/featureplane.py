@@ -189,14 +189,21 @@ REGISTRY: dict[str, Switch] = {s.name: s for s in (
 )}
 
 
-def raw(name: str) -> str:
+def declared(name: str) -> Switch | None:
+    return REGISTRY.get(name)
+
+
+def raw(name: str, default: str | None = None) -> str:
     """Dynamic env read of a *declared* switch; the registry default
-    applies when the variable is unset."""
+    applies when the variable is unset (``default`` overrides it for the
+    rare call site whose historical fallback differs)."""
     spec = REGISTRY.get(name)
     if spec is None:
         raise KeyError(f"undeclared feature switch {name!r}; declare it "
                        "in runtime/featureplane.py")
-    return os.environ.get(name, spec.default)
+    if default is None:
+        default = spec.default
+    return os.environ.get(name, default)
 
 
 def is_set(name: str) -> bool:

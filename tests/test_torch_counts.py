@@ -142,7 +142,7 @@ def test_counts_form_matches_jax_2d_programs(case):
     assert sliced, "no shard has fewer live rules than its bucket"
 
 
-@pytest.mark.parametrize("B", [1, 31, 33, 70])
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 65, 70, 129])
 @pytest.mark.parametrize("tile_words", [plan_mod.TILE_WORDS, 600])
 def test_counts_form_equals_plain_pair(B, tile_words):
     """eval_rules_counts equals eval_rules_plain then rule_counts_plain

@@ -92,7 +92,7 @@ def test_scan_counts(case, tile_words):
         assert w.dtype == g.dtype and np.array_equal(w, g), name
 
 
-@pytest.mark.parametrize("B", [0, 1, 31, 32, 33, 300])
+@pytest.mark.parametrize("B", [0, 1, 31, 32, 33, 65, 127, 128, 129, 300])
 def test_scan_masks_and_reduce_equal_counts(B):
     """scan_masks_plain then scan_reduce_plain equal scan_counts_plain on
     seeded verdict matrices over a plan of several rule tiles, with HOST
@@ -122,6 +122,102 @@ def test_scan_masks_and_reduce_equal_counts(B):
         assert w.dtype == g.dtype and torch.equal(w, g), name
     if B >= 32:
         assert bool(want[2].any())
+
+
+@pytest.mark.parametrize("corpus,tile_words", [
+    ("wide", plan_mod.TILE_WORDS), ("crosscheck", 64)])
+@pytest.mark.parametrize("B", [1, 31, 33, 65])
+def test_scan_and_counts_at_group_edges(corpus, tile_words, B):
+    """The scan (masks then K5) and the counts form, plain on the CPU,
+    equal the JAX package's scan and the counts of its verdicts at the
+    kernel's group edges and at a batch that ends inside a group: on the
+    wide corpus (E = 16) and on a plan whose tiles hold a rule alone."""
+    jset, tset = both_sets(corpus_docs(corpus))
+    plan = plan_mod.Plan(tset.tensors, "cpu", tile_words=tile_words)
+    if corpus == "crosscheck":
+        assert (plan.tile_table[:, plan_mod.TT_R1]
+                - plan.tile_table[:, plan_mod.TT_R0] == 1).any()
+    resources = corpus_resources(corpus, B)
+    blob, shp = tset.to_device(tset.flatten(resources))
+    if corpus == "wide":
+        assert shp[2] == 16
+    want = jax_scan(jset, resources)
+    got = ev.scan_blob(plan, blob, *shp)
+    for name, w, g in zip(("fails", "passes", "host_rows"), want, got):
+        assert np.array_equal(w, g.numpy()), name
+    jv = jax_verdicts(jset, resources)
+    live = tset.tensors.n_rules_live
+    v, fails, passes = ev.eval_rules_counts(
+        plan, blob, *shp, ev.match_matrix(plan, blob, *shp), live)
+    assert np.array_equal(v.numpy()[:B, :live], jv)
+    assert np.array_equal(fails.numpy(), (jv == ev.V_FAIL).sum(axis=0))
+    assert np.array_equal(passes.numpy(), (jv == ev.V_PASS).sum(axis=0))
+
+
+def test_eval_rules_constants_match_source():
+    """The group sizes and the launch record the wrappers and the plan's
+    account of shared memory assume are the kernel's own: its largest
+    group is kMaxK words of kMaxTB resources, a mask word per 32
+    resources in every per-row array, and its launch writes LAUNCH_INFO
+    fields."""
+    src = open(os.path.join(os.path.dirname(plan_mod.__file__), "..", "csrc",
+                            "eval_rules.cu")).read()
+
+    def const(name):
+        return int(re.search(rf"\b{name} = (\d+);", src).group(1))
+
+    assert const("kMaxK") * const("kMaxTB") == plan_mod.MAX_GROUP
+
+    assert const("kThreads") == 256
+    assert len(re.findall(r"\bin\[\d\] = ", src)) == ev.LAUNCH_INFO == 4
+    P = plan_mod
+
+    def masks(tb):
+        # one check row's flags, one aux row's, a condition slot's words
+        # at E = 2 and one rule's kind mask, beside the slots and bmeta
+        return (P.tile_bytes(0, 0, 1, 1, 1, 0, 1, 2, tb)
+                - P.tile_bytes(0, 0, 0, 0, 0, 0, 0, 2, tb))
+
+    w = {tb: -(-tb // 32) for tb in (1, 8, 32, 64, 128)}
+    for tb, words in w.items():
+        assert masks(tb) == sum(-(-4 * n * words // P.SM_ALIGN) * P.SM_ALIGN
+                                for n in (P.SM_CHECK_MASKS, P.SM_AUX_MASKS,
+                                          P.SM_COND_WORDS * 2,
+                                          P.SM_RULE_MASKS))
+    for tb in (0, P.MAX_GROUP + 1):
+        with pytest.raises(ValueError, match="a group of"):
+            P.tile_bytes(0, 0, 0, 0, 0, 0, 0, 1, tb)
+    _, tset = both_sets(corpus_docs("library250"))
+    plan = tset.plan
+    for tb in (64, P.MAX_GROUP):
+        assert plan.smem_bytes(1, tb) == max(
+            P.tile_bytes(*P._row_dims(row), 1, tb) for row in plan.tile_table)
+
+
+
+def test_chip_smoke_operations_bound():
+    """chip_smoke's integer-operations count for eval_rules' bound: per
+    resource, each distinct check row on each slot and each distinct aux
+    row of a tile; per 32-resource word, the walks' entries and the
+    rules; the matrix and counts forms' verdict bytes, the counts form's
+    counts; and the bound is the larger of its two terms."""
+    import chip_smoke as cs
+
+    _, tset = both_sets(corpus_docs("library250"))
+    plan = tset.plan
+    R = plan.R
+    m, s_, c = (cs.eval_rules_ops(plan, 1000, 1, f)
+                for f in ("matrix", "scan", "counts"))
+    assert m - s_ == 1000 * R * cs.OPS_BYTE
+    assert c - m == 32 * R * cs.OPS_COUNT
+    # one more resource in the same word: the 6 distinct check rows and
+    # the 3 distinct aux rows of the library's one tile
+    assert (cs.eval_rules_ops(plan, 2, 1, "scan")
+            - cs.eval_rules_ops(plan, 1, 1, "scan")
+            == 6 * cs.OPS_CHECK_SLOT + 3 * cs.OPS_AUX_ROW)
+    assert cs.rules_bound(3_350_000, 0) == (1e-3, "bytes")
+    by_ops = cs.rules_bound(0, int(cs.INT32_OPS_PER_S))
+    assert by_ops[1] == "operations" and abs(by_ops[0] - 1e3) < 1e-9
 
 
 def test_stage_outputs_consistent(case):
@@ -204,37 +300,49 @@ def _section(plan, row):
     return sec, arr, lst
 
 
-@pytest.mark.parametrize("corpus", ["crosscheck", "library250"])
+@pytest.mark.parametrize("corpus", ["crosscheck", "library250", "anchor"])
 def test_plan_csr_walks_cover_segments(corpus):
     """Walking each rule tile's lists (a rule's pattern entries; its aux
     groups' rows) reaches exactly the rows the JAX program's segment ids
-    assign to each rule, with one alternative end per alternative, and
-    the column-major tables hold the compiled columns (paths through the
-    tile's path list, gates and condition slots local to the tile)."""
+    assign to each rule, each through the distinct row it became, with
+    one alternative end per alternative; the column-major tables hold
+    each distinct row once, and through the tile's row maps the compiled
+    columns of every row (paths through the tile's path list, gates and
+    condition slots local to the tile)."""
     _, tset = both_sets(corpus_docs(corpus))
     t, plan = tset.tensors, tset.plan
     P = plan_mod
     cond_slot = np.cumsum(t.chk_is_cond) - 1
-    for row in _tile_table(plan):
+    merged = 0
+    for row, (cmap, xmap) in zip(_tile_table(plan), plan.row_maps):
         sec, arr, lst = _section(plan, row)
         r0, c0, x0 = row[P.TT_R0], row[P.TT_C0], row[P.TT_X0]
         for r in range(row[P.TT_R1] - r0):
             pat = lst(P.TS_PAT_PTR, P.TS_PAT, r)
-            rows = [int(e >> P.PE_SHIFT) + c0 for e in pat if not e & P.PE_NOROW]
-            assert sorted(rows) == np.nonzero(t.chk_rule == r0 + r)[0].tolist()
+            rows = [int(e >> P.PE_SHIFT) for e in pat if not e & P.PE_NOROW]
+            own = np.nonzero(t.chk_rule == r0 + r)[0] - c0
+            assert sorted(rows) == sorted(cmap[own].tolist())
             n_alts = int(np.sum(t.alt_rule == r0 + r))
             assert sum(bool(e & P.PE_ALT_END) for e in pat) == n_alts
-            aux = [int(x) + x0 for e in lst(P.TS_AUXP_PTR, P.TS_AUXP, r)
+            aux = [int(x) for e in lst(P.TS_AUXP_PTR, P.TS_AUXP, r)
                    if not e & P.AE_NOGROUP
                    for x in lst(P.TS_AXG_PTR, P.TS_AXG_ROW, e >> P.AE_SHIFT)]
-            assert sorted(aux) == np.nonzero(t.ax_rule == r0 + r)[0].tolist()
+            own = np.nonzero(t.ax_rule == r0 + r)[0] - x0
+            assert sorted(aux) == sorted(xmap[own].tolist())
         Ct, Xt = sec[P.TS_C], sec[P.TS_X]
-        chk = arr(P.TS_CHK, Ct * P.CK_NCOLS).reshape(P.CK_NCOLS, Ct)
-        aux_t = arr(P.TS_AUX, Xt * P.AX_NCOLS).reshape(P.AX_NCOLS, Xt)
+        assert (Ct, Xt) == (row[P.TT_NCHK], row[P.TT_NAUX])
+        chk_d = arr(P.TS_CHK, Ct * P.CK_NCOLS).reshape(P.CK_NCOLS, Ct)
+        aux_d = arr(P.TS_AUX, Xt * P.AX_NCOLS).reshape(P.AX_NCOLS, Xt)
+        for d in (chk_d, aux_d):
+            assert len({tuple(c) for c in d.T}) == d.shape[1]
+        chk, aux_t = chk_d[:, cmap], aux_d[:, xmap]
         paths = arr(P.TS_PATHS, sec[P.TS_NPATH])
         c1, x1 = row[P.TT_C1], row[P.TT_X1]
+        assert len(cmap) == c1 - c0 and len(xmap) == x1 - x0
+        merged += (c1 - c0 - Ct) + (x1 - x0 - Xt)
         assert np.array_equal(paths[chk[P.CK_PATH]], t.chk_path[c0:c1])
         assert np.array_equal(chk[P.CK_OP], t.chk_op[c0:c1])
+        assert np.array_equal(chk[P.CK_IS_GATE], t.chk_is_gate_row[c0:c1])
         gate = t.chk_gate[c0:c1]
         assert np.array_equal(np.where(gate >= 0, chk[P.CK_GATE] + row[P.TT_GATE0], -1),
                               gate)
@@ -243,6 +351,10 @@ def test_plan_csr_walks_cover_segments(corpus):
             np.where(slot >= 0, chk[P.CK_COND_SLOT] + row[P.TT_SLOT0], -1), slot)
         assert np.array_equal(paths[aux_t[P.AX_PATH]], np.maximum(t.ax_path[x0:x1], 0))
         assert np.array_equal(aux_t[P.AX_OP], t.ax_op[x0:x1])
+        assert np.array_equal(aux_t[P.AX_KIND], t.ax_kind_req[x0:x1])
+    if corpus == "library250":
+        # 248 check rows are 6 distinct ones, 248 aux rows 3
+        assert merged == (248 - 6) + (248 - 3)
 
 
 @pytest.mark.parametrize("corpus,tile_words", [
