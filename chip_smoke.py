@@ -1446,6 +1446,55 @@ def span_summary(traces) -> str:
                f"{max(durs):.3f}" if durs else ""))
 
 
+def flush_split(flushes, calls) -> dict:
+    """Where the given flush traces spent their time, each stage as (sum
+    ms, largest ms of one flush): ``flush`` the whole flush, ``answered``
+    (from its start to its last waiter's answer), ``flatten``,
+    ``memo_store`` (the row memo's store), ``call`` (the dispatch's call
+    into the runtime, from ``calls``: DispatchLog records of the same
+    flushes), ``host_join`` (the wait on the host lane's prefetch),
+    ``fanout`` (the host-lane pass after the join), ``scatter`` (the
+    flush's counts in bulk and the answers handed to the waiters). ``cells`` counts the HOST cells the
+    flushes' host lane resolved by lane (memo, pool, inline)."""
+    stages = {k: [] for k in ("flush", "answered", "flatten", "memo_store",
+                              "call", "host_join", "fanout", "scatter")}
+    cells = {"memo": 0, "pool": 0, "inline": 0}
+    for tr in flushes:
+        per = {k: 0.0 for k in stages}
+        per["flush"] = tr.duration_s * 1e3
+        for sp in tr.spans:
+            ms = sp.duration_s * 1e3
+            if sp.name == "scatter":
+                per["answered"] = max(per["answered"],
+                                      (sp.t1 - tr.t_start) * 1e3)
+            if sp.name in ("flatten", "memo_store", "host_join", "scatter"):
+                per[sp.name] += ms
+            elif sp.name == "scatter_counts":
+                per["scatter"] += ms
+            elif sp.name == "host_resolve":
+                per["fanout"] += ms
+            elif sp.name == "host_resolve_row":
+                lab = sp.labels
+                cells["memo"] += int(lab.get("memo_hits", 0))
+                lane = lab.get("lane")
+                if lane in ("pool", "inline"):
+                    cells[lane] += int(lab.get("misses", 0))
+        # the join runs inside the host_resolve span
+        per["fanout"] = max(0.0, per["fanout"] - per["host_join"])
+        for k, v in per.items():
+            stages[k].append(v)
+    for rec in calls:
+        try:
+            ph = rec["handle"].phases()
+        except Exception:
+            ph = None
+        stages["call"].append(0.0 if not ph else ph["call"])
+    out = {k: (round(sum(v), 3), round(max(v, default=0.0), 3))
+           for k, v in stages.items()}
+    out["cells"] = cells
+    return out
+
+
 def k6_split(cps, batch, n: int = 50) -> dict:
     """``evaluate_device_async(batch).get()`` split by phase, K6 (donate)
     and the plain route, medians of ``n`` calls each. ``wall`` is the
@@ -1718,6 +1767,11 @@ class DispatchLog:
 
     def __init__(self):
         self.calls, self.pauses, self._gc = [], [], {}
+        # K6's slot picks (t0, t1, thread, set, shape) and slot captures
+        # (t0, t1, thread, set, shape, whether the ring's lock was held)
+        self.picks, self.captures = [], []
+        # K6 slots' finalizers (t0, t1)
+        self.finals = []
         self.in_oracle = 0
         self._lock = threading.Lock()
 
@@ -1727,12 +1781,18 @@ class DispatchLog:
 
     def _on_gc(self, phase, info):
         if phase == "start":
-            self._gc[threading.get_ident()] = time.perf_counter()
+            self._gc[threading.get_ident()] = (time.perf_counter(),
+                                               time.thread_time())
         else:
             t0 = self._gc.pop(threading.get_ident(), None)
             if t0 is not None:
-                self.pauses.append((info["generation"], t0,
-                                    time.perf_counter()))
+                # the collecting thread's own CPU beside the wall: a
+                # collection whose finalizers give up the interpreter lock
+                # waits behind every other thread each time
+                self.pauses.append((info["generation"], t0[0],
+                                    time.perf_counter(),
+                                    time.thread_time() - t0[1],
+                                    info.get("collected", 0)))
 
     def __enter__(self):
         from kyverno_tpu_torch.models import engine
@@ -1759,6 +1819,47 @@ class DispatchLog:
             return _TimedHandle(h, rec)
 
         engine.CompiledPolicySet.evaluate_device_async = timed
+        self._orig_pick = engine.CompiledPolicySet._k6_slot
+        self._orig_capture = engine._Slot._capture
+        picking = threading.local()
+        picks, captures = self.picks, self.captures
+        pick0, capture0 = self._orig_pick, self._orig_capture
+
+        def pick(cps, shp, words):
+            picking.cps = cps
+            t0 = time.perf_counter()
+            try:
+                return pick0(cps, shp, words)
+            finally:
+                picks.append((t0, time.perf_counter(),
+                              threading.get_ident(), id(cps), shp))
+                picking.cps = None
+
+        def capture(slot, plan, shp):
+            cps = getattr(picking, "cps", None)
+            locked = cps is not None and cps._k6_lock._is_owned()
+            t0 = time.perf_counter()
+            try:
+                return capture0(slot, plan, shp)
+            finally:
+                captures.append((t0, time.perf_counter(),
+                                 threading.get_ident(),
+                                 None if cps is None else id(cps), shp,
+                                 locked))
+
+        self._orig_del = engine._Slot.__del__
+        del0, finals = self._orig_del, self.finals
+
+        def finalize(slot):
+            t0 = time.perf_counter()
+            try:
+                del0(slot)
+            finally:
+                finals.append((t0, time.perf_counter()))
+
+        engine.CompiledPolicySet._k6_slot = pick
+        engine._Slot._capture = capture
+        engine._Slot.__del__ = finalize
         engine.PHASE_TIMING = True
         gc.callbacks.append(self._on_gc)
         return self
@@ -1767,6 +1868,49 @@ class DispatchLog:
         gc.callbacks.remove(self._on_gc)
         self.engine.PHASE_TIMING = False
         self.engine.CompiledPolicySet.evaluate_device_async = self._orig
+        self.engine.CompiledPolicySet._k6_slot = self._orig_pick
+        self.engine._Slot._capture = self._orig_capture
+        self.engine._Slot.__del__ = self._orig_del
+
+    def gc2_report(self, since: float) -> list:
+        """Each generation-2 collection since ``since``: wall ms, the
+        collecting thread's CPU ms, objects collected, and the K6 slots
+        finalized inside it with their ms."""
+        out = []
+        for g, p0, p1, cpu, collected in self.pauses:
+            if g != 2 or p0 < since:
+                continue
+            inside = [f1 - f0 for f0, f1 in self.finals
+                      if p0 <= f0 and f1 <= p1]
+            out.append((round((p1 - p0) * 1e3, 3), round(cpu * 1e3, 3),
+                        collected, len(inside),
+                        round(sum(inside) * 1e3, 3)))
+        return out
+
+    def capture_report(self, since: float) -> dict:
+        """K6's slot captures since ``since`` (perf_counter): how many,
+        their ms, the ms of them spent holding the ring's lock, and the
+        slot picks of other threads on the same set that began during a
+        capture and returned only after it ended (flushes that waited on
+        it, not having begun a capture of their own meanwhile (flushes
+        that waited on it), with the ms they waited."""
+        caps = [c for c in self.captures if c[0] >= since]
+        waited, wait_ms = 0, 0.0
+        for c0, c1, tid, cps, _, _ in caps:
+            for p0, p1, ptid, pcps, _ in self.picks:
+                if (ptid != tid and pcps == cps and c0 <= p0 < c1 <= p1
+                        and not any(t == ptid and p0 <= a < c1
+                                    for a, _, t, *_ in caps)):
+                    waited += 1
+                    wait_ms += (c1 - p0) * 1e3
+        return {"captures": len(caps),
+                "capture_ms": round(sum(c1 - c0 for c0, c1, *_ in caps)
+                                    * 1e3, 3),
+                "capture_max_ms": round(max((c1 - c0 for c0, c1, *_ in caps),
+                                            default=0.0) * 1e3, 3),
+                "locked_ms": round(sum(c[1] - c[0] for c in caps if c[5])
+                                   * 1e3, 3),
+                "waited": waited, "waited_ms": round(wait_ms, 3)}
 
     def report(self, label: str, traces: list, batcher, since: float) -> dict:
         """Log every call since ``since`` (perf_counter) slower than
@@ -1788,7 +1932,7 @@ class DispatchLog:
             except Exception as e:          # noted, not raised
                 split = f"not read: {e!r}"
             gcs = {}
-            for g, p0, p1 in self.pauses:
+            for g, p0, p1, *_ in self.pauses:
                 if p0 < t1 and rec["t0"] < p1:
                     n, tot = gcs.get(g, (0, 0.0))
                     gcs[g] = (n + 1, round(tot + (p1 - p0) * 1e3, 3))
@@ -1978,6 +2122,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
 
         def burst_logged(salt, since):
             pool.ensure(*cache.snapshot())
+            warm_misses0 = pool.misses
             for p, c in [admission_request(i, f"{salt}s") for i in range(32)]:
                 one(p, c, [])
             pre = dict(batcher.stats)
@@ -2003,6 +2148,9 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             k0 = dict(engine.K6_ALLOC)
             pc0 = resolver.stats["pool_cells"]
             hits0, misses0 = pool.hits, pool.misses
+            # the pool's own breaker (consecutive misses) as the burst
+            # begins: seconds it stays shut
+            pool_shut_s = max(0.0, pool._disabled_until - time.monotonic())
             # the garbage collector's pauses inside the burst, by generation
             pauses, started, spans = [], {}, []
 
@@ -2034,6 +2182,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                 len(cache.compiled(enf, "Pod", "default").policies))
             _build.reset_launches()
             gc.callbacks.append(on_gc)
+            t_timed = time.perf_counter()
             sampler.start()
             try:
                 burst_s = concurrent_round(reqs, answers)
@@ -2060,10 +2209,24 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
             stall = {k: (len(v), round(sum(v), 1), round(max(v, default=0.0),
                                                          1))
                      for k, v in stalls.items()}
+            # the timed burst's flushes' split, K6's slot captures in the
+            # burst and its warm rounds, and where the HOST cells went
+            split = flush_split(flushes, [c for c in dlog.calls
+                                          if c["t0"] >= t_timed])
+            split.update(dlog.capture_report(since))
+            split["gc2_detail"] = dlog.gc2_report(since)
+            split.update(run=salt, pool_cells=resolver.stats["pool_cells"] - pc0,
+                         pool_misses=pool.misses - misses0,
+                         warm_pool_misses=misses0 - warm_misses0,
+                         pool_shut_s=round(pool_shut_s, 3),
+                         gc2=(len(gc2), round(sum(gc2), 3),
+                              round(max(gc2, default=0.0), 3)),
+                         screen_timeout=stats.get("screen_timeout", 0))
             BURST_STATS.append(dict(stats, gc2_ms=sum(gc2),
                                     gc2_max_ms=max(gc2, default=0.0),
                                     stall_gc_ms=stall["gc"][1],
-                                    stall_other_ms=stall["other"][1]))
+                                    stall_other_ms=stall["other"][1],
+                                    split=split))
             # the device-answered requests (a device row: CLEAN, or
             # ATTENTION with its cells) apart from those the screen gave
             # up on (ATTENTION with no cells: a timeout, a cold release
@@ -2084,6 +2247,7 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                                    + rec.slowest(32),
                                    batcher, since)
             return {"dispatch": dispatch, "answers": answers, "burst_s": burst_s,
+                    "split": split,
                     "launches": launches, "flushes": len(flushes),
                     "spans": span_summary(flushes),
                     "gc": {g: (len([p for q, p in pauses if q == g]),
@@ -2159,6 +2323,13 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                         os.environ.pop(k, None)
                     else:
                         os.environ[k] = v
+            log(f"[admission] burst {label}: the timed flushes' split, ms "
+                f"(sum, largest of one flush), K6's slot captures in the "
+                f"burst and its warm rounds (ms; ms with the ring's lock "
+                f"held; picks that waited on one, and their ms), HOST cells "
+                f"by lane, pool misses (timed, warm rounds), the pool's "
+                f"breaker shut s at the start, generation-2 pauses (count, "
+                f"ms, largest ms), screen timeouts: {res['split']}")
             kinds, check_s = hold_to_oracle(label, res)
             st = res["stats"]
             check(st.get("device", 0) > 0 and res["n"]["device"] > 0,
@@ -2174,7 +2345,8 @@ def admission_phase(library_docs: list, run: str = "") -> dict:
                   f"{STALL_MS} ms or more (count, total ms, largest ms) "
                   f"during a collector's pause {res['stall']['gc']}, "
                   f"outside one {res['stall']['other']}; _device_favored's "
-                  f"inputs as the burst began {res['favored']}")
+                  f"inputs as the burst began {res['favored']}; split "
+                  f"{res['split']}")
             # every answer without a device row is accounted for: a flush
             # never fails, and each ATTENTION with no cells is a screen
             # timeout or a flush's release of its waiter (a cold bucket)
@@ -6086,7 +6258,9 @@ def main() -> int:
                 admission_phase(library_docs, run=f"a{i}")
             except AssertionError as e:
                 failed.append(i + 1)
-                log(f"[admission] run {i + 1} failed: {e}")
+                log(f"[admission] run {i + 1} failed: {e}; the last timed "
+                    f"burst's split "
+                    f"{BURST_STATS[-1]['split'] if BURST_STATS else None}")
             log(f"[admission] run {i + 1} of {args.admission}: "
                 f"{time.perf_counter() - t0:.3f} s")
         total = {k: sum(b.get(k, 0) for b in BURST_STATS) for k in (
@@ -6110,6 +6284,36 @@ def main() -> int:
             f"{sum(b['stall_other_ms'] for b in BURST_STATS):.1f}; per burst "
             f"(outside, during): "
             f"{[(b['stall_other_ms'], b['stall_gc_ms']) for b in BURST_STATS]}")
+        log("[admission] per timed burst (its salt): screen timeouts; "
+            "flush ms sum/max; answered (flush start to its last answer) "
+            "sum/max; memo store sum/max; dispatch call sum/max; "
+            "host join sum/max; fan-out sum/max; K6 captures (n, ms, ms "
+            "under the ring's lock, picks that waited, their ms); HOST "
+            "cells memo/pool/inline; pool misses timed/warm; pool breaker "
+            "shut s; gen-2 pauses (n, ms, max ms); every gen-2 collection "
+            "of the burst and its warm rounds (wall ms, the collecting "
+            "thread's CPU ms, objects collected, K6 slots finalized in it, "
+            "their ms): " + "; ".join(
+                f"({sp['run']}) {sp['screen_timeout']}; "
+                f"{sp['flush'][0]}/{sp['flush'][1]}; "
+                f"{sp['answered'][0]}/{sp['answered'][1]}; "
+                f"{sp['memo_store'][0]}/{sp['memo_store'][1]}; "
+                f"{sp['call'][0]}/{sp['call'][1]}; "
+                f"{sp['host_join'][0]}/{sp['host_join'][1]}; "
+                f"{sp['fanout'][0]}/{sp['fanout'][1]}; "
+                f"({sp['captures']}, {sp['capture_ms']}, {sp['locked_ms']}, "
+                f"{sp['waited']}, {sp['waited_ms']}); "
+                f"{sp['cells']['memo']}/{sp['cells']['pool']}/"
+                f"{sp['cells']['inline']}; {sp['pool_misses']}/"
+                f"{sp['warm_pool_misses']}; {sp['pool_shut_s']}; {sp['gc2']}; "
+                f"{sp['gc2_detail']}"
+                for sp in (b["split"] for b in BURST_STATS)))
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with open(os.path.join(ROOT, "build",
+                               f"admission_bursts_{int(time.time())}.json"),
+                  "w") as f:
+            json.dump({"failed": failed, "bursts": BURST_STATS}, f,
+                      default=str)
         by_route = {}
         for d in SLOW_DISPATCHES:
             by_route.setdefault(d["route"], []).append(d["ms"])

@@ -362,32 +362,52 @@ class FabricSocketServer:
 
 class SocketTransport:
     """Synchronous request/response over one framed connection (one
-    in-flight frame per transport; the per-replica client serializes)."""
+    in-flight frame per transport; the per-replica client serializes).
+    A call that fails mid-frame (a timeout, a closed peer) leaves the
+    stream out of step, its late reply ready to answer the next request:
+    the connection is dropped, and the next call opens a fresh one."""
 
     def __init__(self, host: str, port: int, timeout_s: float = 2.0):
         self._lock = threading.Lock()
-        self._sock = socket.create_connection((host, port),
+        self._addr, self._timeout_s = (host, port), timeout_s
+        self._sock = socket.create_connection(self._addr,
                                               timeout=timeout_s)
 
     def __call__(self, payload: bytes) -> bytes:
         with self._lock:
-            self._sock.sendall(_LEN_PREFIX.pack(len(payload)) + payload)
-            hdr = _read_exact(self._sock, _LEN_PREFIX.size)
-            if hdr is None:
-                raise FabricError("fabric connection closed")
-            (length,) = _LEN_PREFIX.unpack(hdr)
-            if length > MAX_FRAME_BYTES:
-                raise FabricError(f"oversized fabric reply: {length}")
-            reply = _read_exact(self._sock, length)
-            if reply is None:
-                raise FabricError("fabric connection closed mid-reply")
-            return reply
+            if self._sock is None:
+                self._sock = socket.create_connection(
+                    self._addr, timeout=self._timeout_s)
+            try:
+                return self._exchange(payload)
+            except BaseException:
+                self._drop()
+                raise
+
+    def _exchange(self, payload: bytes) -> bytes:
+        self._sock.sendall(_LEN_PREFIX.pack(len(payload)) + payload)
+        hdr = _read_exact(self._sock, _LEN_PREFIX.size)
+        if hdr is None:
+            raise FabricError("fabric connection closed")
+        (length,) = _LEN_PREFIX.unpack(hdr)
+        if length > MAX_FRAME_BYTES:
+            raise FabricError(f"oversized fabric reply: {length}")
+        reply = _read_exact(self._sock, length)
+        if reply is None:
+            raise FabricError("fabric connection closed mid-reply")
+        return reply
+
+    def _drop(self) -> None:
+        sock, self._sock = self._sock, None
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def close(self) -> None:
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        with self._lock:
+            self._drop()
 
 
 # ----------------------------------------------------------------- client

@@ -106,8 +106,9 @@ def donation_enabled() -> bool:
 DONATION_STATS = {"dispatches": 0, "donated_buffers": 0}
 K6_ALLOC = {"slots": 0, "seconds": 0.0}
 _STATS_LOCK = threading.Lock()
-# slots a shape bucket keeps; with every one held, a dispatch takes the
-# oldest and its holder's verdicts are copied out first
+# slots a shape bucket keeps, those being built included; with every one
+# held, a dispatch takes the oldest and its holder's verdicts are copied
+# out first
 K6_SLOTS = 4
 # a slot's holder between its pick and its handle
 _DISPATCHING = object()
@@ -454,8 +455,10 @@ class CompiledPolicySet:
         # plans on the other devices of a mesh row (plan_on)
         self._plans: dict[str, Plan] = {}
         self._plans_lock = threading.Lock()
-        # K6: shape bucket (B, P, E, V) -> its slots
+        # K6: shape bucket (B, P, E, V) -> its slots, and the slots of
+        # each bucket being built (their places reserved, not in the ring)
         self._k6: dict[tuple, list[_Slot]] = {}
+        self._k6_building: dict[tuple, int] = {}
         self._k6_lock = threading.Condition()
         self._k6_seq = 0
         self.donation_stats = {"dispatches": 0, "donated_buffers": 0}
@@ -599,7 +602,11 @@ class CompiledPolicySet:
 
     def _k6_slot(self, shp: tuple, words: int) -> tuple[_Slot, bool]:
         """A slot of the shape bucket ``shp`` for one dispatch, and
-        whether it was allocated before (a reused device blob)."""
+        whether it was allocated before (a reused device blob). A new slot
+        is built and captured outside the ring's lock: its place is
+        reserved under the lock, and the slot is published, already held
+        by this dispatch, under it again. Meanwhile other buckets'
+        dispatches, and this bucket's on its ready slots, go on."""
         with self._k6_lock:
             ring = self._k6.setdefault(shp, [])
             while True:
@@ -609,16 +616,10 @@ class CompiledPolicySet:
                 handles = [(s, s.handle) for s in ring]
                 slot = next((s for s, h in handles if h is None), None)
                 if slot is not None:
-                    reused = True
                     break
-                if len(ring) < K6_SLOTS:
-                    t0 = time.perf_counter()
-                    slot = _Slot(self.plan, shp, words, self.device)
-                    with _STATS_LOCK:
-                        K6_ALLOC["slots"] += 1
-                        K6_ALLOC["seconds"] += time.perf_counter() - t0
-                    ring.append(slot)
-                    reused = False
+                building = self._k6_building.get(shp, 0)
+                if len(ring) + building < K6_SLOTS:
+                    self._k6_building[shp] = building + 1
                     break
                 held = [(s, h) for s, h in handles
                         if isinstance(h, AsyncVerdicts)]
@@ -631,14 +632,36 @@ class CompiledPolicySet:
                     with holder._lock:
                         if holder._verdicts is None:
                             holder._materialize()
-                    reused = True
                     break
-                # every slot is between its pick and its handle
+                # every slot is between its pick and its handle, or being
+                # built
                 self._k6_lock.wait(0.001)
-            self._k6_seq += 1
-            slot.seq = self._k6_seq
-            slot.handle = _DISPATCHING
-        return slot, reused
+            if slot is not None:
+                self._hold(slot)
+                return slot, True
+        t0 = time.perf_counter()
+        try:
+            slot = _Slot(self.plan, shp, words, self.device)
+        except BaseException:
+            with self._k6_lock:
+                self._k6_building[shp] -= 1
+                self._k6_lock.notify_all()
+            raise
+        with _STATS_LOCK:
+            K6_ALLOC["slots"] += 1
+            K6_ALLOC["seconds"] += time.perf_counter() - t0
+        with self._k6_lock:
+            self._k6_building[shp] -= 1
+            ring.append(slot)
+            self._hold(slot)
+            self._k6_lock.notify_all()
+        return slot, False
+
+    def _hold(self, slot: _Slot) -> None:
+        """Mark ``slot`` taken by a dispatch (the ring's lock held)."""
+        self._k6_seq += 1
+        slot.seq = self._k6_seq
+        slot.handle = _DISPATCHING
 
     def _dispatch_k6(self, batch, live: int,
                      phases: _Phases | None = None) -> AsyncVerdicts:

@@ -24,7 +24,11 @@ admission webhook timeout.
 A warm flush dispatches through K6 (``evaluate_device_async(batch,
 donate=True)``: pinned staging and a persistent device blob per shape
 bucket); a flush's HOST cells resolve through the host lane, whose
-admission payloads may go to an attached ``OraclePool``.
+admission payloads may go to an attached ``OraclePool``. A flush hands
+its waiters their rows in bulk (``_ScatterTable``). It queues its
+row-memo rows where the JAX batcher stores them and stores them after
+its answers; a lookup first stores whatever is queued, so the memo holds
+the rows and counts the hits the JAX batcher's does.
 
 This is the JAX package's batcher. Its SLO-actions plane
 (runtime/sloactions.py) scales the coalescing window, lowers the pad
@@ -131,6 +135,81 @@ class _Bucket:
         # admission context payload a flush needs to resolve HOST cells
         self.items: list[tuple] = []
         self.seq = next(self._seq)    # stable identity (id() gets reused)
+
+
+# a verdict's enum member and name by its value
+_VERDICT_OF = {int(v): v for v in Verdict}
+
+
+class _ScatterTable:
+    """A compiled set's rules in rule order, for a flush's scatter: the
+    verdict columns (``cols``), each rule's (policy, rule, column), and
+    each rule's cell without a message for every verdict value."""
+
+    __slots__ = ("cols", "names", "cells")
+
+    def __init__(self, cps):
+        self.cols = np.array([ref.rule_index for ref in cps.rule_refs],
+                             dtype=np.intp)
+        self.names = [(ref.policy.name, ref.rule.name, ref.rule_index)
+                      for ref in cps.rule_refs]
+        self.cells = [{v: (p, r, member, "")
+                       for v, member in _VERDICT_OF.items()}
+                      for p, r, _ in self.names]
+
+    def row(self, cells, messages: dict | None) -> list:
+        """One waiter's row: (policy, rule, Verdict, message) for each
+        applicable rule in rule order; the message is the host lane's
+        for the cells it resolved, else ""."""
+        if messages:
+            return [(p, r, _VERDICT_OF[x], messages.get(ri, ""))
+                    for (p, r, ri), x in zip(self.names, cells.tolist())
+                    if x]
+        return [cell[x] for cell, x in zip(self.cells, cells.tolist()) if x]
+
+    def counts(self, cells) -> tuple[dict, dict, dict]:
+        """Over the applicable cells of ``cells`` [rows, rules] taken row
+        by row in rule order: counts by verdict name, of the cells not
+        PASS or SKIP by rule name, and by (policy, rule, verdict name),
+        each dict's keys in the order of their first cell."""
+        if not cells.shape[1]:
+            return {}, {}, {}
+        flat = cells.ravel()
+        at = np.flatnonzero(flat)
+        vals = flat[at].astype(np.int64)
+        cols = at % cells.shape[1]
+        names = self.names
+        by_verdict: dict[str, int] = {}
+        for v, n in _first_seen(vals):
+            by_verdict[_VERDICT_OF[v].name] = n
+        flagged: dict[str, int] = {}
+        keep = (vals != Verdict.PASS) & (vals != Verdict.SKIP)
+        for c, n in _first_seen(cols[keep]):
+            rule = names[c][1]
+            flagged[rule] = flagged.get(rule, 0) + n
+        attrib: dict[tuple, int] = {}
+        for code, n in _first_seen(cols * 8 + vals):
+            c, v = divmod(code, 8)
+            key = (names[c][0], names[c][1], _VERDICT_OF[v].name)
+            attrib[key] = attrib.get(key, 0) + n
+        return by_verdict, flagged, attrib
+
+
+def _first_seen(values) -> list[tuple[int, int]]:
+    """(value, count) of each distinct value, in the order of its first
+    occurrence."""
+    uniq, first, count = np.unique(values, return_index=True,
+                                   return_counts=True)
+    order = np.argsort(first, kind="stable")
+    return list(zip(uniq[order].tolist(), count[order].tolist()))
+
+
+def _scatter_table(cps) -> _ScatterTable:
+    """The compiled set's scatter table, built once and kept on it."""
+    table = getattr(cps, "_ktpu_scatter", None)
+    if table is None:
+        table = cps._ktpu_scatter = _ScatterTable(cps)
+    return table
 
 
 class AdmissionBatcher:
@@ -259,6 +338,15 @@ class AdmissionBatcher:
         from .resourcecache import FlattenRowCache
 
         self._row_cache = FlattenRowCache(max_rows=row_cache_max)
+        # flushes' memo rows not yet stored: a flush queues them where the
+        # JAX batcher stores them (a partial hit's misses at its flatten,
+        # a zero-hit window's rows in its dispatch's shadow) and stores
+        # them after its answers; a later lookup first stores (or waits
+        # for) every queued one, so each row is in the memo before any
+        # lookup that comes after its queueing. They are taken off the
+        # queue and stored under the lock.
+        self._memo_pending: deque = deque()
+        self._memo_store_lock = threading.Lock()
         # fleet fabric client (fleet/fabric.attach_stack); None = the
         # single-replica build, and KTPU_FABRIC gates every consult even
         # when attached
@@ -1036,6 +1124,8 @@ class AdmissionBatcher:
                                       pipeline_enabled, split_packed_rows)
 
         use_memo = pipeline_enabled()
+        if use_memo:
+            self._drain_memo_stores()
         tensors = cps.tensors
         converted: list = []
         n_ok = len(late_items)
@@ -1142,14 +1232,19 @@ class AdmissionBatcher:
         are memo traffic, so both stay 0 when the kill-switch bypasses
         the memo entirely. On zero memo hits the
         directly-flattened batch comes back untouched (bit-identical to
-        the pre-memo path) and ``deferred`` carries what the caller
-        splits+stores INSIDE the async-dispatch shadow; on any hit the
-        hit rows splice with a single flatten of the misses (stored
-        immediately — the split already happened). Kill-switch off means
-        plain flatten, no memo traffic at all."""
+        the pre-memo path) and ``deferred`` carries it, for the caller
+        to queue in the async dispatch's shadow; on any hit the hit rows
+        splice with a single flatten of the misses, whose rows (the split
+        already happened) are queued here. Queued rows are stored by
+        :meth:`_drain_memo_stores` before any later lookup, so each is
+        in the memo for every lookup that comes after the point where the
+        JAX batcher stores it. Kill-switch off means plain flatten, no
+        memo traffic at all."""
         from ..models.flatten import (PackedRow, pipeline_enabled,
                                       split_packed_rows, splice_packed_rows)
 
+        if pipeline_enabled():
+            self._drain_memo_stores()
         wire_idx = [i for i, r in enumerate(resources)
                     if isinstance(r, PackedRow)]
         if wire_idx:
@@ -1180,10 +1275,9 @@ class AdmissionBatcher:
                             [resources[i] for i in miss_idx]))
                         for j, i in enumerate(miss_idx):
                             rows[i] = miss_rows[j]
-                            cache.put_row(space, digests[i], miss_rows[j],
-                                          tensors.n_paths,
-                                          tensors.dict_epoch,
-                                          fingerprint=tensors.fingerprint)
+                        self._queue_memo_store(
+                            (space, [digests[i] for i in miss_idx],
+                             miss_rows, tensors))
                         n_miss = len(miss_idx)
                 else:
                     miss_rows = split_packed_rows(cps.flatten_packed(
@@ -1224,24 +1318,42 @@ class AdmissionBatcher:
                 cps.flatten_packed([resources[i] for i in miss_idx]))
             for j, i in enumerate(miss_idx):
                 rows[i] = miss_rows[j]
-                cache.put_row(space, digests[i], miss_rows[j],
-                              tensors.n_paths, tensors.dict_epoch,
-                              fingerprint=tensors.fingerprint)
+            self._queue_memo_store((space, [digests[i] for i in miss_idx],
+                                    miss_rows, tensors))
         return splice_packed_rows(rows), n_hits, len(miss_idx), None
 
     def _store_deferred(self, deferred) -> None:
-        """Split a zero-hit flush's fresh batch into memo rows and store
-        them with their dictionary coordinates (runs inside the async
-        dispatch's shadow on the hot path)."""
+        """Store a flush's memo rows with their dictionary coordinates,
+        in one acquisition of the memo's lock: a zero-hit flush's fresh
+        batch split into rows first, or the rows of its misses."""
         if deferred is None:
             return
         from ..models.flatten import split_packed_rows
 
         space, digests, fresh, tensors = deferred
-        for d, row in zip(digests, split_packed_rows(fresh)):
-            self._row_cache.put_row(space, d, row, tensors.n_paths,
-                                    tensors.dict_epoch,
-                                    fingerprint=tensors.fingerprint)
+        rows = fresh if isinstance(fresh, list) else split_packed_rows(fresh)
+        self._row_cache.put_rows(space, zip(digests, rows), tensors.n_paths,
+                                 tensors.dict_epoch,
+                                 fingerprint=tensors.fingerprint)
+
+    def _queue_memo_store(self, deferred) -> None:
+        """Queue a flush's memo rows (a deque append, nothing more); they
+        are stored by :meth:`_drain_memo_stores`, before any later
+        lookup."""
+        if deferred is not None:
+            self._memo_pending.append(deferred)
+
+    def _drain_memo_stores(self) -> bool:
+        """Store every queued flush's memo rows, or wait while another
+        thread stores them: after this, no row queued before the call is
+        missing from the memo. True if there was anything to store or to
+        wait for."""
+        if not self._memo_pending and not self._memo_store_lock.locked():
+            return False
+        with self._memo_store_lock:
+            while self._memo_pending:
+                self._store_deferred(self._memo_pending.popleft())
+        return True
 
     def _flush(self, cps, items, is_probe: bool = False,
                flush_key=None) -> None:
@@ -1367,12 +1479,13 @@ class AdmissionBatcher:
             # the stream response escalates them)
             wire_present = any(isinstance(r, PackedRow) for r in resources)
             # async dispatch: the device starts on this batch NOW; the
-            # host thread spends the flight time on work
-            # that used to run after the blocking eval — splitting and
-            # storing this window's memo rows — and only materializes
-            # verdicts when the scatter below needs them. With the 4-way
-            # flush pool this also lets flush N+1's flatten (its own
-            # worker) overlap flush N's device time.
+            # host thread starts the host lane's prefetch in its flight
+            # and only materializes verdicts when the scatter below needs
+            # them. With the 4-way flush pool this also lets flush N+1's
+            # flatten (its own worker) overlap flush N's device time. A
+            # zero-hit window's memo rows are queued in the same shadow,
+            # where the JAX batcher stores them, and stored after the
+            # waiters have their answers (below), or by an earlier lookup.
             overlap_s = 0.0
             host_pf = None
             if pipeline_enabled() and not cold:
@@ -1390,12 +1503,8 @@ class AdmissionBatcher:
                         and not wire_present):
                     host_pf = self._start_host_prefetch(cps, items,
                                                         resources)
-                if deferred is not None:
-                    m0 = time.perf_counter()
-                    self._store_deferred(deferred)
-                    overlap_s = time.monotonic() - t_disp
-                    rec.add_span(ft, "memo_store", m0, time.perf_counter(),
-                                 lane="dispatch_shadow")
+                self._queue_memo_store(deferred)
+                overlap_s = time.monotonic() - t_disp
                 verdicts = handle.get()
                 rec.add_span(ft, "device_dispatch", d0, time.perf_counter(),
                              lane="async", batch=batch.n)
@@ -1408,11 +1517,7 @@ class AdmissionBatcher:
                              d0, time.perf_counter(),
                              lane="cold" if cold else "serial",
                              batch=batch.n)
-                if deferred is not None:
-                    m0 = time.perf_counter()
-                    self._store_deferred(deferred)
-                    rec.add_span(ft, "memo_store", m0, time.perf_counter(),
-                                 lane="inline")
+                self._queue_memo_store(deferred)
             dt = time.monotonic() - t0
             cpu_dt = time.thread_time() - cpu0
             with self._lock:
@@ -1458,59 +1563,53 @@ class AdmissionBatcher:
                                              if host_pf is not None else 0),
                              lane=("prefetch" if host_pf is not None
                                    else "post_pass"))
-            flush_cells: dict[str, int] = {}
-            flagged_rules: dict[str, int] = {}
-            esc: dict[str, int] = {}
-            # per-flush attribution aggregate: (policy, rule, verdict) ->
+            # the flush's cells in rule order ([rows, rules], NOT_APPLICABLE
+            # included) and their counts over the whole flush, in bulk:
+            # flush_cells by verdict, flagged_rules by rule name, and the
+            # per-flush attribution aggregate (policy, rule, verdict) ->
             # count, folded into the bounded top-K registry feed at
             # _note_flush_stats (one recorder call per flush, never one
-            # per cell — the scatter loop stays a dict increment)
-            attrib: dict[tuple, int] = {}
+            # per cell)
+            sc0 = time.perf_counter()
+            scatter = _scatter_table(cps)
+            cells = np.asarray(verdicts)[:len(items)][:, scatter.cols]
+            flush_cells, flagged_rules, attrib = scatter.counts(cells)
+            flagged = ((cells != Verdict.NOT_APPLICABLE)
+                       & (cells != Verdict.PASS) & (cells != Verdict.SKIP))
+            row_flagged = flagged.any(axis=1).tolist()
+            row_host = (cells == Verdict.HOST).any(axis=1).tolist()
+            row_error = (cells == Verdict.ERROR).any(axis=1).tolist()
+            row_messages: dict[int, dict] = {}
+            for (b, r), msg in messages.items():
+                row_messages.setdefault(b, {})[r] = msg
+            esc: dict[str, int] = {}
+            rec.add_span(ft, "scatter_counts", sc0, time.perf_counter(),
+                         rows=len(items))
             base_spans = list(ft.spans) if ft is not None else None
             for b, (_, _, fut) in enumerate(items):
                 s0 = time.perf_counter()
-                row = []
-                clean = True
-                saw = {"host": False, "error": False, "fail": False}
-                for ref in cps.rule_refs:
-                    v = Verdict(verdicts[b, ref.rule_index])
-                    if v is Verdict.NOT_APPLICABLE:
-                        continue
-                    msg = messages.get((b, ref.rule_index), "")
-                    row.append((ref.policy.name, ref.rule.name, v, msg))
-                    flush_cells[v.name] = flush_cells.get(v.name, 0) + 1
-                    ak = (ref.policy.name, ref.rule.name, v.name)
-                    attrib[ak] = attrib.get(ak, 0) + 1
-                    if v not in (Verdict.PASS, Verdict.SKIP):
-                        clean = False
-                        flagged_rules[ref.rule.name] = (
-                            flagged_rules.get(ref.rule.name, 0) + 1)
-                        if v is Verdict.HOST:
-                            saw["host"] = True
-                        elif v is Verdict.ERROR:
-                            saw["error"] = True
-                        else:
-                            saw["fail"] = True
                 # escalation reason, most-blocking first: an unresolved
                 # HOST cell forces the webhook's oracle no matter what
                 # else the row says; ERROR next; FAIL may still deny
                 # directly from the device row
-                if clean:
+                if not row_flagged[b]:
                     reason = "clean"
-                elif saw["host"]:
+                elif row_host[b]:
                     reason = "host_unresolved"
-                elif saw["error"]:
+                elif row_error[b]:
                     reason = "device_error"
                 else:
                     reason = "device_fail"
                 esc[reason] = esc.get(reason, 0) + 1
                 if not fut.done():
+                    row = scatter.row(cells[b], row_messages.get(b))
                     sp = rec.add_span(ft, "scatter", s0,
                                       time.perf_counter(), row=b,
                                       reason=reason)
                     if base_spans is not None:
                         fut.ktpu_flush_spans = base_spans + [sp]
-                    fut.set_result((CLEAN if clean else ATTENTION, row, True))
+                    fut.set_result((ATTENTION if row_flagged[b] else CLEAN,
+                                    row, True))
             # SLO load-shed annotation: a degraded fleet stamps the
             # flush trace + a stat counter; verdicts are untouched by
             # construction. The controller tick rides along so flush
@@ -1547,6 +1646,12 @@ class AdmissionBatcher:
                                    namespace=(flush_key[2]
                                               if flush_key else None),
                                    flush_s=time.monotonic() - t0)
+            # the memo rows still queued (this window's or another's)
+            # are stored off the waiters' path
+            m0 = time.perf_counter()
+            if self._drain_memo_stores():
+                rec.add_span(ft, "memo_store", m0, time.perf_counter(),
+                             lane="after_answers")
         except Exception:
             # the waiters still get an answer (ATTENTION: the oracle
             # lane), but a failed flush is counted and logged, never

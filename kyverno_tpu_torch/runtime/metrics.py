@@ -369,9 +369,10 @@ def record_flatten_rows(registry: MetricsRegistry, hits: int = 0,
 
 def record_pipeline_overlap(registry: MetricsRegistry,
                             seconds: float) -> None:
-    """Host seconds spent doing useful work (memo row split/store, next
-    window's flatten) inside an async device dispatch's shadow — time
-    the serial dataflow would have added to the critical path."""
+    """Host seconds spent doing useful work (the host lane's prefetch
+    start, next window's flatten) inside an async device dispatch's
+    shadow — time the serial dataflow would have added to the critical
+    path."""
     registry.inc_counter("kyverno_pipeline_overlap_seconds_total", {},
                          seconds)
 

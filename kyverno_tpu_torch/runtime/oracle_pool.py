@@ -36,6 +36,13 @@ import threading
 from concurrent.futures import ProcessPoolExecutor
 
 MIN_CORES = 4
+# a pool call's wait is taken in slices this long (s), and a slice that
+# took longer (the calling process stalled: a garbage collection, the
+# interpreter lock) counts as this long: the call's timeout measures the
+# pool, not a stall of its caller, during which no answer can be read.
+# The wait's wall time is still capped at WAIT_WALL_CAP times the timeout.
+WAIT_SLICE_S = 0.25
+WAIT_WALL_CAP = 2.0
 
 # worker-side state (one policy set per generation)
 _worker_policies: list = []
@@ -266,7 +273,8 @@ class OraclePool:
         """Submit one admission's enforce loop; returns the serialized
         results or None (caller falls back inline). Consecutive misses
         open a cooldown breaker; a broken executor (worker OOM-kill)
-        drops the pool so ensure() rebuilds it."""
+        drops the pool so ensure() rebuilds it. The timeout counts the
+        pool's time, not a stall of this process (:func:`_result_within`)."""
         import time
 
         with self._lock:
@@ -281,7 +289,7 @@ class OraclePool:
             fut = pool.submit(_worker_evaluate, names, resource, request,
                               ns_labels, roles, cluster_roles,
                               exclude_group_role)
-            out = fut.result(timeout=timeout_s)
+            out = _result_within(fut, timeout_s)
             with self._lock:
                 self.hits += 1
                 self._consecutive_misses = 0
@@ -345,6 +353,39 @@ class OraclePool:
             except OSError:
                 pass
             self._launcher = None
+
+
+def _result_within(fut, timeout_s: float):
+    """``fut.result()`` within ``timeout_s`` of waiting, counted slice by
+    slice (:data:`WAIT_SLICE_S`), each slice at most its own length: a
+    stall of this process past a slice does not use up the timeout. The
+    wait also gives up after ``WAIT_WALL_CAP * timeout_s`` of wall time.
+    Either way, when the slice that ran out was a stall (it overran its
+    length by more than a slice), one more slice is waited, so an answer
+    the pool gave during the stall is read once the process runs again.
+    Raises ``TimeoutError`` as ``fut.result`` does."""
+    import time
+    from concurrent.futures import TimeoutError as FuturesTimeout
+
+    waited = 0.0
+    give_up = time.monotonic() + WAIT_WALL_CAP * timeout_s
+    last = False
+    while True:
+        t0 = time.monotonic()
+        step = (WAIT_SLICE_S if last else
+                min(WAIT_SLICE_S, max(0.0, timeout_s - waited),
+                    max(0.0, give_up - t0)))
+        try:
+            return fut.result(timeout=step)
+        except FuturesTimeout:
+            t1 = time.monotonic()
+            waited += min(t1 - t0, step)
+            if last:
+                raise
+            if waited >= timeout_s or t1 >= give_up:
+                if t1 - t0 <= step + WAIT_SLICE_S:
+                    raise
+                last = True         # the slice was a stall: one more
 
 
 def _worker_ready() -> dict:

@@ -303,11 +303,18 @@ class FlattenRowCache:
             return row
 
     def put(self, fingerprint: str, digest: bytes | None, row) -> None:
-        if digest is None:
-            return
+        self._store([((fingerprint, digest), row)])
+
+    def _store(self, entries) -> None:
+        """Insert each ``(key, row)`` of ``entries`` in order (a key with
+        no digest is skipped) under one acquisition of the lock, then
+        evict the least recently used rows past ``max_rows``."""
         with self._lock:
-            self._rows[(fingerprint, digest)] = row
-            self._rows.move_to_end((fingerprint, digest))
+            for key, row in entries:
+                if key[1] is None:
+                    continue
+                self._rows[key] = row
+                self._rows.move_to_end(key)
             while len(self._rows) > self.max_rows:
                 self._rows.popitem(last=False)
 
@@ -367,19 +374,29 @@ class FlattenRowCache:
         ``fingerprint`` and an attached fabric, the bare row is also
         published to the shared tier (fingerprint-keyed — replicas
         revalidate nothing, so the MemoRow envelope stays local)."""
+        self.put_rows(space, [(digest, row)], n_paths, epoch,
+                      fingerprint=fingerprint)
+
+    def put_rows(self, space: str, rows, n_paths: int, epoch: int,
+                 fingerprint: str | None = None) -> None:
+        """:meth:`put_row` for every ``(digest, row)`` of ``rows``, in
+        order, under one acquisition of the memo's lock (a flush's rows
+        at once), then each to the fabric."""
         from ..models.flatten import MemoRow
 
-        self.put(space, digest, MemoRow(row=row, n_paths=n_paths,
-                                        epoch=epoch))
-        if fingerprint and digest is not None and self.fabric is not None:
+        rows = [(d, row) for d, row in rows if d is not None]
+        self._store([((space, d), MemoRow(row=row, n_paths=n_paths,
+                                          epoch=epoch))
+                     for d, row in rows])
+        if fingerprint and self.fabric is not None:
             try:
                 from ..fleet import fabric as fabric_mod
 
                 if fabric_mod.fabric_enabled():
-                    self.fabric.put(
-                        "flatten", fabric_mod.flatten_key(fingerprint,
-                                                          digest),
-                        fabric_mod.encode_flatten_row(row))
+                    for d, row in rows:
+                        self.fabric.put(
+                            "flatten", fabric_mod.flatten_key(fingerprint, d),
+                            fabric_mod.encode_flatten_row(row))
             except Exception:
                 pass
 

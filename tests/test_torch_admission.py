@@ -518,6 +518,173 @@ def test_row_memo_and_kill_switch(caches, monkeypatch):
     assert got["torch"][2] is False
 
 
+def memo_state(b):
+    """A batcher's flatten-row memo once its flushes have ended (a flush
+    stores its rows and its counters after its answers): the memo's
+    counters and its rows by resource digest (the memo space is a lineage
+    id of each process), and the batcher's."""
+    deadline = time.monotonic() + WAIT_S
+    while time.monotonic() < deadline:
+        with b._lock:
+            if not b._pending_flushes:
+                break
+        time.sleep(0.001)
+    cache = b._row_cache
+    with cache._lock:
+        rows = {key[1]: (m.n_paths, m.epoch, m.row.bmeta,
+                         np.asarray(m.row.cells).tobytes(),
+                         np.asarray(m.row.str_bytes).tobytes(),
+                         np.asarray(m.row.dictv).tobytes())
+                for key, m in cache._rows.items()}
+    st = cache.stats()
+    return ({k: st[k] for k in ("rows", "hits", "misses", "extended")},
+            rows, {k: b.stats.get(k, 0) for k in (
+                "flatten_cache_hit_rows", "flatten_cache_miss_rows")})
+
+
+def test_flush_memo_store_matches_jax(caches):
+    """The flushes' row-memo stores: new bodies in one burst (a flush
+    with no hit, whose rows are split and stored after its dispatch),
+    the same bodies again one at a time (every row a hit, so each store
+    came before the next lookup), then old and new bodies together (a
+    flush with hits and misses). After each step the memo's rows, its
+    hit and miss counts and the batcher's are the JAX batcher's."""
+    fresh = [pod("nginx:1.21" if i % 2 else "nginx:latest", f"m{i}")
+             for i in range(4)]
+    mixed = fresh[:2] + [pod("busybox", f"n{i}") for i in range(2)]
+
+    def run(b):
+        states, answers = [], []
+        answers.append(concurrently(4, lambda i: screen(b, fresh[i])))
+        states.append(memo_state(b))
+        answers.append([screen(b, r) for r in fresh])
+        states.append(memo_state(b))
+        answers.append(concurrently(4, lambda i: screen(b, mixed[i])))
+        states.append(memo_state(b))
+        return answers, states
+
+    got = both(caches, run)
+    assert got["torch"] == got["jax"]
+    counts = [c for c, _, _ in got["torch"][1]]
+    assert [(c["rows"], c["hits"], c["misses"]) for c in counts] == [
+        (4, 0, 4), (4, 4, 4), (6, 6, 6)]
+
+
+@pytest.mark.parametrize("warm", [0, 2])
+def test_a_flush_held_at_its_host_join_has_stored_its_memo_rows(caches,
+                                                                warm):
+    """A flush held at its host-lane join (the pool's answers not in yet)
+    has already put its memo rows where a concurrent flush's lookup finds
+    them, as the JAX batcher has: a zero-hit flush's rows (``warm`` 0;
+    the JAX batcher stores them in its dispatch's shadow) or a partial
+    hit's misses (``warm`` 2 of its 4 bodies seen before; stored at its
+    flatten). A second burst of the same bodies, flushed while the first
+    is held, hits on every row; its answers, the memo and the counts are
+    the JAX batcher's. The screens are deadline-free (no adaptive
+    deadline), so a waiter of the held flush waits it out."""
+    bodies = [pod("nginx:1.21" if i % 2 else "nginx:latest", f"h{i}")
+              for i in range(4)]
+    free = {"deadline_free": True}
+
+    def run(b):
+        if warm:
+            concurrently(warm, lambda i: screen(b, bodies[i], **free))
+            memo_state(b)
+        gate, held = threading.Event(), threading.Event()
+        join = b._resolve_flush_hosts
+        calls = []
+
+        def held_join(*args, **kw):
+            calls.append(len(args[1]))
+            if len(calls) == 1:
+                held.set()
+                assert gate.wait(WAIT_S), "the gate was never opened"
+            return join(*args, **kw)
+
+        b._resolve_flush_hosts = held_join
+        first_t, first = in_thread(
+            lambda: concurrently(4, lambda i: screen(b, bodies[i], **free)))
+        try:
+            assert held.wait(WAIT_S)
+            second = concurrently(4, lambda i: screen(b, bodies[i], **free))
+            during = memo_state_now(b)
+        finally:
+            gate.set()
+            first_t.join(WAIT_S)
+        return first[0], second, calls[0], during, memo_state(b)
+
+    got = both(caches, run, window_s=0.05, resolve_host_in_flush=True)
+    assert got["torch"] == got["jax"]
+    first, second, held_rows, during, after = got["torch"]
+    assert first == second and all(row for _, row in first)
+    assert held_rows == 4
+    assert (during[0]["hits"], during[0]["misses"]) == (warm + 4, 4)
+    assert after[0] == during[0]
+
+
+def memo_state_now(b):
+    """:func:`memo_state`'s counts without waiting for the flushes to
+    end."""
+    st = b._row_cache.stats()
+    return ({k: st[k] for k in ("rows", "hits", "misses", "extended")},
+            {k: b.stats.get(k, 0) for k in (
+                "flatten_cache_hit_rows", "flatten_cache_miss_rows")})
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_flush_scatter_matches_the_cell_loop(seed):
+    """The flush's scatter in bulk (``_ScatterTable``) against a loop over
+    every cell in rule order, as the JAX batcher's scatter goes: each
+    row's (policy, rule, verdict, message) cells, and the counts by
+    verdict, by flagged rule name (names repeat across policies) and by
+    (policy, rule, verdict), their keys in the order of their first
+    cell; rule columns out of order, some rows all NOT_APPLICABLE."""
+    rng = np.random.default_rng(seed)
+    n_rules, n_rows = 23, 9
+
+    class Ref:
+        def __init__(self, k, col):
+            self.policy = type("P", (), {"name": f"pol-{k % 7}"})()
+            self.rule = type("R", (), {"name": f"rule-{k % 5}"})()
+            self.rule_index = col
+
+    cols = rng.permutation(n_rules + 3)[:n_rules]
+    cps = type("Set", (), {"rule_refs": [Ref(k, int(c))
+                                         for k, c in enumerate(cols)]})()
+    verdicts = rng.integers(0, 6, size=(n_rows + 2, n_rules + 3),
+                            dtype=np.int8)
+    verdicts[rng.random(verdicts.shape) < 0.4] = 0
+    verdicts[3] = 0
+    messages = {(b, int(c)): f"m{b}-{c}" for b in range(n_rows)
+                for c in cols if rng.random() < 0.2}
+    rows, by_verdict, flagged, attrib = [], {}, {}, {}
+    for b in range(n_rows):
+        row = []
+        for ref in cps.rule_refs:
+            v = Verdict(verdicts[b, ref.rule_index])
+            if v is Verdict.NOT_APPLICABLE:
+                continue
+            p, r = ref.policy.name, ref.rule.name
+            row.append((p, r, v, messages.get((b, ref.rule_index), "")))
+            by_verdict[v.name] = by_verdict.get(v.name, 0) + 1
+            attrib[(p, r, v.name)] = attrib.get((p, r, v.name), 0) + 1
+            if v not in (Verdict.PASS, Verdict.SKIP):
+                flagged[r] = flagged.get(r, 0) + 1
+        rows.append(row)
+    table = batch._scatter_table(cps)
+    cells = verdicts[:n_rows][:, table.cols]
+    per_row = {}
+    for (b, r), msg in messages.items():
+        per_row.setdefault(b, {})[r] = msg
+    assert [table.row(cells[b], per_row.get(b))
+            for b in range(n_rows)] == rows
+    got = table.counts(cells)
+    assert got == (by_verdict, flagged, attrib)
+    assert [list(d) for d in got] == [list(by_verdict), list(flagged),
+                                      list(attrib)]
+    assert table.counts(cells[:, :0]) == ({}, {}, {})
+
+
 def test_host_cells_resolve_in_the_flush():
     """Host-lane rules that read the admission request: one flush
     resolves every waiter's HOST cells with its payload (ctx_cb), so the
@@ -834,6 +1001,138 @@ def test_k6_holder_frees_its_slot_during_the_pick(cpu_set, monkeypatch):
     assert all(s.handle is None for s in ring)
 
 
+def gated_slots(blocked: int):
+    """A stand-in slot class whose ``blocked``-th capture (1-based, over
+    every bucket) waits on ``gate`` after setting ``started``: a capture
+    in progress for as long as a test holds it."""
+    gate, started = threading.Event(), threading.Event()
+    seen = []
+
+    class Gated(_CpuSlot):
+        def _capture(self, plan, shp):
+            seen.append(shp)
+            if len(seen) == blocked:
+                started.set()
+                assert gate.wait(30), "the gate was never opened"
+            return super()._capture(plan, shp)
+
+    return Gated, gate, started
+
+
+def in_thread(fn):
+    """``fn()`` on a thread of its own; returns (thread, results list)."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    t.start()
+    return t, out
+
+
+# how long a dispatch that should not wait is given to finish
+NOT_HELD_S = 5.0
+
+
+def test_k6_capture_does_not_block_another_buckets_dispatch(cpu_set,
+                                                            monkeypatch):
+    """A slot's capture runs outside the ring's lock: while bucket A's
+    first slot is being captured, a dispatch on bucket B builds its own
+    slot, replays and reads its verdicts; A's dispatch then completes
+    with its own verdicts, each bucket with one slot."""
+    cps, a = cpu_set
+    b = cps.flatten_packed([pod("nginx:latest", f"b{i}") for i in range(3)])
+    assert a.packed_blob()[1] != b.packed_blob()[1]
+    gated, gate, started = gated_slots(blocked=1)
+    monkeypatch.setattr(engine, "_Slot", gated)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    live = cps.tensors.n_rules_live
+    want_a, want_b = cps.evaluate_device(a), cps.evaluate_device(b)
+    ta, got_a = in_thread(lambda: cps._dispatch_k6(a, live).get())
+    try:
+        assert started.wait(30)
+        tb, got_b = in_thread(lambda: cps._dispatch_k6(b, live).get())
+        tb.join(NOT_HELD_S)
+        assert not tb.is_alive(), "bucket B waited on bucket A's capture"
+        assert ta.is_alive()               # A's capture is still held
+        assert np.array_equal(got_b[0], want_b)
+    finally:
+        gate.set()
+        ta.join(30)
+    assert np.array_equal(got_a[0], want_a)
+    assert [len(cps._k6[x.packed_blob()[1]]) for x in (a, b)] == [1, 1]
+    assert cps._k6_building == {a.packed_blob()[1]: 0,
+                                b.packed_blob()[1]: 0}
+    assert cps.donation_stats == {"dispatches": 2, "donated_buffers": 0}
+
+
+def test_k6_ready_slot_is_used_while_its_bucket_captures(cpu_set,
+                                                         monkeypatch):
+    """While a bucket's second slot is being captured (its first was
+    held), a dispatch of the same bucket takes the first slot once it is
+    free, without waiting for the capture; the ring then holds both."""
+    cps, a = cpu_set
+    gated, gate, started = gated_slots(blocked=2)
+    monkeypatch.setattr(engine, "_Slot", gated)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    live = cps.tensors.n_rules_live
+    want = cps.evaluate_device(a)
+    h1 = cps._dispatch_k6(a, live)             # slot 1, held
+    t2, got2 = in_thread(lambda: cps._dispatch_k6(a, live).get())
+    try:
+        assert started.wait(30)                # slot 2 capturing
+        assert np.array_equal(h1.get(), want)  # slot 1 free again
+        t3, got3 = in_thread(lambda: cps._dispatch_k6(a, live).get())
+        t3.join(NOT_HELD_S)
+        assert not t3.is_alive(), "a ready slot waited on the capture"
+        assert np.array_equal(got3[0], want)
+    finally:
+        gate.set()
+        t2.join(30)
+    assert np.array_equal(got2[0], want)
+    ring = cps._k6[a.packed_blob()[1]]
+    assert len(ring) == 2 and all(s.handle is None for s in ring)
+    assert cps.donation_stats == {"dispatches": 3, "donated_buffers": 1}
+
+
+def test_k6_slots_being_built_count_toward_the_cap(cpu_set, monkeypatch):
+    """A slot being built holds its place in the bucket: with K6_SLOTS at
+    1 and that slot capturing, a second dispatch builds none and takes
+    the slot once it is published and its holder's verdicts are copied
+    out. A capture that fails gives its place back."""
+    cps, a = cpu_set
+    gated, gate, started = gated_slots(blocked=1)
+    monkeypatch.setattr(engine, "_Slot", gated)
+    monkeypatch.setattr(engine, "K6_SLOTS", 1)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    live = cps.tensors.n_rules_live
+    want = cps.evaluate_device(a)
+    shp = a.packed_blob()[1]
+    alloc = engine.K6_ALLOC["slots"]
+    t1, got1 = in_thread(lambda: cps._dispatch_k6(a, live))
+    try:
+        assert started.wait(30)
+        t2, got2 = in_thread(lambda: cps._dispatch_k6(a, live).get())
+        t2.join(0.2)
+        assert t2.is_alive() and cps._k6[shp] == []
+        assert cps._k6_building[shp] == 1
+    finally:
+        gate.set()
+        t1.join(30)
+        t2.join(30)
+    assert np.array_equal(got2[0], want)
+    assert np.array_equal(got1[0].get(), want)
+    assert len(cps._k6[shp]) == 1 and engine.K6_ALLOC["slots"] == alloc + 1
+
+    class Uncapturable(_CpuSlot):
+        def _capture(self, plan, shp):
+            raise RuntimeError("cudaErrorStreamCaptureImplicit")
+
+    b = cps.flatten_packed([pod("nginx:1.21", f"c{i}") for i in range(3)])
+    monkeypatch.setattr(engine, "_Slot", Uncapturable)
+    with pytest.raises(RuntimeError, match="CaptureImplicit"):
+        cps._dispatch_k6(b, live)
+    assert cps._k6_building[b.packed_blob()[1]] == 0
+    monkeypatch.setattr(engine, "_Slot", _CpuSlot)
+    assert np.array_equal(cps._dispatch_k6(b, live).get(),
+                          cps.evaluate_device(b))
 
 
 def test_k6_phase_timing(cpu_set, monkeypatch):

@@ -201,3 +201,44 @@ def test_chip_smoke_fleet_phase_on_the_cpu(monkeypatch):
     # the phase leaves the switches as it found them
     assert not {"KTPU_FABRIC", "KTPU_FABRIC_TRANSPORT",
                 "KTPU_SCAN_PARTITIONS"} & set(os.environ)
+
+
+@pytest.mark.parametrize("tier", ["decision", "flatten"])
+def test_socket_transport_drops_a_connection_cut_mid_reply(tier):
+    """A fabric call that times out mid-reply (the hub stalled past the
+    transport's timeout) is a miss, and its late reply must not answer
+    the next request: the transport drops the connection, so the next
+    invalidate and get read their own replies over a fresh one."""
+    import threading
+    import time
+
+    from kyverno_tpu_torch.fleet import fabric
+
+    hub = fabric.FabricHub()
+    server = fabric.FabricSocketServer(hub)
+    answer = hub.handle_payload
+    calls, stalled = [], threading.Event()
+
+    def slow_first(payload):
+        calls.append(payload)
+        if len(calls) == 1:
+            time.sleep(0.5)
+            stalled.set()
+        return answer(payload)
+
+    hub.handle_payload = slow_first
+    transport = fabric.SocketTransport(server.host, server.port,
+                                       timeout_s=0.2)
+    client = fabric.FabricClient(transport)
+    try:
+        assert client.put(tier, b"late", b"v") is False
+        assert client.stats["errors"] == 1
+        assert stalled.wait(5)
+        time.sleep(0.1)                   # the late reply has been sent
+        assert client.invalidate("decision") == int(tier == "decision")
+        assert client.get(tier, b"late") == (None if tier == "decision"
+                                             else b"v")
+        assert client.stats["errors"] == 1
+    finally:
+        transport.close()
+        server.stop()

@@ -14,7 +14,10 @@ package's pool route, with ``pool_cells`` counted.
 
 import copy
 import os
+import threading
 import time
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FuturesTimeout
 
 import numpy as np
 import pytest
@@ -320,3 +323,117 @@ def test_context_policy_forces_inline(attached):
     routed = resolver._pool_resolve(cps, r, [0], payload)
     assert routed is not None and pool.hits == 1
     assert routed == cps._oracle_verdicts(r, [0], context=payload)
+
+
+class _Stub:
+    """Stand-in for the pool's process executor: ``submit`` hands out
+    ``make()``'s future; nothing runs."""
+
+    def __init__(self, make):
+        self.make, self.futures = make, []
+
+    def submit(self, fn, *args):
+        fut = self.make()
+        self.futures.append(fut)
+        return fut
+
+    def shutdown(self, wait=True, cancel_futures=False):
+        pass
+
+
+class _StalledCaller(Future):
+    """A worker's answer that arrives while its caller is stalled: the
+    first wait does not return for ``stall`` seconds, longer than the
+    call's timeout, as when a garbage collection holds the interpreter
+    lock; it then reports a timeout, as the caller's own wait would, and
+    the answer is set a moment later, once the executor's thread runs."""
+
+    def __init__(self, stall, answer):
+        super().__init__()
+        self.stall, self.answer, self.waits = stall, answer, 0
+
+    def result(self, timeout=None):
+        self.waits += 1
+        if self.waits == 1:
+            time.sleep(self.stall)
+            threading.Timer(0.02, self.set_result, (self.answer,)).start()
+            raise FuturesTimeout()
+        return super().result(timeout)
+
+
+@pytest.mark.parametrize("timeout_s", [1.0, 0.5])
+def test_an_answer_read_after_the_callers_stall_is_a_hit(timeout_s):
+    """A pool call whose caller stalls 1.2 s, past the call's timeout,
+    while the worker answers (the parent process frozen by a collection)
+    reads the answer once it runs again: a hit, not a miss, and the
+    pool's breaker stays shut to nothing. The timeout counts the pool's
+    time, not the caller's stall; a stall past the wall cap (0.5 s: a
+    1 s cap) still gets one more slice to read the answer."""
+    answer = [("p", [("r", "pass", "")])]
+    pool = OraclePool(workers=2, min_cores=1)
+    pool._pool = _Stub(lambda: _StalledCaller(1.2, answer))
+    try:
+        for _ in range(pool.miss_threshold):
+            assert pool.evaluate(["p"], {}, {}, {}, [], [], [],
+                                 timeout_s=timeout_s) == answer
+        assert (pool.hits, pool.misses) == (pool.miss_threshold, 0)
+        assert pool._disabled_until == 0.0
+    finally:
+        pool.stop()
+
+
+def test_a_pool_that_does_not_answer_still_times_out():
+    """Without a stall the timeout holds as before: a call the workers
+    never answer gives up after about its timeout and is a miss, and
+    ``miss_threshold`` of them in a row shut the pool's lane."""
+    pool = OraclePool(workers=2, min_cores=1)
+    pool._pool = _Stub(Future)
+    try:
+        for _ in range(pool.miss_threshold):
+            t0 = time.monotonic()
+            assert pool.evaluate(["p"], {}, {}, {}, [], [], [],
+                                 timeout_s=0.3) is None
+            assert 0.3 <= time.monotonic() - t0 < 1.5
+        assert (pool.hits, pool.misses) == (0, pool.miss_threshold)
+        assert pool._disabled_until > time.monotonic()
+        assert pool.evaluate(["p"], {}, {}, {}, [], [], []) is None
+        assert len(pool._pool.futures) == pool.miss_threshold
+    finally:
+        pool.stop()
+
+
+class _StalledEveryWait(Future):
+    """A call whose caller stalls ``stall`` seconds in every wait (the
+    interpreter lock held elsewhere throughout) and whose worker never
+    answers; counts the waits."""
+
+    def __init__(self, stall):
+        super().__init__()
+        self.stall, self.waits = stall, 0
+
+    def result(self, timeout=None):
+        self.waits += 1
+        time.sleep(self.stall)
+        raise FuturesTimeout()
+
+
+@pytest.mark.parametrize("stall,timeout_s,waits", [(0.65, 0.6, 3),
+                                                   (0.3, 0.5, 2)])
+def test_a_stalled_caller_gives_up_by_the_wall_cap(stall, timeout_s, waits):
+    """Each wait counts at most its slice toward the timeout, but the
+    whole wait still gives up once ``WAIT_WALL_CAP`` times the timeout
+    has passed on the wall clock, after one more slice if the last was a
+    stall: a caller stalled 0.65 s in every wait gives up a 0.6 s call
+    after three waits (the cap, 1.2 s, passed in the second), where the
+    counted timeout alone would take four; one stalled 0.3 s (no slice
+    overruns by a slice) gives up a 0.5 s call after two, the timeout's
+    two slices. Either call is a miss."""
+    pool = OraclePool(workers=2, min_cores=1)
+    pool._pool = _Stub(lambda: _StalledEveryWait(stall))
+    try:
+        assert pool.evaluate(["p"], {}, {}, {}, [], [], [],
+                             timeout_s=timeout_s) is None
+        assert pool._pool.futures[0].waits == waits
+        assert (pool.hits, pool.misses) == (0, 1)
+    finally:
+        pool.stop()
